@@ -1,0 +1,142 @@
+"""Model / run configuration (port of ``repro.configs.base``).
+
+:class:`ModelConfig` and :class:`ShapeSpec` are copies of the reference's
+framework-neutral dataclasses (the port imports nothing of ``repro``).
+:class:`RunConfig` keeps the knobs this slice reads, with torch dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio",
+                 "cnn"]
+
+#: valid values of :attr:`RunConfig.fusion` (same list as the reference)
+FUSION_MODES = ("off", "static", "auto", "measured")
+AMP_MODES = ("O0", "O1", "O2")
+ATTN_IMPLS = ("einsum", "chunked", "flash")
+REMAT_MODES = ("none", "dots", "full")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    act: str = "swiglu"              # swiglu | geglu | gelu | relu2
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    moe_shared_ff: int = 0
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_n_groups: int = 1
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    # --- hybrid ---
+    hybrid_group: int = 0
+    # --- enc-dec ---
+    n_encoder_layers: int = 0
+    # --- multimodal stubs ---
+    n_prefix_embeds: int = 0
+    # --- provenance ---
+    source: str = ""
+
+    def __post_init__(self):
+        if self.n_heads and not self.head_dim:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_heads and not self.n_kv_heads:
+            object.__setattr__(self, "n_kv_heads", self.n_heads)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding-table vocab padded to a multiple of 128; the padded
+        logit columns are masked in the loss."""
+        return (self.vocab_size + 127) // 128 * 128
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense model (embedding included)."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count for family {self.family!r} comes with its "
+                "model family (ROADMAP queue 1)")
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        total = V * D * (1 if self.tie_embeddings else 2)
+        attn = (D * self.n_heads * self.head_dim
+                + 2 * D * self.n_kv_heads * self.head_dim
+                + self.n_heads * self.head_dim * D)
+        mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
+        return total + L * (attn + mlp + 2 * D) + D
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Execution policy.  This slice runs ``fusion="off"`` with the einsum
+    attention; the other settings raise until their slice lands."""
+
+    # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
+    amp: str = "O1"
+    remat: str = "none"
+    attn_impl: str = "einsum"
+    # attention softmax statistics in fp32 (False = compute dtype)
+    softmax_f32: bool = True
+    fusion: str = "off"
+
+    def __post_init__(self):
+        if self.amp not in AMP_MODES:
+            raise ValueError(f"unknown amp {self.amp!r}; valid: {AMP_MODES}")
+        if self.fusion not in FUSION_MODES:
+            raise ValueError(f"unknown fusion mode {self.fusion!r}; valid: "
+                             f"{', '.join(FUSION_MODES)}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}; "
+                             f"valid: {ATTN_IMPLS}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat {self.remat!r}; "
+                             f"valid: {REMAT_MODES}")
+        if self.fusion != "off":
+            raise NotImplementedError(
+                f"fusion={self.fusion!r} needs the fused kernels "
+                "(ROADMAP queue 1 item 7, queue 2 items 5-7)")
+        if self.attn_impl != "einsum":
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} needs the chunked path and "
+                "the flash kernel (ROADMAP queue 1 item 5, queue 2 item 4)")
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r} applies to the backward pass "
+                "(ROADMAP queue 1 item 6)")
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return torch.float32 if self.amp in ("O0", "O1") else torch.bfloat16
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.float32 if self.amp == "O0" else torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]

@@ -1,0 +1,32 @@
+"""Config registry: name → (full config, smoke config).
+
+The port registers a config once its model family is ported; this slice
+has the dense ``glm4-9b``.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "glm4-9b": "glm4_9b",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port knows: "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,0 +1,159 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles ``csrc/<name>.cu`` for ``sm_90a`` into a shared library
+with a plain C interface, which :func:`load` opens with ``ctypes``.  The
+build happens at first use, from the sources in this package only, into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``).  The library's file name carries a hash of its source,
+so an edited kernel is rebuilt and a stale one is never loaded.
+
+Nothing here runs at import time: the CPU tests import this module on a
+host with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+# no --use_fast_math: it would let the compiler contract and fold the
+# FMA chain of fma_chain
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "ert": {
+        # a, b, o, n, scale, reps, dtype, blocks, threads, stream
+        "ert_triad": (_P, _P, _P, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      _P),
+        # x, o, n, n_iters, ilp, a, b, dtype, blocks, threads, stream
+        "ert_fma_chain": (_P, _P, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        # A, B, C, M, N, K, in_dtype, out_dtype, stream
+        "ert_gemm": (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, _P),
+        "ert_gemm_tile": (ctypes.c_int,),
+        "ert_error_string": (ctypes.c_int,),
+    },
+}
+_RESTYPES = {"ert_error_string": ctypes.c_char_p}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` that ``torch.utils.cpp_extension`` finds."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME is unset and nvcc is "
+                           "not on PATH): the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build(name: str, verbose: bool = False) -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns
+    (library path, seconds spent compiling — 0.0 when it was already
+    built).  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
+    register and shared-memory report."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib, 0.0
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                           f"{proc.stderr[-8000:]}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, lib)      # atomic: a concurrent build sees all or none
+    return lib, seconds
+
+
+def load(name: str = "ert") -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use, with every entry
+    point's ``argtypes`` / ``restype`` declared."""
+    if name in _LOADED:
+        return _LOADED[name]
+    path, _ = build(name)
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = _RESTYPES.get(fn, ctypes.c_int)
+    _LOADED[name] = lib
+    return lib
+
+
+# --------------------------------------------------------------------------
+# Launch helpers shared by the wrappers
+# --------------------------------------------------------------------------
+
+_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+
+
+def dtype_code(t, allowed: tuple[str, ...] = tuple(_DTYPE_CODES)) -> int:
+    """The C interface's code for ``t``'s dtype; raises for others."""
+    name = str(t.dtype).removeprefix("torch.")
+    if name not in allowed:
+        raise TypeError(f"dtype {t.dtype} not supported here; "
+                        f"supported: {allowed}")
+    return _DTYPE_CODES[name]
+
+
+def require_cuda(*tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    16-byte aligned (the kernels load 16-byte vectors)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors on one device, got "
+                             f"{[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("expected 16-byte aligned tensors")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t) -> int:
+    import torch
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.ert_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,72 @@
+"""Kernel launch configuration (port of ``repro.kernels.config``).
+
+Same kernel names as the reference, so tune-store keys line up.  Hopper
+launch parameters replace the TPU's ``dimension_semantics`` hints:
+
+* ``threads``       — threads per block;
+* ``blocks_per_sm`` — grid size of a grid-stride kernel, per SM;
+* ``block_m`` / ``block_n`` / ``block_k`` — GEMM tiles.  The GEMM's tiles
+  are compile-time constants of ``csrc/ert.cu``: the config states them
+  and the wrapper refuses any other value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+KERNELS = ("triad", "fma_chain", "ert_gemm", "flash_attention", "ssd_scan",
+           "fused_norm", "fused_swiglu", "fused_adamw")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """One kernel's launch parameters (hashable: params as sorted items)."""
+
+    kernel: str
+    params: tuple[tuple[str, Any], ...]
+
+    @classmethod
+    def make(cls, kernel: str, **params: Any) -> "KernelConfig":
+        return cls(kernel, tuple(sorted(params.items())))
+
+    @property
+    def dict(self) -> dict[str, Any]:
+        return dict(self.params)
+
+    def get(self, name: str, default: Any = None) -> Any:
+        return self.dict.get(name, default)
+
+    def replace(self, **params: Any) -> "KernelConfig":
+        merged = {**self.dict, **params}
+        return KernelConfig(self.kernel, tuple(sorted(merged.items())))
+
+
+# the kernels this port has written; the others raise in ``resolve`` until
+# their slice lands (ROADMAP queue 2)
+DEFAULTS: dict[str, KernelConfig] = {
+    "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=8),
+    "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
+    "ert_gemm": KernelConfig.make("ert_gemm", block_m=128, block_n=128,
+                                  block_k=32),
+}
+
+
+def default_config(kernel: str) -> KernelConfig:
+    if kernel not in KERNELS:
+        raise KeyError(f"unknown kernel {kernel!r}; known: {KERNELS}")
+    if kernel not in DEFAULTS:
+        raise KeyError(f"kernel {kernel!r} is not ported yet (ROADMAP "
+                       "queue 2); ported: " + ", ".join(DEFAULTS))
+    return DEFAULTS[kernel]
+
+
+def resolve(kernel: str, config: "KernelConfig | None",
+            **overrides: Any) -> KernelConfig:
+    """Layer explicit kwargs over ``config`` over the kernel default
+    (``None`` overrides mean "not specified")."""
+    base = config if config is not None else default_config(kernel)
+    if base.kernel != kernel:
+        raise ValueError(f"config for {base.kernel!r} passed to {kernel!r}")
+    explicit = {k: v for k, v in overrides.items() if v is not None}
+    return base.replace(**explicit) if explicit else base

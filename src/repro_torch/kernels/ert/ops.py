@@ -1,0 +1,187 @@
+"""ERT driver: machine characterization by measurement (port of
+``repro.kernels.ert.ops``; paper §II-A).
+
+The backend follows the device: on ``"cuda"`` every measurement times the
+hand-written Hopper kernels (CUDA events around a run of launches, after
+warmup); on ``"cpu"`` it times the plain PyTorch versions on the host,
+which exercises the same measure → characterize → plot loop.
+
+Sizes are the port's own (:data:`FULL`).  The reference's sizes measure
+launch latency on an H100, not ceilings (its cache-resident triad moves
+768 KB, about 0.25 µs at HBM speed; its 1024³ GEMM is 2.1 GFLOP, about
+2 µs at peak), so each timed launch here is sized to last about 1 ms or
+more: an fp32 chain of 2^23 elements × 1024 iterations × 8 chains
+(1.4e11 FLOPs); an HBM triad of 3 × 256 MiB repeated 8 times in the
+launch; an L2-resident triad of 3 × 8 MiB (24 MiB, inside the 50 MB L2)
+repeated 512 times; GEMMs up to 8192³ for the tensor-core ceiling.
+
+``tuned=True`` needs the tune-store port (ROADMAP queue 1, item 10) and
+raises until it lands.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core.machine import CPU_HOST, MachineSpec, datasheet_for
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ert import bandwidth, flops, gemm
+
+
+@dataclasses.dataclass(frozen=True)
+class ErtSizes:
+    """Problem sizes of one characterization."""
+
+    chain_n: int              # fma_chain elements
+    chain_iters: int          # dependent FMAs per chain
+    hbm_n: int                # triad elements per array, HBM level
+    hbm_reps: int             # passes inside one launch
+    l2_n: int                 # triad elements per array, on-chip level
+    l2_reps: int
+    gemm_ceiling: int         # GEMM size for the tensor-core ceiling
+    gemm_sweep: tuple[int, ...]
+    ladder_gemm: tuple[int, int] = (512, 2048)
+
+
+FULL = ErtSizes(chain_n=1 << 23, chain_iters=1024, hbm_n=1 << 26, hbm_reps=8,
+                l2_n=1 << 21, l2_reps=512, gemm_ceiling=8192,
+                gemm_sweep=(256, 512, 1024, 2048, 4096, 8192))
+SMOKE = ErtSizes(chain_n=1 << 12, chain_iters=8, hbm_n=1 << 14, hbm_reps=2,
+                 l2_n=1 << 10, l2_reps=2, gemm_ceiling=128,
+                 gemm_sweep=(128, 256), ladder_gemm=(128, 256))
+
+
+def time_launches(fn: Callable[[], object], device: torch.device, *,
+                  iters: int = 5, warmup: int = 2,
+                  min_total_s: float = 0.01) -> float:
+    """Mean seconds per call of ``fn`` over back-to-back calls after
+    warmup, between two CUDA events on the card (host clock on the host).
+    At least ``iters`` calls and at least ``min_total_s`` of work are
+    timed, so a launch of a few microseconds is averaged over enough
+    launches to see past the clock."""
+    cuda = device.type == "cuda"
+
+    def run(k: int) -> float:
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(k):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn()
+        return time.perf_counter() - t0
+
+    for _ in range(warmup):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    first = run(1)
+    k = max(iters, min(10_000, math.ceil(min_total_s / max(first, 1e-9))))
+    return run(k) / k
+
+
+def _rand(shape, dtype: torch.dtype, device: torch.device,
+          seed: int = 0) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=device).to(dtype)
+
+
+def measure_flops(dtype: torch.dtype = torch.float32, n: int = FULL.chain_n,
+                  n_iters: int = FULL.chain_iters, ilp: int = 8,
+                  device: str | torch.device = "cuda") -> float:
+    """Peak FLOP/s of one precision on the FMA chain (paper Fig 1 ceiling)."""
+    dev = resolve_device(device)
+    x = _rand((n,), dtype, dev)
+    t = time_launches(lambda: flops.fma_chain(x, n_iters, ilp), dev)
+    return flops.fma_flops(n, n_iters, ilp) / t
+
+
+def measure_bandwidth(dtype: torch.dtype = torch.float32,
+                      n: int = FULL.hbm_n, reps: int = FULL.hbm_reps,
+                      device: str | torch.device = "cuda") -> float:
+    """Sustained triad bytes/s over ``reps`` passes of ``n`` elements."""
+    dev = resolve_device(device)
+    a, b = _rand((n,), dtype, dev, 0), _rand((n,), dtype, dev, 1)
+    if dev.type == "cuda":
+        fn = lambda: bandwidth.triad(a, b, reps=reps)
+    else:
+        fn = lambda: [bandwidth.triad(a, b) for _ in range(reps)]
+    t = time_launches(fn, dev)
+    return bandwidth.triad_bytes(n, a.element_size()) * reps / t
+
+
+def measure_gemm(dtype: torch.dtype = torch.bfloat16, size: int = 1024,
+                 device: str | torch.device = "cuda") -> float:
+    """GEMM FLOP/s at one square size (paper Fig 2 point)."""
+    dev = resolve_device(device)
+    a = _rand((size, size), dtype, dev, 0)
+    b = _rand((size, size), dtype, dev, 1)
+    t = time_launches(lambda: gemm.matmul(a, b), dev)
+    return gemm.gemm_flops(size, size, size) / t
+
+
+def gemm_size_sweep(sizes: tuple[int, ...] = FULL.gemm_sweep,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: str | torch.device = "cuda") -> dict[int, float]:
+    """Paper Fig 2: tensor-core GEMM FLOP/s against matrix size."""
+    return {s: measure_gemm(dtype, s, device) for s in sizes}
+
+
+def ladder(device: str | torch.device = "cuda", sizes: ErtSizes = FULL
+           ) -> dict[str, float]:
+    """Paper Table I: the precision/tuning ladder, Hopper rungs."""
+    n, it = sizes.chain_n, sizes.chain_iters
+    g1, g2 = sizes.ladder_gemm
+    return {
+        "v1 fp32 chain (ilp=1)": measure_flops(torch.float32, n, it, 1, device),
+        "v2 fp32 chain (ilp=8)": measure_flops(torch.float32, n, it, 8, device),
+        "v3 bf16 packed chain (ilp=8)": measure_flops(torch.bfloat16, n, it,
+                                                      8, device),
+        f"v4 tensor-core gemm {g1}": measure_gemm(torch.bfloat16, g1, device),
+        f"v5 tensor-core gemm {g2}": measure_gemm(torch.bfloat16, g2, device),
+    }
+
+
+def characterize(device: str | torch.device = "cuda", tuned: bool = False,
+                 smoke: bool = False,
+                 machine: MachineSpec | None = None) -> MachineSpec:
+    """Measured machine model of the device (paper Fig 1, measured).
+
+    Starts from ``machine`` (default: the datasheet spec of the card, or
+    ``cpu-host`` on the host) and overwrites the f32 and bf16 ceilings and
+    the bandwidth of every memory level; int8/fp8 keep their datasheet
+    value (no ERT kernel measures them yet).
+    """
+    if tuned:
+        raise NotImplementedError(
+            "characterize(tuned=True) needs the tune-store port "
+            "(ROADMAP queue 1, item 10); use tuned=False")
+    dev = resolve_device(device)
+    if machine is None:
+        machine = (datasheet_for(torch.cuda.get_device_name(dev))
+                   if dev.type == "cuda" else CPU_HOST)
+    sz = SMOKE if smoke else FULL
+    peaks = {
+        "f32": measure_flops(torch.float32, sz.chain_n, sz.chain_iters, 8,
+                             dev),
+        "bf16": max(measure_flops(torch.bfloat16, sz.chain_n, sz.chain_iters,
+                                  8, dev),
+                    measure_gemm(torch.bfloat16, sz.gemm_ceiling, dev)),
+    }
+    bw = {
+        machine.hbm.name: measure_bandwidth(torch.float32, sz.hbm_n,
+                                            sz.hbm_reps, dev),
+        machine.vmem.name: measure_bandwidth(torch.float32, sz.l2_n,
+                                             sz.l2_reps, dev),
+    }
+    return machine.with_empirical(peaks, bw)

@@ -1,0 +1,176 @@
+"""Core transformer layers (port of ``repro.models.layers``): norms, RoPE,
+GQA attention, the SwiGLU MLP, embedding and unembedding.
+
+Plain functions on tensors: ``*_spec(cfg)`` returns a :class:`P` tree and
+``*_apply(params, x, ...)`` is the forward.  Matmuls run in
+``RunConfig.compute_dtype``; norms and softmax statistics accumulate in
+fp32.  Weights are cast to the compute dtype where they are used, one
+layer at a time, as the reference does (casting the whole fp32 tree at
+once would hold a second copy of every weight).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.params import P
+
+Params = Any
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm_spec(d: int) -> Params:
+    return {"scale": P((d,), ("embed",), "ones")}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
+                  ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(dt)
+
+
+def rmsnorm_residual_apply(p: Params, x: torch.Tensor, h: torch.Tensor,
+                           eps: float = 1e-5
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + h, rmsnorm(x + h)) — the pre-norm block's residual seam."""
+    r = x + h
+    return r, rmsnorm_apply(p, r, eps)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embedding
+# --------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """RoPE over the trailing head_dim of ``x`` (..., S, H, hd), in the
+    rotate-half form (halves split and concatenated, not interleaved)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.float()[..., None] * freq                   # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA attention
+# --------------------------------------------------------------------------
+
+def attention_spec(cfg: ModelConfig) -> Params:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": P((D, H, hd), ("embed", "heads", "head_dim")),
+        "wk": P((D, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": P((D, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": P((H, hd, D), ("heads", "head_dim", "embed")),
+    }
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+          stat_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Grouped scaled-dot-product attention.
+
+    q: (B, Sq, K, G, hd) — query heads grouped by their KV head.
+    k/v: (B, Sk, K, hd).  Masked scores are -1e30 (not -inf, as the
+    reference), softmax statistics in ``stat_dtype``.
+    """
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
+    scores = scores.to(stat_dtype)
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]                 # (Sq, Sk)
+        scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    run: RunConfig, positions: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """Causal GQA self-attention (no KV cache)."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // K
+    cd = run.compute_dtype
+    sd = torch.float32 if run.softmax_f32 else cd
+    xc = x.to(cd)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", xc, p["wv"].to(cd))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    qg = q.reshape(B, S, K, G, hd)
+    out = _sdpa(qg, k, v, positions, positions, causal=True, stat_dtype=sd)
+    out = out.reshape(B, S, H, hd)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_spec(cfg: ModelConfig) -> Params:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {"w_gate": P((D, Fd), ("embed", "ffn")),
+            "w_up": P((D, Fd), ("embed", "ffn")),
+            "w_down": P((Fd, D), ("ffn", "embed"))}
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              run: RunConfig) -> torch.Tensor:
+    """SwiGLU MLP: silu(x·W_gate) * (x·W_up) · W_down."""
+    if cfg.act != "swiglu":
+        raise NotImplementedError(
+            f"act={cfg.act!r}: this slice ports the silu-SwiGLU MLP only")
+    cd = run.compute_dtype
+    xc = x.to(cd)
+    g = torch.einsum("bsd,df->bsf", xc, p["w_gate"].to(cd))
+    u = torch.einsum("bsd,df->bsf", xc, p["w_up"].to(cd))
+    h = F.silu(g) * u
+    y = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cd))
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding / unembedding
+# --------------------------------------------------------------------------
+
+def embed_spec(cfg: ModelConfig) -> Params:
+    V = cfg.vocab_padded
+    out = {"tokens": P((V, cfg.d_model), ("vocab", "embed"), "small_normal")}
+    if not cfg.tie_embeddings:
+        out["unembed"] = P((cfg.d_model, V), ("embed", "vocab"))
+    return out
+
+
+def embed_apply(p: Params, tokens: torch.Tensor, run: RunConfig
+                ) -> torch.Tensor:
+    return p["tokens"].to(run.compute_dtype)[tokens]
+
+
+def unembed_apply(p: Params, x: torch.Tensor, run: RunConfig
+                  ) -> torch.Tensor:
+    cd = run.compute_dtype
+    w = p.get("unembed")
+    if w is None:
+        w = p["tokens"].T
+    return torch.einsum("bsd,dv->bsv", x.to(cd), w.to(cd))

@@ -1,0 +1,108 @@
+"""Parameter specification utilities (port of ``repro.models.params``).
+
+A model is described by a nested dict of :class:`P` specs (shape + logical
+axis names + init rule).  Parameters keep the reference's einsum layouts:
+``wq`` (D, H, hd), ``wk``/``wv`` (D, K, hd), ``wo`` (H, hd, D), and
+layer-stacked leaves with a leading ``n_layers`` axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"       # normal | zeros | ones | small_normal
+    scale: float | None = None  # None → 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_map_specs(fn: Callable[[P], Any], specs: Any) -> Any:
+    if isinstance(specs, P):
+        return fn(specs)
+    return {k: tree_map_specs(fn, v) for k, v in specs.items()}
+
+
+def leaves(specs: Any, prefix: str = "") -> list[tuple[str, P]]:
+    """(path, spec) pairs in the order the reference's ``jax.tree.flatten``
+    visits a dict tree (keys sorted)."""
+    if isinstance(specs, P):
+        return [(prefix, specs)]
+    out = []
+    for k in sorted(specs):
+        out.extend(leaves(specs[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def count(specs: Any) -> int:
+    return sum(math.prod(p.shape) for _, p in leaves(specs))
+
+
+def stack_layers(spec_fn: Callable[[], Any], n: int) -> Any:
+    """Prepend a ``layers`` axis to every param in a layer spec."""
+    return tree_map_specs(
+        lambda p: P((n, *p.shape), ("layers", *p.axes), p.init, p.scale),
+        spec_fn())
+
+
+def init(specs: Any, generator: torch.Generator | None,
+         dtype: torch.dtype = torch.float32,
+         device: str | torch.device = "cpu") -> Any:
+    """Tensors for a spec tree, by the reference's rules: zeros, ones, or a
+    float32 normal draw times 1/sqrt(fan-in) (0.02 for ``small_normal``),
+    cast to ``dtype``.  Leaves are drawn from ``generator`` in sorted-key
+    order.  On the ``meta`` device nothing is drawn or allocated (the
+    analytical path); ``generator`` may then be None.
+    """
+    device = torch.device(device)
+
+    def one(p: P) -> torch.Tensor:
+        if device.type == "meta":
+            return torch.empty(p.shape, dtype=dtype, device=device)
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=device)
+        fan_in = math.prod(p.shape[:-1]) if len(p.shape) > 1 else 1
+        scale = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
+        if p.init == "small_normal":
+            scale = 0.02
+        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.mul_(scale).to(dtype)      # in place: one full-size buffer
+
+    out: dict = {}
+    for path, p in leaves(specs):
+        node = out
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = one(p)
+    return out
+
+
+def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """The reference's parameter tree, given as numpy arrays, as tensors.
+
+    ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16``; bf16 crosses
+    as float32 (exact) and is cast back.
+    """
+    if isinstance(tree, dict):
+        return {k: from_jax_numpy(v, device) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    # a copy: arrays exported by JAX are read-only
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)

@@ -1,0 +1,159 @@
+"""Session: the paper's workflow as one object (port of
+``repro.session.session``) — characterize the machine, then characterize
+the application against it.
+
+``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
+no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
+on the host.  This slice has the fwd phase of the dense LM; ``bwd`` and
+``opt`` come with the train-step slice (ROADMAP queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+
+from repro_torch.core.machine import (CPU_HOST, MachineSpec, datasheet_for,
+                                      get_machine)
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.session.result import RooflineResult, payload_from_profile
+
+#: phases of one training step, in execution order (the paper's split)
+TRAIN_PHASES = ("fwd", "bwd", "opt")
+#: phases this slice builds
+PORTED_PHASES = ("fwd",)
+#: seed of the random weights and tokens of a measured registry profile
+SEED = 0
+
+
+def _matmul_class(run: Any) -> str | None:
+    return "bf16" if run.compute_dtype == torch.bfloat16 else None
+
+
+class Session:
+    """One analysis session: a machine model on one device.
+
+    ``machine`` is a :class:`MachineSpec`, a registry name, or ``None``
+    for the datasheet spec of the device (``cpu-host`` on the host).
+    """
+
+    def __init__(self, machine: MachineSpec | str | None = None,
+                 device: str | torch.device = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        if machine is None:
+            machine = (datasheet_for(torch.cuda.get_device_name(self.device))
+                       if self.device.type == "cuda" else CPU_HOST)
+        self.machine = (machine if isinstance(machine, MachineSpec)
+                        else get_machine(machine))
+
+    def __repr__(self) -> str:
+        return (f"Session(machine={self.machine.name!r}, "
+                f"device={str(self.device)!r})")
+
+    def _provenance(self, **extra: Any) -> dict[str, Any]:
+        dev = str(self.device)
+        if self.device.type == "cuda":
+            dev += f" ({torch.cuda.get_device_name(self.device)})"
+        return {"device": dev, "machine": self.machine.name,
+                "torch": torch.__version__, **extra}
+
+    # -- 1. machine characterization (paper §II-A) -----------------------
+    def characterize(self, empirical: bool = False, tuned: bool = False,
+                     smoke: bool = False) -> RooflineResult:
+        """Machine model: datasheet, or measured ERT ceilings of the device
+        (which then becomes the session's machine)."""
+        if empirical:
+            from repro_torch.kernels.ert.ops import characterize
+            self.machine = characterize(self.device, tuned=tuned, smoke=smoke,
+                                        machine=self.machine)
+        from repro_torch.core.report import machine_table
+        return RooflineResult(
+            kind="characterize", name=self.machine.name,
+            machine=self.machine,
+            provenance=self._provenance(empirical=empirical),
+            text=machine_table(self.machine))
+
+    # -- 2. application characterization (paper §II-B) -------------------
+    def profile(self, target: str | Callable, args: Sequence[Any] = (),
+                *, phases: Sequence[str] = PORTED_PHASES,
+                seq: int = 32, batch: int = 4, amp: str = "O1",
+                fusion: str = "off", smoke: bool = True,
+                measure: bool = False, iters: int = 5, warmup: int = 2
+                ) -> RooflineResult:
+        """Aten-op walk of a registry config's phases — or of *your* torch
+        function (pass a callable + ``args``).
+
+        ``measure=True`` also runs the same callable on the session's
+        device (parameters drawn there from seed :data:`SEED`) and
+        attributes the measured time over its kernels; without it the walk
+        runs on meta tensors and allocates nothing, even at full width.
+        """
+        from repro_torch.core.profiler import profile_fn
+
+        if callable(target):
+            label = getattr(target, "__name__", "fn")
+            phase_args: Mapping[str, tuple] = {label: (target, tuple(args))}
+            mm = None
+        else:
+            label = target
+            phase_args, run = self._build_phases(
+                target, phases=phases, seq=seq, batch=batch, amp=amp,
+                fusion=fusion, smoke=smoke, concrete=measure)
+            mm = _matmul_class(run)
+
+        results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
+                                  measure=measure, measure_iters=iters,
+                                  measure_warmup=warmup, matmul_class=mm)
+                   for ph, (fn, a) in phase_args.items()}
+        if measure:
+            from repro_torch.trace.collector import measurement_from_profile
+            from repro_torch.trace.store import phase_payload
+            payloads = {ph: phase_payload(
+                measurement_from_profile(res, self.machine))
+                for ph, res in results.items()}
+        else:
+            payloads = {ph: payload_from_profile(res)
+                        for ph, res in results.items()}
+        return RooflineResult(
+            kind="profile", name=label, machine=self.machine,
+            provenance=self._provenance(measured=measure),
+            phases=payloads,
+            analyses={ph: res.analysis for ph, res in results.items()},
+            data=results)
+
+    def _build_phases(self, config: str, *, phases: Sequence[str], seq: int,
+                      batch: int, amp: str, fusion: str, smoke: bool,
+                      concrete: bool):
+        """({phase: (fn, args)}, run) for a registry config: real tensors
+        on the session's device for the measured path, meta tensors for
+        the analytical one.  Only what the fwd phase needs is built (no
+        optimizer state, no gradients)."""
+        from repro_torch.configs.base import RunConfig, ShapeSpec
+        from repro_torch.configs.registry import get_config, get_smoke
+        from repro_torch.models import api as M
+        from repro_torch.models.params import init
+
+        for ph in phases:
+            if ph not in TRAIN_PHASES:
+                raise ValueError(f"unknown phase {ph!r}; valid: "
+                                 f"{TRAIN_PHASES}")
+            if ph not in PORTED_PHASES:
+                raise NotImplementedError(
+                    f"phase {ph!r} comes with the train-step slice "
+                    "(ROADMAP queue 1, item 6)")
+        cfg = get_smoke(config) if smoke else get_config(config)
+        run = RunConfig(amp=amp, fusion=fusion)
+        model = M.build(cfg)
+        device = self.device if concrete else torch.device("meta")
+        gen = (torch.Generator(device=device).manual_seed(SEED)
+               if concrete else None)
+        params = init(model.spec, gen, run.param_dtype, device)
+        batch_t = M.synthetic_batch(cfg, ShapeSpec("trace", seq, batch,
+                                                   "train"),
+                                    batch, gen, device)
+
+        def fwd(params, batch):
+            return model.loss_fn(params, batch, run)[0]
+
+        return {"fwd": (fwd, (params, batch_t))}, run

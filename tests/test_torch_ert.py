@@ -1,0 +1,173 @@
+"""The ERT micro-kernels' plain versions against the reference's jnp
+oracles (``repro.kernels.ert.ref``), the analytic byte/FLOP models against
+the reference's, and the CPU side of the wrappers and the ERT driver.
+
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+each one against these plain versions there.
+
+Tolerances: f32 rtol 1e-5 (both sides round the same ops in f32; XLA may
+contract a multiply-add into one rounding); bf16 is compared in f32 with
+rtol 1e-2 (bf16 keeps 8 mantissa bits, and the two frameworks may round
+an intermediate at different places).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import config as r_config
+from repro.kernels.ert import bandwidth as r_bw
+from repro.kernels.ert import flops as r_flops
+from repro.kernels.ert import gemm as r_gemm
+from repro.kernels.ert import ref as r_ref
+from repro_torch.kernels import config as p_config
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.ert import bandwidth, flops, gemm, ops, ref
+
+DTYPES = {"f32": (torch.float32, jnp.float32, 1e-5),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 1e-2)}
+
+
+def _pair(arr: np.ndarray, dtype: str):
+    tdt, jdt, _ = DTYPES[dtype]
+    return torch.from_numpy(arr).to(tdt), jnp.asarray(arr, dtype=jdt)
+
+
+def _close(t: torch.Tensor, j, rtol: float, atol: float = 0.0) -> None:
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j, dtype=np.float32),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1000, 16385])
+def test_triad_plain_matches_reference(dtype, n):
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    (ta, ja), (tb, jb) = _pair(a, dtype), _pair(b, dtype)
+    rtol = DTYPES[dtype][2]
+    _close(ref.triad_ref(ta, tb), r_ref.triad_ref(ja, jb), rtol, atol=rtol)
+    _close(ref.triad_ref(ta, tb, 0.5), r_ref.triad_ref(ja, jb, 0.5), rtol,
+           atol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("ilp", [1, 4, 8])
+@pytest.mark.parametrize("n", [1000, 16385])
+def test_fma_chain_plain_matches_reference(dtype, ilp, n):
+    rng = np.random.default_rng(ilp * n)
+    x = rng.uniform(-1, 1, n).astype(np.float32)
+    tx, jx = _pair(x, dtype)
+    _close(ref.fma_chain_ref(tx, 16, ilp), r_ref.fma_chain_ref(jx, 16, ilp),
+           DTYPES[dtype][2], atol=DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("size", [128, 256])
+def test_matmul_plain_matches_reference(dtype, size):
+    rng = np.random.default_rng(size)
+    a = rng.standard_normal((size, size)).astype(np.float32)
+    b = rng.standard_normal((size, size)).astype(np.float32)
+    (ta, ja), (tb, jb) = _pair(a, dtype), _pair(b, dtype)
+    rtol = DTYPES[dtype][2]
+    # the accumulator is f32 on both sides; only the summation order differs
+    _close(ref.matmul_ref(ta, tb), r_ref.matmul_ref(ja, jb), rtol,
+           atol=rtol * np.sqrt(size))
+    _close(ref.matmul_ref(ta, tb, torch.float32),
+           r_ref.matmul_ref(ja, jb, jnp.float32), 1e-5,
+           atol=1e-4 * np.sqrt(size))
+
+
+@pytest.mark.parametrize("n,itemsize,iters,ilp,m,k", [
+    (1000, 4, 64, 4, 128, 256), (1 << 26, 2, 1024, 8, 8192, 8192),
+    (16385, 4, 1, 1, 512, 96)])
+def test_analytic_models_equal_reference(n, itemsize, iters, ilp, m, k):
+    assert bandwidth.triad_bytes(n, itemsize) == r_bw.triad_bytes(n, itemsize)
+    assert bandwidth.triad_flops(n) == r_bw.triad_flops(n)
+    assert flops.fma_flops(n, iters, ilp) == r_flops.fma_flops(n, iters, ilp)
+    assert gemm.gemm_flops(m, m, k) == r_gemm.gemm_flops(m, m, k)
+
+
+def test_cpu_wrappers_take_plain_path_without_counting():
+    reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.rand(999, generator=g), torch.rand(999, generator=g)
+    assert torch.equal(bandwidth.triad(a, b, reps=3, block=8,
+                                       double_buffer=True),
+                       ref.triad_ref(a, b))
+    x = torch.rand(1001, generator=g, dtype=torch.float32)
+    assert torch.equal(flops.fma_chain(x, 8, 2, block=64),
+                       ref.fma_chain_ref(x, 8, 2))
+    m = torch.rand(64, 32, generator=g).to(torch.bfloat16)
+    w = torch.rand(32, 48, generator=g).to(torch.bfloat16)
+    assert torch.equal(gemm.matmul(m, w, out_dtype=torch.float32),
+                       ref.matmul_ref(m, w, torch.float32))
+    assert launch_counts() == {"triad": 0, "fma_chain": 0, "ert_gemm": 0}
+
+
+def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    a = torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        bandwidth.triad(a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        flops.fma_chain(a, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        gemm.matmul(a.view(8, 8), a.view(8, 8))
+
+
+def test_wrappers_validate_operands():
+    with pytest.raises(ValueError, match="differ"):
+        bandwidth.triad(torch.zeros(4), torch.zeros(5))
+    with pytest.raises(ValueError, match="shapes"):
+        gemm.matmul(torch.zeros(4, 3), torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="not compiled"):
+        flops.fma_chain(torch.empty(8, device="meta"), 4, 3)
+
+
+def test_kernel_names_line_up_with_reference():
+    assert p_config.KERNELS == r_config.KERNELS
+    assert set(p_config.DEFAULTS) == {"triad", "fma_chain", "ert_gemm"}
+    cfg = p_config.resolve("ert_gemm", None, block_m=64)
+    assert cfg.get("block_m") == 64 and cfg.get("block_k") == 32
+    assert p_config.resolve("ert_gemm", cfg) == cfg
+    with pytest.raises(KeyError, match="not ported"):
+        p_config.resolve("flash_attention", None)
+    with pytest.raises(ValueError, match="passed to"):
+        p_config.resolve("triad", p_config.DEFAULTS["fma_chain"])
+
+
+def test_characterize_on_host_returns_measured_spec():
+    spec = ops.characterize(device="cpu", smoke=True)
+    assert spec.empirical and spec.name == "cpu-host"
+    assert set(spec.peak_flops) == {"f32", "bf16", "int8"}
+    assert all(v > 0 for v in spec.peak_flops.values())
+    assert [lv.name for lv in spec.mem_levels] == ["vmem", "hbm"]
+    assert all(lv.bytes_per_s > 0 for lv in spec.mem_levels)
+
+
+def test_characterize_tuned_needs_the_tune_store():
+    with pytest.raises(NotImplementedError, match="tune-store"):
+        ops.characterize(device="cpu", tuned=True)
+
+
+def test_ladder_and_sweep_on_host():
+    lad = ops.ladder("cpu", ops.SMOKE)
+    assert list(lad) == ["v1 fp32 chain (ilp=1)", "v2 fp32 chain (ilp=8)",
+                         "v3 bf16 packed chain (ilp=8)",
+                         "v4 tensor-core gemm 128", "v5 tensor-core gemm 256"]
+    assert all(v > 0 for v in lad.values())
+    sweep = ops.gemm_size_sweep(ops.SMOKE.gemm_sweep, device="cpu")
+    assert list(sweep) == [128, 256] and all(v > 0 for v in sweep.values())
+
+
+def test_full_sizes_give_each_launch_real_work():
+    full = ops.FULL
+    # HBM triad: 3 arrays well past the 50 MB L2; L2 triad inside it
+    assert 3 * full.hbm_n * 4 >= 3 * 64 * 2**20
+    assert 3 * full.l2_n * 4 <= 25 * 2**20
+    # ~1 ms or more at the datasheet rates
+    assert flops.fma_flops(full.chain_n, full.chain_iters, 8) / 67e12 > 1e-3
+    assert bandwidth.triad_bytes(full.hbm_n, 4) * full.hbm_reps / 3.35e12 > 1e-3
+    assert gemm.gemm_flops(*(full.gemm_ceiling,) * 3) / 989e12 > 1e-3
