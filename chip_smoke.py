@@ -9,19 +9,31 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``; it builds the
 hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. builds the kernels (printing ``ptxas`` register / shared-memory use);
+2. builds the kernel libraries ``ert`` and ``fused`` (one ``nvcc`` each,
+   started together; one line of ``ptxas`` register / spill use each);
 3. holds each kernel against its plain PyTorch version on the card, at
-   the shapes ``characterize`` uses and at odd sizes, and times kernel,
-   plain version and library call beside the datasheet bound;
-4. drives the main path with every launch count at 0: machine
-   characterization (``Session.characterize(empirical=True)``, the ladder
-   and the GEMM size sweep, each ceiling checked against 1.05x its
-   datasheet value), then the full-width, full-depth glm4-9b fwd phase
-   (``Session.profile(..., measure=True)``), whose loss must be finite and
-   whose matmul FLOPs must equal the analytic count;
-5. checks the smoke-size fwd on the card against the same function on the
-   host (the port's CPU path, which the tests hold against the JAX
-   reference);
+   the shapes its main path gives it and at odd sizes, checks the
+   gradient through each routed fused op against the plain route, and
+   times kernel, plain version and library call beside the datasheet
+   bound (the fused kernels' times replay a CUDA graph of many calls, so
+   no host launch overhead is timed; their eager back-to-back time is
+   printed beside it);
+4. drives two main paths, each with every launch count set to 0 just
+   before it and read just after:
+   a. machine characterization (``Session.characterize(empirical=True)``,
+      the ladder and the GEMM size sweep, each ceiling checked against
+      1.05x its datasheet value), then the full-width, full-depth
+      glm4-9b fwd phase at ``fusion="off"``, whose loss must be finite
+      and whose matmul FLOPs must equal the analytic count;
+   b. the train step of glm4-9b at full width with the depth cut to 4
+      layers (seq 2048, batch 2, AMP O1): its fwd, bwd and opt phases
+      profiled with ``measure=True`` under ``fusion="off"`` and
+      ``"static"`` (matmul FLOPs must equal the analytic count, 3x it,
+      and 0), then 3 steps of ``make_train_step`` under ``"static"``
+      with a finite loss each;
+5. checks the smoke-size fwd and one smoke train step (O0, ``static``) on
+   the card against the same functions on the host (the port's CPU path,
+   which the tests hold against the JAX reference);
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -35,8 +47,13 @@ import math
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+LIBRARIES = ("ert", "fused")
+ERT_KERNELS = ("triad", "fma_chain", "ert_gemm")
+FUSED_KERNELS = ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
+                 "fused_adamw")
 
 
 def _fail(msg: str) -> int:
@@ -183,6 +200,261 @@ def kernel_checks(dev, sheet) -> list[dict]:
     return rows
 
 
+def fused_checks(dev, sheet) -> list[dict]:
+    """Phase 3 for the fused kernels: each against its plain version at
+    the main path's shapes and at odd ones, the gradient through each
+    routed op against the plain route, and the times."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ert import ops as ert_ops
+    from repro_torch.kernels.fused import adamw, norm, ops, swiglu
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def eager_ms(fn) -> float:
+        """Milliseconds per call, back to back as the train step calls
+        them: host launch overhead included (it hides a kernel shorter
+        than the Python call)."""
+        return 1e3 * ert_ops.time_launches(fn, dev)
+
+    def ms(fn, calls: int = 20, replays: int = 5) -> float:
+        """Device milliseconds per call: ``calls`` calls captured in one
+        CUDA graph and replayed, so no host launch overhead is timed."""
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out = start.elapsed_time(end) / (replays * calls)
+        del graph
+        torch.cuda.empty_cache()
+        return out
+
+    def rotating(make, k=4):
+        """k operand sets, cycled: together larger than the 50 MB L2, so
+        a timed launch finds its inputs in HBM as the train step does."""
+        sets = [make() for _ in range(k)]
+        it = itertools.cycle(sets)
+        return sets, lambda: next(it)
+
+    def ulp_tol(dtype, ref, f32_ulps: int = 1) -> float:
+        # one rounding of an fp32 value that may differ in its last bits
+        # (sums in another order, another exp/tanh): 1 ulp of the output
+        # dtype at the largest |ref| (an f32 output may take more)
+        ulp = 2.0 ** -7 if dtype == bf16 else f32_ulps * 2.0 ** -22
+        return ulp * ref.float().abs().max().item() + 1e-30
+
+    rows = []
+    eps = 1e-5
+    # -- rmsnorm / rmsnorm_residual ------------------------------------------
+    print("fused_rmsnorm / fused_rmsnorm_residual: (tolerance: bf16 out 1 "
+          "ulp at max|ref| — one rounding at the write of fp32 values that "
+          "differ in their last bits; f32 out 8 ulps at max|ref| — the mean "
+          "of up to 4097 squares summed in another order moves the "
+          "statistics by a few ulps; r = x + h exactly)")
+    norm_tol = lambda dt, want: ulp_tol(dt, want, f32_ulps=8)
+    stack = torch.rand((4, 4097), generator=g, device=dev) + 0.5
+    for (r, d), dt in itertools.product(
+            ((4096, 4096), (1, 4097), (4097, 1), (4097, 4097), (1, 1)),
+            (bf16, f32)):
+        x, h = randn((r, d), dt, 3.0), randn((r, d), dt)
+        # d = 4097: a view at a 4-byte offset, so the scalar path runs
+        sc = stack[1, :d] if d == 4097 else stack[1, :d].clone()
+        want = norm.rmsnorm_ref(x, sc, eps, dt)
+        check(f"rmsnorm {str(dt)[6:]} {r}x{d}", norm.fused_rmsnorm(x, sc),
+              want, norm_tol(dt, want))
+        rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
+        r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, dt)
+        check(f"rmsnorm_residual r {str(dt)[6:]} {r}x{d}", rr, r_ref, 0.0)
+        check(f"rmsnorm_residual y {str(dt)[6:]} {r}x{d}", yy, y_ref,
+              norm_tol(dt, y_ref))
+    # the per-layer scale of the main path: a view into the (4, d) stack
+    # at offset 1·4096·4 B, and bf16 output from f32 statistics
+    x = randn((4096, 4096), bf16, 3.0)
+    sc = torch.rand((4, 4096), generator=g, device=dev)[1]
+    want = norm.rmsnorm_ref(x, sc, eps, f32)
+    check("rmsnorm bf16->f32 4096x4096 (scale view)",
+          norm.fused_rmsnorm(x, sc, out_dtype=f32), want, norm_tol(f32, want))
+    sets, nxt = rotating(lambda: (randn((4096, 4096), bf16, 3.0),
+                                  randn((4096, 4096), bf16)))
+    x, h = sets[0]
+    err = max_abs_err(norm.fused_rmsnorm(x, sc),
+                      norm.rmsnorm_ref(x, sc, eps, bf16))[0]
+    rows.append({
+        "name": "fused_rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/norm.py:55",
+        "shape": "bf16 (4096, 4096), f32 scale (ln_attn / ln_f of the main "
+                 "path)",
+        "max_abs_err": err,
+        "ms": ms(lambda: norm.fused_rmsnorm(nxt()[0], sc)),
+        "eager_ms": eager_ms(lambda: norm.fused_rmsnorm(nxt()[0], sc)),
+        "plain_ms": ms(lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, bf16)),
+        # F.rms_norm on a bf16 x with an f32 weight computes in fp32 and
+        # returns fp32 (the kernel writes bf16): the yardstick moves 3 of
+        # 4 bytes of ours per element, not the same bytes
+        "library_ms": ms(lambda: F.rms_norm(nxt()[0], (4096,), sc, eps)),
+        **bound(norm.hbm_bytes(4096, 4096, 2), norm.flops(4096, 4096),
+                "f32", sheet)})
+    sc16 = sc.to(bf16)
+    print(f"  F.rms_norm with the scale cast to bf16 (its fused path; not "
+          f"the same inputs): "
+          f"{ms(lambda: F.rms_norm(nxt()[0], (4096,), sc16, eps)):.4f} ms")
+    err = max(max_abs_err(a, b)[0] for a, b in zip(
+        norm.fused_rmsnorm_residual(x, h, sc),
+        norm.rmsnorm_residual_ref(x, h, sc, eps, bf16)))
+    rows.append({
+        "name": "fused_rmsnorm_residual", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/norm.py:67",
+        "shape": "bf16 (4096, 4096) x and h, f32 scale (ln_mlp of the main "
+                 "path)",
+        "max_abs_err": err,
+        "ms": ms(lambda: norm.fused_rmsnorm_residual(*nxt(), sc)),
+        "eager_ms": eager_ms(lambda: norm.fused_rmsnorm_residual(*nxt(),
+                                                                 sc)),
+        "plain_ms": ms(lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps,
+                                                         bf16)),
+        "library_ms": None,
+        **bound(norm.hbm_bytes(4096, 4096, 2, residual=True),
+                norm.flops(4096, 4096, residual=True), "f32", sheet)})
+    del sets, x, h, stack
+
+    # -- swiglu ----------------------------------------------------------------
+    print("fused_swiglu: (tolerance: 1 ulp of the output dtype at max|ref| "
+          "— CUDA's expf/tanhf against ATen's, one rounding at the write)")
+    for (r, d), dt, act in itertools.product(
+            ((4096, 13_696), (1, 1), (4097, 4097), (1, 4097)), (bf16, f32),
+            ("silu", "gelu")):
+        a, b = randn((r, d), dt, 2.0), randn((r, d), dt)
+        want = swiglu.swiglu_ref(a, b, act, dt)
+        check(f"swiglu {act} {str(dt)[6:]} {r}x{d}",
+              swiglu.fused_swiglu(a, b, act=act), want, ulp_tol(dt, want))
+    sets, nxt = rotating(lambda: (randn((4096, 13_696), bf16, 2.0),
+                                  randn((4096, 13_696), bf16)), k=2)
+    a, b = sets[0]
+    err = max_abs_err(swiglu.fused_swiglu(a, b),
+                      swiglu.swiglu_ref(a, b, "silu", bf16))[0]
+    rows.append({
+        "name": "fused_swiglu", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/swiglu.py:32",
+        "shape": "bf16 (4096, 13696), silu (every MLP of the main path)",
+        "max_abs_err": err,
+        "ms": ms(lambda: swiglu.fused_swiglu(*nxt())),
+        "eager_ms": eager_ms(lambda: swiglu.fused_swiglu(*nxt())),
+        "plain_ms": ms(lambda: swiglu.swiglu_ref(*nxt(), "silu", bf16)),
+        "library_ms": None,
+        **bound(swiglu.hbm_bytes(4096, 13_696, 2),
+                swiglu.flops(4096, 13_696), "f32", sheet)})
+    del sets, a, b
+
+    # -- adamw -----------------------------------------------------------------
+    print("fused_adamw: (tolerance: 1 ulp of each output dtype at max|ref| "
+          "— the kernel rounds every operation as the plain version does, "
+          "IEEE division and square root, no contraction)")
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.95 ** 3], device=dev)
+
+    def leaf(shape, gd, md, pd):
+        return (randn(shape, gd), randn(shape, md, 0.1),
+                randn(shape, md, 0.01).abs(), randn(shape, pd))
+
+    for shape, dts in (((4, 4096, 13_696), (bf16, bf16, bf16)),
+                       ((4, 4096, 13_696), (f32, bf16, bf16)),
+                       ((1,), (f32, f32, f32)), ((4097,), (bf16, f32, f32)),
+                       ((4097,), (f32, bf16, bf16))):
+        gg, m, v, pp = leaf(shape, *dts)
+        want = adamw.adamw_ref(gg, m, v, pp, bc, **hyper)
+        for tag, got in (("", adamw.fused_adamw(gg, m, v, pp, bc, **hyper)),
+                         (" in place", adamw.fused_adamw(
+                             gg, m.clone(), v.clone(), pp.clone(), bc,
+                             inplace=True, **hyper))):
+            for nm, a, w in zip("pmv", got, want):
+                check(f"adamw {nm} {shape} g/m/p "
+                      f"{'/'.join(str(t)[6:] for t in dts)}{tag}", a, w,
+                      ulp_tol(a.dtype, w))
+    del gg, m, v, pp, want, got
+    torch.cuda.empty_cache()
+    n = 4096 * 151_552
+    gg, m, v, pp = leaf((4096, 151_552), f32, f32, f32)
+    err = max(max_abs_err(a, w)[0] for a, w in zip(
+        adamw.fused_adamw(gg, m, v, pp, bc, **hyper),
+        adamw.adamw_ref(gg, m, v, pp, bc, **hyper)))
+    torch.cuda.empty_cache()
+    steps = [torch.tensor(3.0, device=dev)]
+    rows.append({
+        "name": "fused_adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/adamw.py:47",
+        "shape": "f32 unembed leaf (4096, 151552), in place as the train "
+                 "step runs it",
+        "max_abs_err": err,
+        "ms": ms(lambda: adamw.fused_adamw(gg, m, v, pp, bc, inplace=True,
+                                           **hyper), calls=5),
+        "eager_ms": eager_ms(lambda: adamw.fused_adamw(
+            gg, m, v, pp, bc, inplace=True, **hyper)),
+        "plain_ms": ms(lambda: adamw.adamw_ref(gg, m, v, pp, bc, **hyper),
+                       calls=2),
+        # PyTorch's fused AdamW (decoupled decay applied first: the same
+        # bytes, a slightly different formula)
+        "library_ms": ms(lambda: torch._fused_adamw_(
+            [pp], [gg], [m], [v], [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
+            calls=5),
+        **bound(adamw.hbm_bytes(n), adamw.flops(n), "f32", sheet)})
+    del gg, m, v, pp
+    torch.cuda.empty_cache()
+
+    # -- gradients through the routed ops ----------------------------------------
+    print("gradients through the routed ops against the plain route on the "
+          "card (tolerance: 1 ulp of each gradient's dtype at its max — the "
+          "fused backward recomputes the same plain math)")
+    x = randn((2, 256, 4096), bf16, 3.0)
+    h = randn((2, 256, 4096), bf16)
+    sc = torch.rand(4096, generator=g, device=dev) + 0.5
+    gy = randn((2, 256, 4096), bf16)
+
+    def grads(fn, *inputs, cot):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(out, leaves, cot)
+
+    for name, fused_fn, plain_fn, inputs, cot in (
+            ("rmsnorm", lambda a, s: ops.rmsnorm(a, s),
+             lambda a, s: norm.rmsnorm_ref(a, s, eps, bf16), (x, sc), (gy,)),
+            ("rmsnorm_residual", lambda a, b, s: ops.rmsnorm_residual(a, b, s),
+             lambda a, b, s: norm.rmsnorm_residual_ref(a, b, s, eps, bf16),
+             (x, h, sc), (gy, gy)),
+            ("swiglu", lambda a, b: ops.swiglu(a, b),
+             lambda a, b: swiglu.swiglu_ref(a, b, "silu", bf16), (x, h),
+             (gy,))):
+        for i, (a, w) in enumerate(zip(grads(fused_fn, *inputs, cot=cot),
+                                       grads(plain_fn, *inputs, cot=cot))):
+            check(f"grad {name} input {i}", a, w, ulp_tol(w.dtype, w))
+    return rows
+
+
 def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
     """Least time for the work on the datasheet card: the larger of bytes
     over HBM bandwidth and operations over the class's peak."""
@@ -190,6 +462,116 @@ def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
     t_ops = nflops / sheet.peak_for(cls)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
+               seq: int = 2048, batch: int = 2, smoke: bool = False) -> dict:
+    """Main path b: the glm4-9b train step at full width, depth cut to 4
+    layers, seq 2048, batch 2, AMP O1 (``cfg`` is the full config; the
+    keywords exist to rehearse the path on the host at the smoke size).
+    Launch counts are set to 0 just before and read just after; returns
+    them."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.core.roofline import roofline_terms
+    from repro_torch.kernels.fused.ops import embed_grad_eligible
+    from repro_torch.models import api as M
+    from repro_torch.models.transformer import matmul_flops
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    cfg4 = dataclasses.replace(cfg, n_layers=layers)
+    # the least the opt phase can move: g, m, v, p read and p, m, v written
+    # once, all fp32 under O1
+    opt_floor_ms = 1e3 * 7 * 4 * cfg4.param_count() / sheet.hbm.bytes_per_s
+    want = {"fwd": matmul_flops(cfg4, batch, seq),
+            "bwd": 3 * matmul_flops(cfg4, batch, seq), "opt": 0}
+    print(f"== 4b. main path: glm4-9b train step, full width, {layers} of "
+          f"{cfg.n_layers} layers ({cfg4.param_count() / 1e9:.3f} B params; "
+          f"params, grads and both AdamW moments in fp32 take "
+          f"{16 * cfg4.param_count() / 1e9:.1f} GB), seq {seq} batch {batch} "
+          "amp O1")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    for fusion in ("off", "static"):
+        t0 = time.perf_counter()
+        prof = s.profile("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                         batch=batch, amp="O1", fusion=fusion, measure=True,
+                         iters=5, warmup=2)
+        for ph in ("fwd", "bwd", "opt"):
+            pr, ana = prof.data[ph], prof.analyses[ph]
+            mm = sum(k.total_flops for k in ana.kernels
+                     if k.category == "matmul")
+            z_inv, z_bytes = ana.zero_ai_census()["zero-AI"]
+            bound_ms = 1e3 * roofline_terms(ana, sheet).bound_overlap_s
+            print(f"  {fusion:<6} {ph}: wall {pr.wall_s * 1e3:.3f} ms "
+                  f"(median of {pr.measure_iters}) | datasheet bound "
+                  f"{bound_ms:.3f} ms | peak device memory "
+                  f"{pr.peak_device_bytes / 1e9:.2f} GB | launches "
+                  f"{sum(k.exec_count for k in ana.kernels)}, zero-AI "
+                  f"{z_inv} ({z_bytes / 1e9:.3f} GB) | matmul FLOPs "
+                  f"{mm:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
+            # the one-hot embedding gradient is one more matmul where it is
+            # eligible (not at full width: 4096·151,552·4 B > 2^28)
+            extra = (2 * batch * seq * cfg4.vocab_padded * cfg4.d_model
+                     if ph == "bwd" and fusion == "static"
+                     and embed_grad_eligible(
+                         torch.empty(batch, seq, device="meta"),
+                         cfg4.vocab_padded) else 0)
+            if mm != want[ph] + extra:
+                raise AssertionError(f"{fusion} {ph}: matmul FLOPs {mm} != "
+                                     f"{want[ph] + extra}")
+        print(f"  {fusion:<6} opt: wall {prof.data['opt'].wall_s * 1e3:.3f} ms"
+              f" vs the one-pass floor {opt_floor_ms:.3f} ms (7 x 4 B x "
+              f"{cfg4.param_count()} params at the datasheet HBM rate)")
+        loss = float(prof.data["fwd"].output)
+        print(f"  {fusion:<6} fwd loss {loss:.6f}; profile call "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{fusion} fwd loss is not finite")
+        if fusion == "static":
+            print(prof.render(charts=0, top_kernels=8))
+        # the opt phase's result holds the params and both moments
+        del prof, pr, ana
+        if cuda:
+            torch.cuda.empty_cache()
+
+    run = RunConfig(amp="O1", fusion="static")
+    model = M.build(cfg4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg4, ShapeSpec("t", seq, batch, "train"),
+                                    batch, gen, device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  static train step {i + 1}: loss {loss:.6f} | grad norm "
+              f"{float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step {i + 1}: loss {loss}")
+    if cuda:
+        print(f"  train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    counts = kernels.launch_counts()
+    print(f"launches on main path b: {json.dumps(counts)}")
+    for name in FUSED_KERNELS:
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path b")
+    del state, step
+    return counts
 
 
 def main() -> int:
@@ -230,24 +612,31 @@ def main() -> int:
     print(machine_table(sheet))
 
     # 2. build -------------------------------------------------------------
-    print("== 2. build")
-    path, secs = build.build("ert", verbose=True)
-    print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s")
+    print("== 2. build (one nvcc per source, started together)")
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        built = dict(zip(LIBRARIES, ex.map(
+            lambda name: build.build(name, verbose=True), LIBRARIES)))
+    for name, (path, secs) in built.items():
+        print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s")
 
     # 3. each kernel against its plain version -----------------------------
     print("== 3. kernels against their plain versions (datasheet "
           f"{sheet.name})")
     rows = kernel_checks(dev, sheet)
+    torch.cuda.empty_cache()
+    rows += fused_checks(dev, sheet)
     for r in rows:
         lib = r["library_ms"]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
-        print(f"  {r['name']:<10} {r['shape']}: kernel {r['ms']:.4f} ms | "
-              f"plain {r['plain_ms']:.4f} ms | library {lib_s} | bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        eager = (f" (called eagerly back to back: {r['eager_ms']:.4f} ms)"
+                 if "eager_ms" in r else "")
+        print(f"  {r['name']:<22} {r['shape']}: kernel {r['ms']:.4f} ms"
+              f"{eager} | plain {r['plain_ms']:.4f} ms | library {lib_s} | "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
 
-    # 4. the main path, with every launch count at 0 ------------------------
-    print("== 4. main path: characterize, ladder, sweep, full-width profile")
+    # 4a. main path: machine characterization and the full-depth fwd -------
+    print("== 4a. main path: characterize, ladder, sweep, full-width profile")
     kernels.reset_launch_counts()
     s = Session(machine=sheet, device="cuda")
     res = s.characterize(empirical=True)
@@ -310,22 +699,26 @@ def main() -> int:
                        "glm4-9b/fwd vs datasheet":
                            roofline_terms(ana, sheet)}))
     print(prof.render(charts=1, top_kernels=10))
-    print(f"launches on the main path: {json.dumps(counts)}")
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    print(f"launches on main path a: {json.dumps(counts)}")
+    for name in ERT_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path a")
     del prof, pr
     torch.cuda.empty_cache()
 
-    # 5. the smoke fwd on the card against the host -------------------------
+    # 4b. main path: the train step at full width, 4 layers -----------------
+    counts_b = train_path(cfg, sheet)
+    torch.cuda.empty_cache()
+
+    # 5. the smoke fwd and train step on the card against the host -----------
     print("== 5. smoke fwd: card against host (O0 loss rtol 1e-5, logits "
           "atol 1e-4: fp32 sums in another order)")
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_smoke
     from repro_torch.models import api as M
     from repro_torch.models.params import init
-    from torch.utils._pytree import tree_map
+    from torch.utils._pytree import tree_flatten, tree_map
     scfg = get_smoke("glm4-9b")
     model = M.build(scfg)
     run = RunConfig(amp="O0")
@@ -342,12 +735,38 @@ def main() -> int:
     print(f"  smoke loss card {loss_g:.7f} host {loss_c:.7f}")
     if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
         raise AssertionError(f"smoke loss {loss_g} vs host {loss_c}")
+    print("   smoke train step, O0, fusion static: card (fused kernels) "
+          "against host (plain versions); loss rtol 1e-5, params after one "
+          "step atol 2e-5 (AdamW's first step is about lr·sign(g): a "
+          "near-zero gradient summed in another order moves its weight by "
+          "up to 2·lr·|Δg|/(|g|+eps); see tests/test_torch_train.py)")
+    from repro_torch.train.step import TrainState, init_state, make_train_step
+    run_s = RunConfig(amp="O0", fusion="static")
+    st_c = init_state(model, run_s, torch.Generator().manual_seed(0), "cpu")
+    st_d = TrainState(*tree_map(lambda t: t.to(dev), tuple(st_c)))
+    step = make_train_step(model, run_s)
+    st_c, m_c = step(st_c, batch_c)
+    st_d, m_d = step(st_d, batch_d)
+    print(f"  smoke train loss card {float(m_d['loss']):.7f} host "
+          f"{float(m_c['loss']):.7f}; grad norm card "
+          f"{float(m_d['grad_norm']):.7f} host {float(m_c['grad_norm']):.7f}")
+    if not math.isclose(float(m_d["loss"]), float(m_c["loss"]),
+                        rel_tol=1e-5):
+        raise AssertionError("smoke train loss differs between card and "
+                             "host")
+    err = max(max_abs_err(a.cpu(), b)[0] for a, b in zip(
+        tree_flatten(st_d.params)[0], tree_flatten(st_c.params)[0]))
+    print(f"  smoke params after one step: max_abs_err {err:.3e} (atol "
+          "2e-5)")
+    if not err <= 2e-5:
+        raise AssertionError(f"smoke params differ by {err}")
 
     # 6. results -------------------------------------------------------------
     out = []
     for r in rows:
+        launches = (counts if r["name"] in ERT_KERNELS else counts_b)
         out.append({k: r[k] for k in ("name", "route", "source", "replaces")}
-                   | {"launches": counts[r["name"]],
+                   | {"launches": launches[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

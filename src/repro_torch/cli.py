@@ -3,9 +3,9 @@
 
 * ``characterize`` — machine model: the card's datasheet ceilings, or
   (``--empirical``) the ceilings the hand-written ERT kernels measure;
-* ``profile``      — aten-op walk of a registry config's fwd phase
-  (kernel table, three-term bound, roofline chart); ``--measure`` also
-  times it on the device.
+* ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
+  phases (kernel table, three-term bound, roofline chart) at ``--fusion``
+  ``off`` or ``static``; ``--measure`` also times them on the device.
 
 Both run on the card unless ``--device cpu`` is given.
 
@@ -14,6 +14,8 @@ Examples::
     python -m repro_torch characterize --empirical
     python -m repro_torch profile --config glm4-9b --full --measure --charts 1
     python -m repro_torch profile --config glm4-9b --device cpu --measure
+    python -m repro_torch profile --config glm4-9b --device cpu \
+        --fusion static --phase bwd
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ def cmd_profile(args) -> int:
         print(f"profile: {e}", file=sys.stderr)
         return 2
     try:
-        res = s.profile(args.config, phases=tuple(args.phase or ("fwd",)),
+        res = s.profile(args.config,
+                        phases=tuple(args.phase or ("fwd", "bwd", "opt")),
                         seq=args.seq, batch=args.batch, amp=args.amp,
-                        smoke=not args.full, measure=args.measure,
+                        fusion=args.fusion, smoke=not args.full,
+                        n_layers=args.layers, measure=args.measure,
                         iters=args.iters, warmup=args.warmup)
     except (KeyError, NotImplementedError) as e:
         print(f"profile: {e.args[0] if e.args else e}", file=sys.stderr)
@@ -90,13 +94,18 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--config", required=True,
                     help="registry config name (see repro_torch.configs)")
     pr.add_argument("--phase", action="append", choices=("fwd", "bwd", "opt"),
-                    help="phase to profile (repeatable; default fwd — bwd "
-                         "and opt come with the train-step slice)")
+                    help="phase to profile (repeatable; default all three)")
     pr.add_argument("--seq", type=int, default=32)
     pr.add_argument("--batch", type=int, default=4)
     pr.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
+    pr.add_argument("--fusion", default="off", choices=("off", "static"),
+                    help="'static' routes the norms, the SwiGLU epilogue, "
+                         "the embedding backward and AdamW through the "
+                         "fused kernels")
     pr.add_argument("--full", action="store_true",
                     help="full config instead of the smoke variant")
+    pr.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     pr.add_argument("--measure", action="store_true",
                     help="also run the same callable on the device and "
                          "fold measured time in")

@@ -20,6 +20,7 @@ FUSION_MODES = ("off", "static", "auto", "measured")
 AMP_MODES = ("O0", "O1", "O2")
 ATTN_IMPLS = ("einsum", "chunked", "flash")
 REMAT_MODES = ("none", "dots", "full")
+OPTIMIZERS = ("adamw", "adafactor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +88,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Execution policy.  This slice runs ``fusion="off"`` with the einsum
-    attention; the other settings raise until their slice lands."""
+    """Execution policy.  The port runs ``fusion`` ``"off"`` or
+    ``"static"``, the einsum attention and AdamW; the other settings raise
+    until their slice lands."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
@@ -97,6 +99,10 @@ class RunConfig:
     # attention softmax statistics in fp32 (False = compute dtype)
     softmax_f32: bool = True
     fusion: str = "off"
+    # gradient accumulation microbatches
+    microbatches: int = 1
+    # optimizer: "adamw" | "adafactor"
+    optimizer: str = "adamw"
 
     def __post_init__(self):
         if self.amp not in AMP_MODES:
@@ -110,10 +116,20 @@ class RunConfig:
         if self.remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {self.remat!r}; "
                              f"valid: {REMAT_MODES}")
-        if self.fusion != "off":
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.optimizer!r}; "
+                             f"valid: {OPTIMIZERS}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got "
+                             f"{self.microbatches}")
+        if self.fusion not in ("off", "static"):
             raise NotImplementedError(
-                f"fusion={self.fusion!r} needs the fused kernels "
-                "(ROADMAP queue 1 item 7, queue 2 items 5-7)")
+                f"fusion={self.fusion!r} routes by measured winners and "
+                "needs the dispatch table (ROADMAP queue 1, tune/dispatch)")
+        if self.optimizer != "adamw":
+            raise NotImplementedError(
+                f"optimizer={self.optimizer!r}: the port has AdamW only "
+                "(ROADMAP queue 1)")
         if self.attn_impl != "einsum":
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r} needs the chunked path and "

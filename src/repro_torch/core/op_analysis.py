@@ -18,7 +18,12 @@ kernel:
 * the ceiling class comes from the operand dtype (:func:`dtype_class`);
 * ``hbm_bytes`` = operand bytes + result bytes.  An unfused aten op is
   its own kernel, so every intermediate crosses device memory and
-  ``vmem_bytes`` (the on-chip level's traffic) equals ``hbm_bytes``.
+  ``vmem_bytes`` (the on-chip level's traffic) equals ``hbm_bytes``;
+* the port's own ops (``repro_torch::``, one per fused kernel) are
+  category ``custom`` — the reference's label for a custom call — with
+  the FLOPs of the kernel module's count, and bytes = operands + results
+  + the operands the op writes in place (the in-place AdamW update
+  returns nothing but writes p, m and v).
 """
 
 from __future__ import annotations
@@ -186,6 +191,10 @@ _PER_OUT = {
     aten.sqrt: 1, aten.rsqrt: 1, aten.pow: 1, aten.sigmoid: 1,
     aten.sin: 1, aten.cos: 1, aten.tan: 1, aten.erf: 1,
     aten.silu: 2,           # logistic + multiply (jax.nn.silu)
+    # elementwise backward ops, counted as the HLO ops of their formulas
+    aten.sigmoid_backward: 3,      # g·(1 - y)·y
+    aten.tanh_backward: 3,         # g·(1 - y²)
+    aten.silu_backward: 6,         # g·s·(1 + x·(1 - s)), s = logistic(x)
 }
 
 # reductions: FLOPs = a·(input elements) + b·(output elements)
@@ -195,6 +204,7 @@ _REDUCE = {
     aten.mean: (1, 1),                 # reduce + divide
     aten._softmax: (5, 0),             # max, sub, exp, sum, div
     aten.logsumexp: (4, 2),            # max, sub, exp, sum; log, add
+    aten._softmax_backward_data: (4, 0),   # y·(g - sum(g·y))
 }
 
 
@@ -225,14 +235,36 @@ def _op_flops(packet, args, kwargs, out, inputs: list[torch.Tensor],
     return 0.0
 
 
-def _categorize(packet, flops: float) -> str:
+def _categorize(packet, flops: float, port: bool) -> str:
     if packet in _MATMUL:
         return "matmul"
+    if port:
+        return "custom"
     if not flops:
         return "zero-ai"
     if packet in _REDUCE:
         return "reduction"
     return "elementwise"
+
+
+def _is_port_op(func) -> bool:
+    return func.namespace == "repro_torch"
+
+
+def _custom_flops(func, args) -> float:
+    from repro_torch.kernels.fused.ops import op_flops
+    return op_flops(func._opname, args)
+
+
+def _written_args_bytes(func, args, kwargs) -> int:
+    """Bytes of the operands an op mutates (its schema's ``Tensor(a!)``)."""
+    out = 0
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        t = args[i] if i < len(args) else kwargs.get(a.name)
+        out += sum(map(_nbytes, _tensors(t)))
+    return out
 
 
 def _flop_class(packet, inputs: list[torch.Tensor],
@@ -263,11 +295,15 @@ class _OpRecorder(TorchDispatchMode):
         if rec is not None:
             rec.exec_count += 1
             return out
-        flops = _op_flops(packet, args, kwargs, out, inputs, outputs)
+        port = _is_port_op(func)
+        flops = (_custom_flops(func, args) if port else
+                 _op_flops(packet, args, kwargs, out, inputs, outputs))
         cls = _flop_class(packet, inputs, outputs)
         if cls == "f32" and self.matmul_class and packet in _MATMUL:
             cls = self.matmul_class
         nbytes = sum(map(_nbytes, inputs)) + sum(map(_nbytes, outputs))
+        if port:
+            nbytes += _written_args_bytes(func, args, kwargs)
         self.records[key] = KernelRecord(
             name=f"{packet.__name__}.{len(self.records)}",
             opcode=packet.__name__,
@@ -275,7 +311,7 @@ class _OpRecorder(TorchDispatchMode):
             exec_count=1,
             flops_by_class={cls: flops} if flops else {},
             hbm_bytes=nbytes, vmem_bytes=nbytes,
-            category=_categorize(packet, flops))
+            category=_categorize(packet, flops, port))
         return out
 
 

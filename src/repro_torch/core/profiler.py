@@ -49,17 +49,20 @@ def time_samples(fn: Callable, args: Sequence[Any], *, iters: int = 10,
 
     On CUDA each call sits between two CUDA events; the host waits for the
     device before reading them, so a sample is device time, not enqueue
-    time.
+    time.  The previous call's output is dropped before the next call, so
+    a phase that returns a full set of gradients holds one set, not two.
     """
     dev = args_device(args)
     out = None
     with torch.no_grad():
         for _ in range(max(warmup, 1)):
+            out = None
             out = fn(*args)
         times = []
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             for _ in range(max(iters, 1)):
+                out = None
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -69,6 +72,7 @@ def time_samples(fn: Callable, args: Sequence[Any], *, iters: int = 10,
                 times.append(start.elapsed_time(end) / 1e3)
         else:
             for _ in range(max(iters, 1)):
+                out = None
                 t0 = time.perf_counter()
                 out = fn(*args)
                 times.append(time.perf_counter() - t0)

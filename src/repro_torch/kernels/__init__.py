@@ -1,22 +1,31 @@
 """Hand-written Hopper kernels (port of ``repro.kernels``).
 
-Each kernel module keeps a plain-int ``LAUNCHES`` counter that its wrapper
-bumps once per launch of the CUDA kernel (never for the plain CPU path).
+Each kernel module keeps a plain-int counter (``LAUNCHES``; the norm
+module a second one, ``RESIDUAL_LAUNCHES``) that its wrapper bumps once
+per launch of the CUDA kernel (never for the plain CPU path).
 """
 
 from __future__ import annotations
 
 
-def _modules() -> dict:
+def _counters() -> dict:
+    """{kernel name: (module, name of its counter)}."""
     from repro_torch.kernels.ert import bandwidth, flops, gemm
-    return {"triad": bandwidth, "fma_chain": flops, "ert_gemm": gemm}
+    from repro_torch.kernels.fused import adamw, norm, swiglu
+    return {"triad": (bandwidth, "LAUNCHES"), "fma_chain": (flops, "LAUNCHES"),
+            "ert_gemm": (gemm, "LAUNCHES"),
+            "fused_rmsnorm": (norm, "LAUNCHES"),
+            "fused_rmsnorm_residual": (norm, "RESIDUAL_LAUNCHES"),
+            "fused_swiglu": (swiglu, "LAUNCHES"),
+            "fused_adamw": (adamw, "LAUNCHES")}
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel name: CUDA launches since the last reset}."""
-    return {name: mod.LAUNCHES for name, mod in _modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)

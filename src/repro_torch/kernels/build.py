@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,24 +32,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I, _F, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# every library exports ``<name>_error_string(int)``; :func:`load` binds it
+# as the library's ``error_string``, which :func:`check` calls
 _SIGNATURES = {
     "ert": {
         # a, b, o, n, scale, reps, dtype, blocks, threads, stream
-        "ert_triad": (_P, _P, _P, ctypes.c_longlong, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      _P),
+        "ert_triad": (_P, _P, _P, _LL, _F, _I, _I, _I, _I, _P),
         # x, o, n, n_iters, ilp, a, b, dtype, blocks, threads, stream
-        "ert_fma_chain": (_P, _P, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        "ert_fma_chain": (_P, _P, _LL, _I, _I, _F, _F, _I, _I, _I, _P),
         # A, B, C, M, N, K, in_dtype, out_dtype, stream
-        "ert_gemm": (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, _P),
-        "ert_gemm_tile": (ctypes.c_int,),
-        "ert_error_string": (ctypes.c_int,),
+        "ert_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "ert_gemm_tile": (_I,),
+        "ert_error_string": (_I,),
+    },
+    "fused": {
+        # x, h, scale, r, y, rows, d, eps, x_dtype, scale_dtype, out_dtype,
+        # blocks, threads, stream
+        "fused_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I,
+                          _I, _P),
+        # g, u, y, n, act, in_dtype, out_dtype, blocks, threads, stream
+        "fused_swiglu": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+        # g, m, v, p, bc, p_out, m_out, v_out, n, lr, b1, b2, 1-b1, 1-b2,
+        # eps, weight_decay, g/m/v/p dtypes, blocks, threads, stream
+        "fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _F,
+                        _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
+        "fused_error_string": (_I,),
     },
 }
-_RESTYPES = {"ert_error_string": ctypes.c_char_p}
+_RESTYPES = {"ert_error_string": ctypes.c_char_p,
+             "fused_error_string": ctypes.c_char_p}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -70,11 +83,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def ptxas_summary(report: str) -> str:
+    """One line from ``-Xptxas -v`` output: entry functions, the range of
+    registers per thread, the most shared memory, and any spills."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                            report))
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} entry functions, {min(regs)}-{max(regs)} "
+            f"registers/thread, up to {max(smem or [0])} B static smem, "
+            f"{spills} B spilled")
+
+
 def build(name: str, verbose: bool = False) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns
     (library path, seconds spent compiling — 0.0 when it was already
-    built).  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
-    register and shared-memory report."""
+    built).  ``verbose`` adds ``-Xptxas -v`` and prints one summary line
+    of the compiler's register, shared-memory and spill report."""
     lib = library_path(name)
     if lib.exists():
         return lib, 0.0
@@ -92,14 +119,15 @@ def build(name: str, verbose: bool = False) -> tuple[Path, float]:
         raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
                            f"{proc.stderr[-8000:]}")
     if verbose:
-        print(proc.stderr, end="")
+        print(f"{name}.cu: {ptxas_summary(proc.stderr)}")
     os.replace(tmp, lib)      # atomic: a concurrent build sees all or none
     return lib, seconds
 
 
 def load(name: str = "ert") -> ctypes.CDLL:
     """The kernel library ``name``, built on first use, with every entry
-    point's ``argtypes`` / ``restype`` declared."""
+    point's ``argtypes`` / ``restype`` declared and its
+    ``<name>_error_string`` bound as ``error_string``."""
     if name in _LOADED:
         return _LOADED[name]
     path, _ = build(name)
@@ -108,6 +136,7 @@ def load(name: str = "ert") -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = _RESTYPES.get(fn, ctypes.c_int)
+    lib.error_string = getattr(lib, f"{name}_error_string")
     _LOADED[name] = lib
     return lib
 
@@ -120,17 +149,22 @@ _DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
 
 
 def dtype_code(t, allowed: tuple[str, ...] = tuple(_DTYPE_CODES)) -> int:
-    """The C interface's code for ``t``'s dtype; raises for others."""
-    name = str(t.dtype).removeprefix("torch.")
+    """The C interface's code for ``t``'s dtype (``t`` a tensor or a
+    dtype); raises for others."""
+    dtype = getattr(t, "dtype", t)
+    name = str(dtype).removeprefix("torch.")
     if name not in allowed:
-        raise TypeError(f"dtype {t.dtype} not supported here; "
+        raise TypeError(f"dtype {dtype} not supported here; "
                         f"supported: {allowed}")
     return _DTYPE_CODES[name]
 
 
-def require_cuda(*tensors) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device,
-    16-byte aligned (the kernels load 16-byte vectors)."""
+def require_cuda(*tensors, align: int = 16) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    whose data pointer is ``align``-byte aligned.  The ERT kernels load
+    16-byte vectors with no scalar fallback and need 16; the fused
+    kernels check alignment themselves and take any (``align=1``), so a
+    per-layer view into a stacked parameter is never copied to align."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -138,8 +172,8 @@ def require_cuda(*tensors) -> None:
                              f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError("expected contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("expected 16-byte aligned tensors")
+        if t.data_ptr() % align:
+            raise ValueError(f"expected {align}-byte aligned tensors")
 
 
 def stream_of(t) -> int:
@@ -155,5 +189,5 @@ def sm_count(t) -> int:
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
-        msg = lib.ert_error_string(err).decode()
+        msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -3,11 +3,18 @@
 Same kernel names as the reference, so tune-store keys line up.  Hopper
 launch parameters replace the TPU's ``dimension_semantics`` hints:
 
-* ``threads``       — threads per block;
-* ``blocks_per_sm`` — grid size of a grid-stride kernel, per SM;
+* ``threads``       — threads per block (for the row-parallel norms: the
+  most a row's block may have; a narrow row takes fewer);
+* ``blocks_per_sm`` — grid size of a grid-stride kernel, per SM (the
+  norms: the most row blocks launched per SM; each block then walks
+  rows with a stride of the grid);
 * ``block_m`` / ``block_n`` / ``block_k`` — GEMM tiles.  The GEMM's tiles
   are compile-time constants of ``csrc/ert.cu``: the config states them
   and the wrapper refuses any other value.
+
+The reference's ``block_rows`` / ``block`` (rows or elements per VMEM
+block) have no counterpart: a Hopper block holds one row, or strides
+over the flat leaf, and masks the ragged edge itself.
 """
 
 from __future__ import annotations
@@ -49,6 +56,14 @@ DEFAULTS: dict[str, KernelConfig] = {
     "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
     "ert_gemm": KernelConfig.make("ert_gemm", block_m=128, block_n=128,
                                   block_k=32),
+    # one row per block: 256 threads move a 4096-wide bf16 row as two
+    # 16-byte vectors each; 16 blocks of 256 fill an SM's 2048 threads
+    "fused_norm": KernelConfig.make("fused_norm", threads=256,
+                                    blocks_per_sm=16),
+    "fused_swiglu": KernelConfig.make("fused_swiglu", threads=256,
+                                      blocks_per_sm=8),
+    "fused_adamw": KernelConfig.make("fused_adamw", threads=256,
+                                     blocks_per_sm=8),
 }
 
 

@@ -1,0 +1,434 @@
+// Hopper (sm_90a) versions of the fused train-step kernels, with a plain C
+// interface for ctypes (built by repro_torch/kernels/build.py).
+//
+// Every entry point launches on the stream it is given, allocates nothing,
+// does not synchronise, and returns cudaGetLastError() right after the
+// launch (or cudaErrorInvalidValue for an argument it does not take), so a
+// refused launch is reported to the Python wrapper, which raises.  Each
+// kernel takes operands of any alignment and any length: it uses 16-byte
+// vectors where every pointer and the row length allow them, scalar
+// accesses otherwise, and masks the ragged edge itself (the TPU kernels pad
+// the last block instead; padding here would move bytes hbm_bytes() does
+// not count).  All arithmetic is in fp32 with one rounding at each write.
+// No --use_fast_math: division and square root are IEEE, and the explicit
+// __f*_rn intrinsics keep nvcc from contracting a multiply and an add into
+// one FMA, so each result rounds where the plain PyTorch version rounds.
+//
+// ---------------------------------------------------------------------------
+// rmsnorm — replaces repro/kernels/fused/norm.py::fused_rmsnorm
+//   (_rmsnorm_kernel, launched by fused/common.py::row_blocked_call):
+//   y = x * rsqrt(mean(x^2) + eps) * scale per row, statistics in fp32,
+//   cast to y's dtype at the write.
+// rmsnorm_residual — replaces norm.py::fused_rmsnorm_residual
+//   (_rmsnorm_res_kernel): r = x + h rounded to x's dtype first, then the
+//   rmsnorm of that rounded r; writes r and y.
+//   Bound: bytes (x (+h) read once, y (+r) written once, scale once; about
+//   4 FLOPs per element).
+//   Design: one block per row (a grid-stride loop over rows when there are
+//   more rows than blocks).  Pass 1 reads the row (and h), writes r, and
+//   sums squares in fp32; the sum is reduced with warp shuffles and then
+//   across warps in shared memory.  Pass 2 reads the row again (x, or the r
+//   this thread just wrote) from L1/L2 — a 4096-wide bf16 row is 8 KB — and
+//   writes y.  The per-layer scale is a view into the (n_layers, d) stack,
+//   so it may sit at any offset: the vector path is taken only when every
+//   pointer is 16-byte aligned and d is a multiple of 8.
+//
+// swiglu — replaces repro/kernels/fused/swiglu.py::fused_swiglu
+//   (_swiglu_kernel): y = act(gate) * up in fp32, one rounding at the write;
+//   act is silu (g * sigmoid(g), sigmoid = 1 / (1 + exp(-g))) or the tanh
+//   form of gelu (jax.nn.gelu's default).
+//   Bound: bytes (gate + up read, y written; 3 * n * itemsize).
+//   Design: a grid-stride loop over 8-element chunks (one 16-byte vector of
+//   bf16, two of f32) and a scalar tail, so any rows * d_ff runs.
+//
+// adamw — replaces repro/kernels/fused/adamw.py::fused_adamw
+//   (_adamw_kernel): one AdamW leaf update over the flat view; g, m, v, p
+//   each keep their own dtype (f32 or bf16); fp32 math written out in the
+//   reference's order; bc = (1 - b1^t, 1 - b2^t) is read from device memory
+//   (a (2,) fp32 tensor), so no host sync is needed per step.
+//   Bound: bytes (g, m, v, p read, p, m, v written: 7 * n * 4 in fp32).
+//   Design: a grid-stride loop over 4-element chunks (a float4, or 8 bytes
+//   of bf16) and a scalar tail.  The outputs may alias the inputs (the
+//   in-place update the train step uses): each element is read and then
+//   written by the same thread.
+// ---------------------------------------------------------------------------
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum DType { kF32 = 0, kBF16 = 1 };
+enum Act { kSilu = 0, kGelu = 1 };
+
+template <typename T> struct Tag { using type = T; };
+
+// call f(Tag<T>{}) for the dtype code, or fail
+template <typename F> int with_type(int code, F&& f) {
+  if (code == kF32) return f(Tag<float>{});
+  if (code == kBF16) return f(Tag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T's precision, back in fp32
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// ---- 8 elements as 16 bytes of bf16 or 32 bytes of f32 (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// ---- 4 elements as 16 bytes of f32 or 8 bytes of bf16 (16-byte aligned base)
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) % 16) == 0;
+}
+
+// --------------------------------------------------------------- rmsnorm --
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the sum of `v` over the block, returned to every thread
+__device__ float block_sum(float v) {
+  __shared__ float partial[32];
+  __shared__ float total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < (int)((blockDim.x + 31) >> 5) ? partial[lane] : 0.0f;
+    t = warp_sum(t);
+    if (lane == 0) total = t;
+  }
+  __syncthreads();
+  const float out = total;
+  __syncthreads();  // `total` and `partial` are reused by the next row
+  return out;
+}
+
+template <typename T, typename S, typename O, bool RES, bool VEC>
+__global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ h,
+                               const S* __restrict__ scale, T* __restrict__ r,
+                               O* __restrict__ y, int64_t rows, int d, float eps) {
+  const int step = VEC ? 8 * blockDim.x : blockDim.x;
+  const int first = VEC ? 8 * threadIdx.x : threadIdx.x;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int64_t base = row * (int64_t)d;
+    const T* xr = x + base;
+    const T* hr = RES ? h + base : nullptr;
+    T* rr = RES ? r + base : nullptr;
+    O* yr = y + base;
+    // pass 1: (r = x + h, written) and the fp32 sum of squares
+    float ss = 0.0f;
+    for (int i = first; i < d; i += step) {
+      if (VEC) {
+        float v[8];
+        load8(xr + i, v);
+        if (RES) {
+          float w[8];
+          load8(hr + i, w);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = round_to<T>(__fadd_rn(v[j], w[j]));
+          store8(rr + i, v);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss = fmaf(v[j], v[j], ss);
+      } else {
+        float v = to_f(xr[i]);
+        if (RES) {
+          v = round_to<T>(__fadd_rn(v, to_f(hr[i])));
+          rr[i] = from_f<T>(v);
+        }
+        ss = fmaf(v, v, ss);
+      }
+    }
+    const float mean = __fdiv_rn(block_sum(ss), (float)d);
+    const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(mean, eps)));
+    // pass 2: y = (x * rs) * scale, rounded once at the write
+    const T* src = RES ? rr : xr;
+    for (int i = first; i < d; i += step) {
+      if (VEC) {
+        float v[8], s[8];
+        load8(src + i, v);
+        load8(scale + i, s);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(__fmul_rn(v[j], rs), s[j]);
+        store8(yr + i, v);
+      } else {
+        yr[i] = from_f<O>(__fmul_rn(__fmul_rn(to_f(src[i]), rs), to_f(scale[i])));
+      }
+    }
+  }
+}
+
+template <typename T, typename S, typename O, bool RES>
+int launch_rmsnorm(const void* x, const void* h, const void* scale, void* r,
+                   void* y, int64_t rows, int d, float eps, bool vec,
+                   int blocks, int threads, cudaStream_t stream) {
+  auto args = [&](auto kernel) {
+    kernel<<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h),
+        static_cast<const S*>(scale), static_cast<T*>(r), static_cast<O*>(y),
+        rows, d, eps);
+  };
+  if (vec) args(rmsnorm_kernel<T, S, O, RES, true>);
+  else args(rmsnorm_kernel<T, S, O, RES, false>);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- swiglu --
+
+template <int ACT> __device__ __forceinline__ float act(float g) {
+  if (ACT == kSilu) {
+    // jax.nn.silu: g * sigmoid(g), sigmoid = 1 / (1 + exp(-g))
+    return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g))));
+  }
+  // jax.nn.gelu (approximate=True):
+  // g * 0.5 * (1 + tanh(sqrt(2/pi) * (g + 0.044715 * g^3)))
+  const float k = 0.7978845608028654f;  // sqrt(2/pi)
+  const float g3 = __fmul_rn(__fmul_rn(g, g), g);
+  const float inner = __fmul_rn(k, __fadd_rn(g, __fmul_rn(0.044715f, g3)));
+  return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
+}
+
+template <typename T, typename O, int ACT, bool VEC>
+__global__ void swiglu_kernel(const T* __restrict__ g, const T* __restrict__ u,
+                              O* __restrict__ y, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (VEC) {
+    const int64_t chunks = n / 8;
+    for (int64_t c = tid; c < chunks; c += stride) {
+      float gv[8], uv[8];
+      load8(g + 8 * c, gv);
+      load8(u + 8 * c, uv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) gv[j] = __fmul_rn(act<ACT>(gv[j]), uv[j]);
+      store8(y + 8 * c, gv);
+    }
+    done = chunks * 8;
+  }
+  for (int64_t i = done + tid; i < n; i += stride) {
+    y[i] = from_f<O>(__fmul_rn(act<ACT>(to_f(g[i])), to_f(u[i])));
+  }
+}
+
+// ----------------------------------------------------------------- adamw --
+
+struct AdamHyper {
+  float lr, b1, b2, omb1, omb2, eps, wd;
+};
+
+// the reference's expression order, each operation rounded on its own
+__device__ __forceinline__ void adamw1(float g, float m, float v, float p,
+                                       float bc1, float bc2, const AdamHyper& k,
+                                       float& np, float& nm, float& nv) {
+  nm = __fadd_rn(__fmul_rn(k.b1, m), __fmul_rn(k.omb1, g));
+  nv = __fadd_rn(__fmul_rn(k.b2, v), __fmul_rn(__fmul_rn(k.omb2, g), g));
+  const float step = __fdiv_rn(__fdiv_rn(nm, bc1),
+                               __fadd_rn(__fsqrt_rn(__fdiv_rn(nv, bc2)), k.eps));
+  np = __fsub_rn(p, __fmul_rn(k.lr, __fadd_rn(step, __fmul_rn(k.wd, p))));
+}
+
+template <typename G, typename M, typename V, typename P, bool VEC>
+__global__ void adamw_kernel(const G* g, const M* m, const V* v, const P* p,
+                             const float* bc, P* p_out, M* m_out, V* v_out,
+                             int64_t n, AdamHyper k) {
+  const float bc1 = bc[0], bc2 = bc[1];
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (VEC) {
+    const int64_t chunks = n / 4;
+    for (int64_t c = tid; c < chunks; c += stride) {
+      float gv[4], mv[4], vv[4], pv[4];
+      load4(g + 4 * c, gv);
+      load4(m + 4 * c, mv);
+      load4(v + 4 * c, vv);
+      load4(p + 4 * c, pv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        adamw1(gv[j], mv[j], vv[j], pv[j], bc1, bc2, k, pv[j], mv[j], vv[j]);
+      store4(p_out + 4 * c, pv);
+      store4(m_out + 4 * c, mv);
+      store4(v_out + 4 * c, vv);
+    }
+    done = chunks * 4;
+  }
+  for (int64_t i = done + tid; i < n; i += stride) {
+    float np, nm, nv;
+    adamw1(to_f(g[i]), to_f(m[i]), to_f(v[i]), to_f(p[i]), bc1, bc2, k, np, nm, nv);
+    p_out[i] = from_f<P>(np);
+    m_out[i] = from_f<M>(nm);
+    v_out[i] = from_f<V>(nv);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, h (null: plain rmsnorm), scale, r (null unless h), y: row-major
+// (rows, d); x/h/r share x_dtype, y has out_dtype, scale scale_dtype.
+int fused_rmsnorm(const void* x, const void* h, const void* scale, void* r,
+                  void* y, long long rows, int d, float eps, int x_dtype,
+                  int scale_dtype, int out_dtype, int blocks, int threads,
+                  void* stream) {
+  if (rows <= 0 || d <= 0 || (h == nullptr) != (r == nullptr) ||
+      threads <= 0 || threads > 1024 || threads % 32 || blocks <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = d % 8 == 0 && aligned16(x) && aligned16(h) &&
+                   aligned16(scale) && aligned16(r) && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_type(x_dtype, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    return with_type(scale_dtype, [&](auto st) {
+      using S = typename decltype(st)::type;
+      return with_type(out_dtype, [&](auto ot) {
+        using O = typename decltype(ot)::type;
+        return h ? launch_rmsnorm<T, S, O, true>(x, h, scale, r, y, rows, d,
+                                                 eps, vec, blocks, threads, s)
+                 : launch_rmsnorm<T, S, O, false>(x, h, scale, r, y, rows, d,
+                                                  eps, vec, blocks, threads, s);
+      });
+    });
+  });
+}
+
+// y = act(g) * u over n elements; act 0 = silu, 1 = gelu (tanh form)
+int fused_swiglu(const void* g, const void* u, void* y, long long n, int act,
+                 int in_dtype, int out_dtype, int blocks, int threads,
+                 void* stream) {
+  if (n <= 0 || (act != kSilu && act != kGelu) || threads <= 0 ||
+      threads > 1024 || blocks <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = aligned16(g) && aligned16(u) && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_type(in_dtype, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    return with_type(out_dtype, [&](auto ot) {
+      using O = typename decltype(ot)::type;
+      auto go = [&](auto kernel) {
+        kernel<<<blocks, threads, 0, s>>>(static_cast<const T*>(g),
+                                          static_cast<const T*>(u),
+                                          static_cast<O*>(y), (int64_t)n);
+        return (int)cudaGetLastError();
+      };
+      if (act == kSilu) {
+        return vec ? go(swiglu_kernel<T, O, kSilu, true>)
+                   : go(swiglu_kernel<T, O, kSilu, false>);
+      }
+      return vec ? go(swiglu_kernel<T, O, kGelu, true>)
+                 : go(swiglu_kernel<T, O, kGelu, false>);
+    });
+  });
+}
+
+// one AdamW leaf over n elements; p_out/m_out/v_out may equal p/m/v
+int fused_adamw(const void* g, const void* m, const void* v, const void* p,
+                const void* bc, void* p_out, void* m_out, void* v_out,
+                long long n, float lr, float b1, float b2, float omb1,
+                float omb2, float eps, float wd, int g_dtype, int m_dtype,
+                int v_dtype, int p_dtype, int blocks, int threads,
+                void* stream) {
+  if (n <= 0 || threads <= 0 || threads > 1024 || blocks <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = aligned16(g) && aligned16(m) && aligned16(v) &&
+                   aligned16(p) && aligned16(p_out) && aligned16(m_out) &&
+                   aligned16(v_out);
+  const AdamHyper k{lr, b1, b2, omb1, omb2, eps, wd};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_type(g_dtype, [&](auto gt) {
+    using G = typename decltype(gt)::type;
+    return with_type(m_dtype, [&](auto mt) {
+      using M = typename decltype(mt)::type;
+      return with_type(v_dtype, [&](auto vt) {
+        using V = typename decltype(vt)::type;
+        return with_type(p_dtype, [&](auto pt) {
+          using P = typename decltype(pt)::type;
+          auto go = [&](auto kernel) {
+            kernel<<<blocks, threads, 0, s>>>(
+                static_cast<const G*>(g), static_cast<const M*>(m),
+                static_cast<const V*>(v), static_cast<const P*>(p),
+                static_cast<const float*>(bc), static_cast<P*>(p_out),
+                static_cast<M*>(m_out), static_cast<V*>(v_out), (int64_t)n, k);
+            return (int)cudaGetLastError();
+          };
+          return vec ? go(adamw_kernel<G, M, V, P, true>)
+                     : go(adamw_kernel<G, M, V, P, false>);
+        });
+      });
+    });
+  });
+}
+
+const char* fused_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,353 @@
+"""Model-facing routing for the fused kernels (port of
+``repro.kernels.fused.ops``): eligibility, and one PyTorch op per routed
+function.
+
+``RunConfig.fusion = "static"`` routes the memory-bound chains the zero-AI
+census ranks hottest through the kernels of this package.  The
+eligibility predicates are hard correctness gates with the reference's
+limits: anything the kernels cannot take (other dtypes, degenerate
+shapes, oversized rows) keeps the plain math at the call site, with the
+same outputs.  ``"auto"`` / ``"measured"`` also consult a measured
+dispatch table in the reference; ``RunConfig`` refuses them until that
+table is ported, so here eligibility alone decides.
+
+Each routed function is one op in the ``repro_torch::`` namespace
+(``torch.library.custom_op``):
+
+* its implementation calls the kernel module's wrapper, which launches
+  the CUDA kernel for a CUDA tensor (or raises) and runs the plain
+  version for a CPU tensor;
+* ``register_fake`` gives its output shapes, so the op walk on meta
+  tensors sees one op and allocates nothing;
+* ``register_autograd`` gives a backward that recomputes the plain math
+  and differentiates it — the reference's ``custom_vjp`` backwards do
+  the same (recompute, not store).  The recompute stops short of the
+  final cast to the output dtype and takes the cotangent in fp32
+  instead: the cast's vjp is exactly that upcast, so the gradients are
+  the same and the backward launches one cast fewer.
+
+Also here: :func:`embed_with_onehot_grad`, the embedding gather whose
+backward is one ``onehot(tokens)ᵀ @ g`` matmul instead of a scatter; its
+eligibility caps the transient one-hot at :data:`ONEHOT_BYTES_MAX`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.kernels.fused import adamw as ak
+from repro_torch.kernels.fused import norm as nk
+from repro_torch.kernels.fused import swiglu as sk
+
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+# the feature dim of a row the norm kernels take (the reference's limit:
+# one VMEM-resident row block); rows are unbounded
+NORM_D_MAX = 16_384
+SWIGLU_D_MAX = 32_768
+# transient one-hot budget for the scatter-free embedding backward
+ONEHOT_BYTES_MAX = 2 ** 28
+
+#: modes that route through this package at all
+_ENABLED_MODES = ("static", "auto", "measured")
+
+
+def fusion_enabled(run) -> bool:
+    """The routing predicate every call site guards on."""
+    return run is not None and getattr(run, "fusion", "off") in _ENABLED_MODES
+
+
+# --------------------------------------------------------------------------
+# use_* — the one question each call site asks.  Under ``static`` the
+# answer is eligibility alone.
+# --------------------------------------------------------------------------
+
+def use_norm(run, x, scale, bias=None, *, kind: str = "rmsnorm",
+             out_dtype=None) -> bool:
+    del kind, out_dtype
+    return fusion_enabled(run) and norm_eligible(x, scale, bias)
+
+
+def use_swiglu(run, gate, up, *, act: str = "silu", out_dtype=None) -> bool:
+    del act, out_dtype
+    return fusion_enabled(run) and swiglu_eligible(gate, up)
+
+
+def use_adamw(run, g, m, v, p) -> bool:
+    return fusion_enabled(run) and adamw_eligible(g, m, v, p)
+
+
+def use_embed(run, table, tokens, compute_dtype) -> bool:
+    del compute_dtype
+    return fusion_enabled(run) and embed_grad_eligible(
+        tokens, int(table.shape[0]))
+
+
+# --------------------------------------------------------------------------
+# Eligibility rules (the reference's, on torch tensors)
+# --------------------------------------------------------------------------
+
+def _floaty(*ts) -> bool:
+    return all(t.dtype in _FLOAT_DTYPES for t in ts)
+
+
+def norm_eligible(x, scale, bias=None) -> bool:
+    """2D+ float32/bf16 activations with a matching 1D scale (and bias)."""
+    if x.ndim < 2 or x.shape[-1] == 0 or x.shape[-1] > NORM_D_MAX:
+        return False
+    if tuple(scale.shape) != (x.shape[-1],):
+        return False
+    if bias is not None and bias.shape != scale.shape:
+        return False
+    return _floaty(x)
+
+
+def swiglu_eligible(gate, up) -> bool:
+    if gate.ndim < 2 or gate.shape != up.shape:
+        return False
+    if gate.shape[-1] == 0 or gate.shape[-1] > SWIGLU_D_MAX:
+        return False
+    return _floaty(gate, up)
+
+
+def adamw_eligible(g, m, v, p) -> bool:
+    """Same-shaped float leaves; anything else keeps the plain chain."""
+    if not (g.shape == m.shape == v.shape == p.shape) or p.numel() == 0:
+        return False
+    return _floaty(g, m, v, p)
+
+
+def embed_grad_eligible(tokens, vocab: int) -> bool:
+    """Cap the transient (B·S, V) one-hot the matmul backward builds."""
+    return 0 < tokens.numel() * vocab * 4 <= ONEHOT_BYTES_MAX
+
+
+# --------------------------------------------------------------------------
+# Backward by recomputation
+# --------------------------------------------------------------------------
+
+def _vjp(fn: Callable, primals: Sequence[torch.Tensor],
+         cotangents: Sequence[torch.Tensor | None]) -> tuple:
+    """Gradients of ``fn(*primals)`` (a tensor or a tuple) against
+    ``cotangents``, by running ``fn`` again under autograd."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_() for p in primals]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [c for _, c in pairs], allow_unused=True)
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return nk.fused_rmsnorm(x, scale, eps=eps, out_dtype=out_dtype)
+
+
+@_rmsnorm_op.register_fake
+def _(x, scale, eps, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, ctx.eps, _ = inputs
+    ctx.save_for_backward(x, scale)
+
+
+def _rmsnorm_bwd(ctx, gy):
+    x, scale = ctx.saved_tensors
+    gx, gs = _vjp(lambda a, s: nk.rmsnorm_ref(a, s, ctx.eps, torch.float32),
+                  (x, scale), (gy.float(),))
+    return gx, gs, None, None
+
+
+_rmsnorm_op.register_autograd(_rmsnorm_bwd, setup_context=_rmsnorm_setup)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Routed fused RMSNorm on any (..., d) activation."""
+    d = x.shape[-1]
+    y = _rmsnorm_op(x.reshape(-1, d), scale, float(eps),
+                    out_dtype or x.dtype)
+    return y.reshape(x.shape)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_residual", mutates_args=())
+def _rmsnorm_residual_op(x: torch.Tensor, h: torch.Tensor,
+                         scale: torch.Tensor, eps: float,
+                         out_dtype: torch.dtype
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    return nk.fused_rmsnorm_residual(x, h, scale, eps=eps,
+                                     out_dtype=out_dtype)
+
+
+@_rmsnorm_residual_op.register_fake
+def _(x, h, scale, eps, out_dtype):
+    return torch.empty_like(x), x.new_empty(x.shape, dtype=out_dtype)
+
+
+def _rmsnorm_residual_setup(ctx, inputs, output):
+    x, h, scale, ctx.eps, _ = inputs
+    ctx.save_for_backward(x, h, scale)
+
+
+def _rmsnorm_residual_bwd(ctx, gr, gy):
+    gx, gh, gs = _vjp(
+        lambda a, b, s: nk.rmsnorm_residual_ref(a, b, s, ctx.eps,
+                                                torch.float32),
+        ctx.saved_tensors, (gr, gy.float()))
+    return gx, gh, gs, None, None
+
+
+_rmsnorm_residual_op.register_autograd(
+    _rmsnorm_residual_bwd, setup_context=_rmsnorm_residual_setup)
+
+
+def rmsnorm_residual(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
+                     *, eps: float = 1e-5,
+                     out_dtype: torch.dtype | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Routed fused (x + h, rmsnorm(x + h)·scale) on (..., d) streams."""
+    d = x.shape[-1]
+    r, y = _rmsnorm_residual_op(x.reshape(-1, d), h.reshape(-1, d), scale,
+                                float(eps), out_dtype or x.dtype)
+    return r.reshape(x.shape), y.reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU / GeGLU epilogue
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::swiglu", mutates_args=())
+def _swiglu_op(gate: torch.Tensor, up: torch.Tensor, act: str,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    return sk.fused_swiglu(gate, up, act=act, out_dtype=out_dtype)
+
+
+@_swiglu_op.register_fake
+def _(gate, up, act, out_dtype):
+    return gate.new_empty(gate.shape, dtype=out_dtype)
+
+
+def _swiglu_setup(ctx, inputs, output):
+    gate, up, ctx.act, _ = inputs
+    ctx.save_for_backward(gate, up)
+
+
+def _swiglu_bwd(ctx, gy):
+    gg, gu = _vjp(lambda a, b: sk.swiglu_ref(a, b, ctx.act, torch.float32),
+                  ctx.saved_tensors, (gy.float(),))
+    return gg, gu, None, None
+
+
+_swiglu_op.register_autograd(_swiglu_bwd, setup_context=_swiglu_setup)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Routed fused act(gate)·up on (..., d_ff) activations."""
+    d = gate.shape[-1]
+    y = _swiglu_op(gate.reshape(-1, d), up.reshape(-1, d), act,
+                   out_dtype or gate.dtype)
+    return y.reshape(gate.shape)
+
+
+# --------------------------------------------------------------------------
+# AdamW leaf update (no grad path — the optimizer is not differentiated)
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::adamw", mutates_args=())
+def _adamw_op(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+              p: torch.Tensor, bc: torch.Tensor, lr: float, b1: float,
+              b2: float, eps: float, weight_decay: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ak.fused_adamw(g, m, v, p, bc, lr=lr, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay)
+
+
+@_adamw_op.register_fake
+def _(g, m, v, p, bc, lr, b1, b2, eps, weight_decay):
+    return torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+
+
+@torch.library.custom_op("repro_torch::adamw_", mutates_args=("m", "v", "p"))
+def _adamw_inplace_op(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                      p: torch.Tensor, bc: torch.Tensor, lr: float, b1: float,
+                      b2: float, eps: float, weight_decay: float) -> None:
+    ak.fused_adamw(g, m, v, p, bc, lr=lr, b1=b1, b2=b2, eps=eps,
+                   weight_decay=weight_decay, inplace=True)
+
+
+@_adamw_inplace_op.register_fake
+def _(g, m, v, p, bc, lr, b1, b2, eps, weight_decay):
+    return None
+
+
+def adamw_leaf(g, m, v, p, bc, *, lr: float, b1: float, b2: float,
+               eps: float, weight_decay: float, inplace: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routed fused AdamW update for one leaf → (p′, m′, v′); ``bc`` is
+    the (2,) fp32 tensor of bias corrections.  ``inplace=True`` writes
+    over p, m, v and returns them."""
+    hyper = (float(lr), float(b1), float(b2), float(eps),
+             float(weight_decay))
+    if inplace:
+        _adamw_inplace_op(g, m, v, p, bc, *hyper)
+        return p, m, v
+    return _adamw_op(g, m, v, p, bc, *hyper)
+
+
+# --------------------------------------------------------------------------
+# Op walk: FLOPs of each routed op (core/op_analysis.py reads these)
+# --------------------------------------------------------------------------
+
+def op_flops(name: str, args: Sequence) -> float:
+    """FLOPs of one call of the ``repro_torch::<name>`` op, from the
+    kernel module's count."""
+    if name in ("rmsnorm", "rmsnorm_residual"):
+        rows, d = args[0].shape
+        return nk.flops(rows, d, residual=name == "rmsnorm_residual")
+    if name == "swiglu":
+        rows, d = args[0].shape
+        return sk.flops(rows, d, args[2])
+    if name in ("adamw", "adamw_"):
+        return ak.flops(args[3].numel())
+    raise KeyError(f"no FLOP rule for repro_torch::{name}")
+
+
+# --------------------------------------------------------------------------
+# Scatter-free embedding backward
+# --------------------------------------------------------------------------
+
+class _EmbedOneHot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens, compute_dtype):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.table_dtype = int(table.shape[0]), table.dtype
+        return table.to(compute_dtype)[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        cols = torch.arange(ctx.vocab, device=tokens.device)
+        oh = (tokens.reshape(-1)[:, None] == cols).float()
+        gt = oh.T @ g.reshape(-1, g.shape[-1]).float()
+        return gt.to(ctx.table_dtype), None, None
+
+
+def embed_with_onehot_grad(table: torch.Tensor, tokens: torch.Tensor,
+                           compute_dtype: torch.dtype) -> torch.Tensor:
+    """Embedding gather whose backward is one ``onehotᵀ @ g`` matmul.
+
+    The forward is exactly ``table.to(compute_dtype)[tokens]``; only the
+    gradient changes (a matmul instead of an index scatter), equal up to
+    the fp32 summation order."""
+    return _EmbedOneHot.apply(table, tokens, compute_dtype)

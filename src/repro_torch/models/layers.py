@@ -7,6 +7,11 @@ Plain functions on tensors: ``*_spec(cfg)`` returns a :class:`P` tree and
 fp32.  Weights are cast to the compute dtype where they are used, one
 layer at a time, as the reference does (casting the whole fp32 tree at
 once would hold a second copy of every weight).
+
+The norms, the MLP epilogue and the embedding take a ``run``: with
+``fusion="static"`` an eligible call routes through the fused kernels
+(``repro_torch.kernels.fused.ops``) at the reference's call sites; an
+ineligible one keeps the plain math below.
 """
 
 from __future__ import annotations
@@ -26,12 +31,20 @@ Params = Any
 # Norms
 # --------------------------------------------------------------------------
 
+def _fused(run):
+    from repro_torch.kernels.fused import ops as fops
+    return fops if fops.fusion_enabled(run) else None
+
+
 def rmsnorm_spec(d: int) -> Params:
     return {"scale": P((d,), ("embed",), "ones")}
 
 
-def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
-                  ) -> torch.Tensor:
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5,
+                  run: RunConfig | None = None) -> torch.Tensor:
+    fops = _fused(run)
+    if fops is not None and fops.use_norm(run, x, p["scale"]):
+        return fops.rmsnorm(x, p["scale"], eps=eps)
     dt = x.dtype
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -39,9 +52,15 @@ def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
 
 
 def rmsnorm_residual_apply(p: Params, x: torch.Tensor, h: torch.Tensor,
-                           eps: float = 1e-5
+                           eps: float = 1e-5, run: RunConfig | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x + h, rmsnorm(x + h)) — the pre-norm block's residual seam."""
+    """(x + h, rmsnorm(x + h)) — the pre-norm block's residual seam.  The
+    fused route also needs h in x's dtype (the kernel adds in x's
+    dtype)."""
+    fops = _fused(run)
+    if fops is not None and x.shape == h.shape and x.dtype == h.dtype \
+            and fops.use_norm(run, x, p["scale"], kind="rmsnorm_residual"):
+        return fops.rmsnorm_residual(x, h, p["scale"], eps=eps)
     r = x + h
     return r, rmsnorm_apply(p, r, eps)
 
@@ -145,7 +164,11 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xc = x.to(cd)
     g = torch.einsum("bsd,df->bsf", xc, p["w_gate"].to(cd))
     u = torch.einsum("bsd,df->bsf", xc, p["w_up"].to(cd))
-    h = F.silu(g) * u
+    fops = _fused(run)
+    if fops is not None and fops.use_swiglu(run, g, u, act="silu"):
+        h = fops.swiglu(g, u, act="silu")
+    else:
+        h = F.silu(g) * u
     y = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cd))
     return y.to(x.dtype)
 
@@ -164,6 +187,12 @@ def embed_spec(cfg: ModelConfig) -> Params:
 
 def embed_apply(p: Params, tokens: torch.Tensor, run: RunConfig
                 ) -> torch.Tensor:
+    fops = _fused(run)
+    if fops is not None and fops.use_embed(run, p["tokens"], tokens,
+                                           run.compute_dtype):
+        # same gather forward; the backward is one onehotᵀ @ g matmul
+        return fops.embed_with_onehot_grad(p["tokens"], tokens,
+                                           run.compute_dtype)
     return p["tokens"].to(run.compute_dtype)[tokens]
 
 

@@ -92,14 +92,34 @@ def init(specs: Any, generator: torch.Generator | None,
     return out
 
 
-def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
-    """The reference's parameter tree, given as numpy arrays, as tensors.
+def _port_state_types() -> dict[str, type]:
+    from repro_torch.distributed.amp import DynLossScale
+    from repro_torch.train.optim import AdamWState
+    from repro_torch.train.step import TrainState
+    return {"TrainState": TrainState, "AdamWState": AdamWState,
+            "DynLossScale": DynLossScale}
 
-    ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16``; bf16 crosses
-    as float32 (exact) and is cast back.
+
+def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """The reference's parameter tree — or a whole train state — given as
+    numpy arrays, as tensors.
+
+    A train state is the reference's ``TrainState`` / ``AdamWState`` /
+    ``DynLossScale`` named tuples (params, AdamW ``mu`` / ``nu`` /
+    ``count``, loss ``scale`` / ``good_steps``, ``step``) after
+    ``jax.tree.map(np.asarray, ...)``; each becomes the port's type of the
+    same name.  ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16``;
+    bf16 crosses as float32 (exact) and is cast back.
     """
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        name = type(tree).__name__
+        types = _port_state_types()
+        if name not in types:
+            raise TypeError(f"no port type for the named tuple {name!r}; "
+                            f"known: {sorted(types)}")
+        return types[name](*(from_jax_numpy(v, device) for v in tree))
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(

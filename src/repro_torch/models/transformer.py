@@ -29,11 +29,12 @@ def block_spec(cfg: ModelConfig) -> Params:
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
                 positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm transformer block."""
+    """One pre-norm transformer block (the residual add and the next norm
+    fuse into one pass under ``fusion="static"``)."""
     h = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln_attn"], x,
-                                                     cfg.norm_eps),
+                                                     cfg.norm_eps, run),
                           cfg, run, positions=positions)
-    x, y = L.rmsnorm_residual_apply(p["ln_mlp"], x, h, cfg.norm_eps)
+    x, y = L.rmsnorm_residual_apply(p["ln_mlp"], x, h, cfg.norm_eps, run)
     return x + L.mlp_apply(p["mlp"], y, cfg, run)
 
 
@@ -73,5 +74,5 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
         x = block_apply(_layer(params["blocks"], i), x, cfg, run, positions)
-    x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
     return L.unembed_apply(params["embed"], x, run)

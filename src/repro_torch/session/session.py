@@ -4,15 +4,18 @@ the application against it.
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
-on the host.  This slice has the fwd phase of the dense LM; ``bwd`` and
-``opt`` come with the train-step slice (ROADMAP queue 1, item 6).
+on the host.  ``profile`` builds the dense LM's fwd, bwd and opt phases
+(``repro_torch.train.step.make_phases``) at ``fusion`` ``"off"`` or
+``"static"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.core.machine import (CPU_HOST, MachineSpec, datasheet_for,
                                       get_machine)
@@ -21,8 +24,6 @@ from repro_torch.session.result import RooflineResult, payload_from_profile
 
 #: phases of one training step, in execution order (the paper's split)
 TRAIN_PHASES = ("fwd", "bwd", "opt")
-#: phases this slice builds
-PORTED_PHASES = ("fwd",)
 #: seed of the random weights and tokens of a measured registry profile
 SEED = 0
 
@@ -76,16 +77,18 @@ class Session:
 
     # -- 2. application characterization (paper §II-B) -------------------
     def profile(self, target: str | Callable, args: Sequence[Any] = (),
-                *, phases: Sequence[str] = PORTED_PHASES,
+                *, phases: Sequence[str] = TRAIN_PHASES,
                 seq: int = 32, batch: int = 4, amp: str = "O1",
                 fusion: str = "off", smoke: bool = True,
+                n_layers: int | None = None,
                 measure: bool = False, iters: int = 5, warmup: int = 2
                 ) -> RooflineResult:
         """Aten-op walk of a registry config's phases — or of *your* torch
         function (pass a callable + ``args``).
 
-        ``measure=True`` also runs the same callable on the session's
-        device (parameters drawn there from seed :data:`SEED`) and
+        ``n_layers`` cuts (or sets) the depth of the config, keeping its
+        widths.  ``measure=True`` also runs the same callable on the
+        session's device (parameters drawn there from seed :data:`SEED`) and
         attributes the measured time over its kernels; without it the walk
         runs on meta tensors and allocates nothing, even at full width.
         """
@@ -99,7 +102,8 @@ class Session:
             label = target
             phase_args, run = self._build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
-                fusion=fusion, smoke=smoke, concrete=measure)
+                fusion=fusion, smoke=smoke, n_layers=n_layers,
+                concrete=measure)
             mm = _matmul_class(run)
 
         results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
@@ -124,25 +128,26 @@ class Session:
 
     def _build_phases(self, config: str, *, phases: Sequence[str], seq: int,
                       batch: int, amp: str, fusion: str, smoke: bool,
-                      concrete: bool):
+                      n_layers: int | None, concrete: bool):
         """({phase: (fn, args)}, run) for a registry config: real tensors
         on the session's device for the measured path, meta tensors for
-        the analytical one.  Only what the fwd phase needs is built (no
-        optimizer state, no gradients)."""
+        the analytical one.  Gradients and optimizer state are built only
+        when the opt phase is asked for; its gradients are zeros, as the
+        reference's, and it updates the params in place."""
         from repro_torch.configs.base import RunConfig, ShapeSpec
         from repro_torch.configs.registry import get_config, get_smoke
         from repro_torch.models import api as M
         from repro_torch.models.params import init
+        from repro_torch.train import optim
+        from repro_torch.train.step import make_phases
 
         for ph in phases:
             if ph not in TRAIN_PHASES:
                 raise ValueError(f"unknown phase {ph!r}; valid: "
                                  f"{TRAIN_PHASES}")
-            if ph not in PORTED_PHASES:
-                raise NotImplementedError(
-                    f"phase {ph!r} comes with the train-step slice "
-                    "(ROADMAP queue 1, item 6)")
         cfg = get_smoke(config) if smoke else get_config(config)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         run = RunConfig(amp=amp, fusion=fusion)
         model = M.build(cfg)
         device = self.device if concrete else torch.device("meta")
@@ -153,7 +158,14 @@ class Session:
                                                    "train"),
                                     batch, gen, device)
 
-        def fwd(params, batch):
-            return model.loss_fn(params, batch, run)[0]
+        fns = make_phases(model, run)
+        out = {}
+        for ph in phases:
+            if ph == "opt":
+                args = (params, tree_map(torch.zeros_like, params),
+                        optim.optimizer_init(params, run))
+            else:
+                args = (params, batch_t)
+            out[ph] = (fns[ph], args)
+        return out, run
 
-        return {"fwd": (fwd, (params, batch_t))}, run

@@ -163,6 +163,12 @@ def test_profile_of_a_user_function():
 
 
 @pytest.mark.parametrize("phase", ["bwd", "opt"])
-def test_train_phases_wait_for_their_slice(phase):
-    with pytest.raises(NotImplementedError, match="train-step"):
-        Session(device="cpu").profile("glm4-9b", phases=(phase,))
+def test_train_phases_wait_for_their_slice(phase, tmp_path):
+    """The train phases have landed: bwd and opt match the reference's
+    matmul FLOPs exactly (3x the fwd's, and none)."""
+    ref = RSession(machine="cpu-host", workspace=str(tmp_path))
+    r = ref.profile("glm4-9b", phases=(phase,), seq=32, batch=4, amp="O1")
+    p = Session(machine="cpu-host", device="cpu").profile(
+        "glm4-9b", phases=(phase,), seq=32, batch=4, amp="O1")
+    want = {"bwd": 3 * SMOKE_MATMUL_FLOPS, "opt": 0}[phase]
+    assert _matmul(r.analyses[phase]) == _matmul(p.analyses[phase]) == want

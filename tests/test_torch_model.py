@@ -200,7 +200,7 @@ def test_config_copies_match_reference():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"fusion": "static"}, NotImplementedError),
+    ({"optimizer": "adafactor"}, NotImplementedError),
     ({"fusion": "auto"}, NotImplementedError),
     ({"attn_impl": "flash"}, NotImplementedError),
     ({"attn_impl": "chunked"}, NotImplementedError),
