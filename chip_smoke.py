@@ -9,16 +9,17 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``; it builds the
 hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. builds the kernel libraries ``ert`` and ``fused`` (one ``nvcc`` each,
-   started together; one line of ``ptxas`` register / spill use each);
+2. builds the kernel libraries ``ert``, ``fused`` and ``flash`` (one
+   ``nvcc`` each, started together; one line of ``ptxas`` register /
+   spill use each);
 3. holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at odd sizes, checks the
-   gradient through each routed fused op against the plain route, and
-   times kernel, plain version and library call beside the datasheet
-   bound (the fused kernels' times replay a CUDA graph of many calls, so
-   no host launch overhead is timed; their eager back-to-back time is
-   printed beside it);
-4. drives two main paths, each with every launch count set to 0 just
+   gradient through each routed op against the plain route, and times
+   kernel, plain version and library call beside the datasheet bound
+   (the fused and flash kernels' times replay a CUDA graph of many calls,
+   so no host launch overhead is timed; the fused kernels' eager
+   back-to-back time is printed beside it);
+4. drives three main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True)``,
       the ladder and the GEMM size sweep, each ceiling checked against
@@ -31,9 +32,18 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       ``"static"`` (matmul FLOPs must equal the analytic count, 3x it,
       and 0), then 3 steps of ``make_train_step`` under ``"static"``
       with a finite loss each;
-5. checks the smoke-size fwd and one smoke train step (O0, ``static``) on
-   the card against the same functions on the host (the port's CPU path,
-   which the tests hold against the JAX reference);
+   c. the same step at ``attn_impl="flash"`` under ``"static"``: its
+      phases profiled (fwd matmul FLOPs must equal the analytic count
+      less the QK^T and PV products, the flash records' FLOPs the
+      kernel's model, one launch per layer in each fwd pass), 3 steps
+      with a finite loss each, one fwd at ``attn_impl="chunked"`` that
+      must route to the kernel, then ``Session.record`` into
+      ``build/chip_workspace`` and ``Session.report``, which must read
+      the same run back;
+5. checks the smoke-size fwd (einsum, and flash: the kernel on the card
+   against the plain version on the host) and one smoke train step (O0,
+   ``static``) on the card against the same functions on the host (the
+   port's CPU path, which the tests hold against the JAX reference);
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -50,10 +60,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-LIBRARIES = ("ert", "fused")
+LIBRARIES = ("ert", "fused", "flash")
 ERT_KERNELS = ("triad", "fma_chain", "ert_gemm")
 FUSED_KERNELS = ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
                  "fused_adamw")
+FLASH_KERNELS = ("flash_attention",)
 
 
 def _fail(msg: str) -> int:
@@ -76,6 +87,25 @@ def check(name: str, out, ref, tol: float) -> float:
           f"(max|ref| {scale:.3e})  {'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"{name}: max_abs_err {err} > tol {tol}")
+    return err
+
+
+def check_within(name: str, out, ref, tol) -> float:
+    """``check`` against an elementwise bound ``tol`` (a tensor that
+    broadcasts against ``ref``): every |out - ref| must stay within it.
+    Prints the largest error and the largest error over its bound."""
+    import torch
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    err = d.max().item()
+    worst = (d / tol).max().item()
+    ok = worst <= 1.0 and math.isfinite(err)
+    print(f"  {name:<44} max_abs_err {err:.3e}  max err/tol {worst:.3f}  "
+          f"(max|ref| {ref.float().abs().max().item():.3e})  "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: an error reaches {worst} of its "
+                             "elementwise bound")
     return err
 
 
@@ -200,6 +230,43 @@ def kernel_checks(dev, sheet) -> list[dict]:
     return rows
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph and replayed, so no host launch overhead is timed."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    out = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def rotating(make, k=4):
+    """k operand sets, cycled: together larger than the 50 MB L2, so a
+    timed launch finds its inputs in HBM as the train step does."""
+    import itertools
+    sets = [make() for _ in range(k)]
+    it = itertools.cycle(sets)
+    return sets, lambda: next(it)
+
+
 def fused_checks(dev, sheet) -> list[dict]:
     """Phase 3 for the fused kernels: each against its plain version at
     the main path's shapes and at odd ones, the gradient through each
@@ -223,39 +290,7 @@ def fused_checks(dev, sheet) -> list[dict]:
         than the Python call)."""
         return 1e3 * ert_ops.time_launches(fn, dev)
 
-    def ms(fn, calls: int = 20, replays: int = 5) -> float:
-        """Device milliseconds per call: ``calls`` calls captured in one
-        CUDA graph and replayed, so no host launch overhead is timed."""
-        fn()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
-        graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(replays):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        out = start.elapsed_time(end) / (replays * calls)
-        del graph
-        torch.cuda.empty_cache()
-        return out
-
-    def rotating(make, k=4):
-        """k operand sets, cycled: together larger than the 50 MB L2, so
-        a timed launch finds its inputs in HBM as the train step does."""
-        sets = [make() for _ in range(k)]
-        it = itertools.cycle(sets)
-        return sets, lambda: next(it)
-
+    ms = graph_ms
     def ulp_tol(dtype, ref, f32_ulps: int = 1) -> float:
         # one rounding of an fp32 value that may differ in its last bits
         # (sums in another order, another exp/tanh): 1 ulp of the output
@@ -455,6 +490,112 @@ def fused_checks(dev, sheet) -> list[dict]:
     return rows
 
 
+def flash_checks(dev, sheet) -> list[dict]:
+    """Phase 3 for flash attention: the kernel against its plain version
+    at the main path's shape and at odd ones (both layouts), the gradient
+    through the routed op against the plain route, and the times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def gqa(b, s, kv, grp, hd, dt):
+        return (randn((b, s, kv, grp, hd), dt), randn((b, s, kv, hd), dt),
+                randn((b, s, kv, hd), dt))
+
+    print("flash_attention: (tolerance, elementwise, "
+          "ref.kernel_tolerance: fp32 1e-5 of max|ref| — the same fp32 math "
+          "summed in another order; bf16/fp16 s * (|ref| + the row's "
+          "max|ref| over head_dim), s = 2^-7 / 2^-10 the dtype's relative "
+          "spacing — the output may round to a neighbour, and P is rounded "
+          "to the input dtype for the tensor-core PV product; per row, so "
+          "a late query row's small output is held to its own scale)")
+    main = (2, 2048, 2, 16, 128)
+    for shape, dt, causal in ((main, bf16, True),
+                              ((1, 1000, 1, 1, 64), f32, True),
+                              ((1, 1000, 1, 1, 64), bf16, True),
+                              ((1, 1000, 2, 2, 128), f16, True),
+                              ((2, 1000, 2, 3, 64), f32, False),
+                              ((4, 32, 1, 4, 16), bf16, True),
+                              ((4, 32, 1, 4, 16), f32, True),
+                              ((1, 77, 2, 2, 8), bf16, True),
+                              ((1, 130, 1, 4, 24), f16, True),
+                              ((1, 200, 1, 2, 72), bf16, False),
+                              ((1, 129, 2, 1, 136), bf16, True),
+                              ((1, 300, 1, 2, 256), bf16, True),
+                              ((1, 300, 1, 2, 256), f32, True),
+                              ((2, 1, 1, 2, 16), bf16, True)):
+        q, k, v = gqa(*shape, dt)
+        want = ops._ref_gqa(q, k, v, causal)
+        check_within(f"flash {'x'.join(map(str, shape))} {str(dt)[6:]} "
+                     f"causal={causal}", fk.flash_attention_grouped(
+                         q, k, v, causal=causal), want,
+                     ref.kernel_tolerance(want))
+    for dt, causal in ((bf16, False), (bf16, True), (f32, True)):
+        q, k, v = randn((6, 100, 64), dt), randn((6, 257, 64), dt), \
+            randn((6, 257, 64), dt)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        check_within(f"flash (BH, S, hd) sq=100 sk=257 {str(dt)[6:]} "
+                     f"causal={causal}", fk.flash_attention(
+                         q, k, v, causal=causal), want,
+                     ref.kernel_tolerance(want))
+
+    print("gradient through the routed flash op against the plain route "
+          "(tolerance: 1 ulp of each gradient's dtype at its max — the "
+          "backward recomputes the same plain math)")
+    q, k, v = gqa(1, 512, 2, 4, 128, bf16)
+    gy = randn(q.shape, bf16)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, gy)
+
+    for i, (a, w) in enumerate(zip(
+            grads(ops.flash_attention_gqa),
+            grads(lambda a, b, c: ops._ref_gqa(a, b, c, True)))):
+        check(f"grad flash_attention input {i}", a, w,
+              2.0 ** -7 * w.float().abs().max().item())
+    del q, k, v, gy
+
+    b, s, kv, grp, hd = main
+    sets, nxt = rotating(lambda: gqa(*main, bf16), k=2)
+    q, k, v = sets[0]
+    want = ops._ref_gqa(q, k, v, True)
+    err = check_within("flash main shape, timed operands",
+                       fk.flash_attention_grouped(q, k, v), want,
+                       ref.kernel_tolerance(want))
+    del want
+
+    def sdpa(q, k, v):
+        # the library yardstick in its own (B, H, S, hd) layout; the
+        # transposes are views, and enable_gqa reads the shared KV heads
+        return F.scaled_dot_product_attention(
+            q.flatten(2, 3).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+        "shape": "bf16 q (2, 2048, 2, 16, 128), k/v (2, 2048, 2, 128), "
+                 "causal (every attention of path c)",
+        "max_abs_err": err,
+        "ms": graph_ms(lambda: fk.flash_attention_grouped(*nxt())),
+        "plain_ms": graph_ms(lambda: ops._ref_gqa(*nxt(), True), calls=2),
+        "library_ms": graph_ms(lambda: sdpa(*nxt())),
+        **bound(fk.hbm_bytes(b * kv * grp, s, s, hd, 2),
+                fk.flops(b * kv * grp, s, s, hd), "bf16", sheet)}
+    del sets, q, k, v
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
     """Least time for the work on the datasheet card: the larger of bytes
     over HBM bandwidth and operations over the class's peak."""
@@ -462,6 +603,26 @@ def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
     t_ops = nflops / sheet.peak_for(cls)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_summary(label: str, ph: str, prof, sheet) -> tuple[float, float]:
+    """Print one measured phase of a profile: wall against the datasheet
+    bound, peak memory, launches, zero-AI launches, FLOPs and bytes;
+    returns (matmul FLOPs, flash-attention FLOPs)."""
+    from repro_torch.core.roofline import roofline_terms
+    pr, ana = prof.data[ph], prof.analyses[ph]
+    mm = sum(k.total_flops for k in ana.kernels if k.category == "matmul")
+    fl = sum(k.total_flops for k in ana.kernels
+             if k.opcode == "flash_attention")
+    z_inv, z_bytes = ana.zero_ai_census()["zero-AI"]
+    bound_ms = 1e3 * roofline_terms(ana, sheet).bound_overlap_s
+    print(f"  {label:<6} {ph}: wall {pr.wall_s * 1e3:.3f} ms (median of "
+          f"{pr.measure_iters}) | datasheet bound {bound_ms:.3f} ms | peak "
+          f"device memory {pr.peak_device_bytes / 1e9:.2f} GB | launches "
+          f"{sum(k.exec_count for k in ana.kernels)}, zero-AI {z_inv} "
+          f"({z_bytes / 1e9:.3f} GB) | matmul FLOPs {mm:.0f} | flash FLOPs "
+          f"{fl:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
+    return mm, fl
 
 
 def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
@@ -476,7 +637,6 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
     import torch
     from repro_torch import kernels
     from repro_torch.configs.base import RunConfig, ShapeSpec
-    from repro_torch.core.roofline import roofline_terms
     from repro_torch.kernels.fused.ops import embed_grad_eligible
     from repro_torch.models import api as M
     from repro_torch.models.transformer import matmul_flops
@@ -503,18 +663,7 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
                          batch=batch, amp="O1", fusion=fusion, measure=True,
                          iters=5, warmup=2)
         for ph in ("fwd", "bwd", "opt"):
-            pr, ana = prof.data[ph], prof.analyses[ph]
-            mm = sum(k.total_flops for k in ana.kernels
-                     if k.category == "matmul")
-            z_inv, z_bytes = ana.zero_ai_census()["zero-AI"]
-            bound_ms = 1e3 * roofline_terms(ana, sheet).bound_overlap_s
-            print(f"  {fusion:<6} {ph}: wall {pr.wall_s * 1e3:.3f} ms "
-                  f"(median of {pr.measure_iters}) | datasheet bound "
-                  f"{bound_ms:.3f} ms | peak device memory "
-                  f"{pr.peak_device_bytes / 1e9:.2f} GB | launches "
-                  f"{sum(k.exec_count for k in ana.kernels)}, zero-AI "
-                  f"{z_inv} ({z_bytes / 1e9:.3f} GB) | matmul FLOPs "
-                  f"{mm:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
+            mm, _ = phase_summary(fusion, ph, prof, sheet)
             # the one-hot embedding gradient is one more matmul where it is
             # eligible (not at full width: 4096·151,552·4 B > 2^28)
             extra = (2 * batch * seq * cfg4.vocab_padded * cfg4.d_model
@@ -536,7 +685,7 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
         if fusion == "static":
             print(prof.render(charts=0, top_kernels=8))
         # the opt phase's result holds the params and both moments
-        del prof, pr, ana
+        del prof
         if cuda:
             torch.cuda.empty_cache()
 
@@ -571,6 +720,126 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
             raise AssertionError(f"kernel {name} was not launched on main "
                                  "path b")
     del state, step
+    return counts
+
+
+def attention_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
+                   seq: int = 2048, batch: int = 2, smoke: bool = False,
+                   workspace: str | None = None) -> dict:
+    """Main path c: the path-b train step at ``attn_impl="flash"`` under
+    ``fusion="static"`` — its phases profiled, 3 steps, one fwd at
+    ``"chunked"`` (which must route to the kernel), and a record written
+    and read back.  Launch counts are set to 0 just before and read just
+    after; returns them."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import api as M
+    from repro_torch.models.transformer import matmul_flops
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    cfg4 = dataclasses.replace(cfg, n_layers=layers)
+    H, hd = cfg4.n_heads, cfg4.head_dim
+    qk_pv = 4 * batch * H * seq * seq * hd * layers
+    want_mm = matmul_flops(cfg4, batch, seq) - qk_pv
+    want_flash = layers * fk.flops(batch * H, seq, seq, hd)
+    iters, warmup = 5, 2
+    print(f"== 4c. main path: glm4-9b train step at attn_impl=flash, "
+          f"fusion static, full width, {layers} layers, seq {seq} batch "
+          f"{batch} amp O1 (fwd matmul FLOPs must be {want_mm}, the flash "
+          f"records' {want_flash:.0f})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device, workspace=workspace)
+    t0 = time.perf_counter()
+    prof = s.profile("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                     batch=batch, amp="O1", fusion="static",
+                     attn_impl="flash", measure=True, iters=iters,
+                     warmup=warmup)
+    for ph in ("fwd", "bwd", "opt"):
+        mm, fl = phase_summary("flash", ph, prof, sheet)
+        if ph == "fwd" and (mm != want_mm or fl != want_flash):
+            raise AssertionError(f"flash fwd: matmul FLOPs {mm} != {want_mm}"
+                                 f" or flash FLOPs {fl} != {want_flash}")
+    loss = float(prof.data["fwd"].output)
+    print(f"  flash  fwd loss {loss:.6f}; profile call "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not math.isfinite(loss):
+        raise AssertionError("flash fwd loss is not finite")
+    print(prof.render(charts=0, top_kernels=8))
+    # one launch per layer in each fwd pass: the fwd and bwd phases each
+    # ran warmup + iters forward passes (the backward launches nothing)
+    per_profile = 2 * (warmup + iters) * layers
+    got = kernels.launch_counts()["flash_attention"]
+    print(f"  flash launches in the profile: {got} (expected {per_profile}"
+          f" = 2 phases x {warmup + iters} calls x {layers} layers)")
+    if cuda and got != per_profile:
+        raise AssertionError(f"flash launches {got} != {per_profile}")
+    del prof
+    if cuda:
+        torch.cuda.empty_cache()
+
+    run = RunConfig(amp="O1", fusion="static", attn_impl="flash")
+    model = M.build(cfg4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg4, ShapeSpec("t", seq, batch, "train"),
+                                    batch, gen, device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  flash train step {i + 1}: loss {loss:.6f} | grad norm "
+              f"{float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"flash train step {i + 1}: loss {loss}")
+    del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    before = kernels.launch_counts()["flash_attention"]
+    prof = s.profile("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                     batch=batch, amp="O1", fusion="static",
+                     attn_impl="chunked", phases=("fwd",), measure=True,
+                     iters=1, warmup=1)
+    routed = kernels.launch_counts()["flash_attention"] - before
+    pr = prof.data["fwd"]
+    print(f"  chunked (chunk 1024) + static fwd: wall {pr.wall_s * 1e3:.3f} "
+          f"ms, loss {float(pr.output):.6f}, flash launches {routed}")
+    if cuda and routed != 2 * layers:
+        raise AssertionError(f"chunked + static launched flash {routed} "
+                             f"times, not {2 * layers}")
+    del prof, pr
+    if cuda:
+        torch.cuda.empty_cache()
+
+    rec = s.record("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                   batch=batch, amp="O1", fusion="static", attn_impl="flash",
+                   iters=3, warmup=1)
+    print(rec.render())
+    rep = Session(machine=sheet, device=device,
+                  workspace=s.workspace).report("glm4-9b")
+    print(f"  report of {rep.provenance['store']}: run "
+          f"{rep.data.run_id} (record wrote {rec.data.run_id})")
+    if rep.data.run_id != rec.data.run_id or \
+            list(rep.phases) != ["fwd", "bwd", "opt"]:
+        raise AssertionError("report did not read back the recorded run")
+    counts = kernels.launch_counts()
+    print(f"launches on main path c: {json.dumps(counts)}")
+    if cuda and counts["flash_attention"] <= 0:
+        raise AssertionError("flash_attention was not launched on main "
+                             "path c")
+    if cuda:
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -625,6 +894,7 @@ def main() -> int:
     rows = kernel_checks(dev, sheet)
     torch.cuda.empty_cache()
     rows += fused_checks(dev, sheet)
+    rows += flash_checks(dev, sheet)
     for r in rows:
         lib = r["library_ms"]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
@@ -711,6 +981,11 @@ def main() -> int:
     counts_b = train_path(cfg, sheet)
     torch.cuda.empty_cache()
 
+    # 4c. main path: the same step at flash attention, record and report ----
+    counts_c = attention_path(
+        cfg, sheet, workspace=os.path.join(ROOT, "build", "chip_workspace"))
+    torch.cuda.empty_cache()
+
     # 5. the smoke fwd and train step on the card against the host -----------
     print("== 5. smoke fwd: card against host (O0 loss rtol 1e-5, logits "
           "atol 1e-4: fp32 sums in another order)")
@@ -735,6 +1010,11 @@ def main() -> int:
     print(f"  smoke loss card {loss_g:.7f} host {loss_c:.7f}")
     if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
         raise AssertionError(f"smoke loss {loss_g} vs host {loss_c}")
+    run_f = RunConfig(amp="O0", attn_impl="flash")
+    with torch.no_grad():
+        check("smoke logits at flash: card (kernel) vs host (plain)",
+              model.forward_fn(params_d, batch_d, run_f).cpu(),
+              model.forward_fn(params, batch_c, run_f), 1e-4)
     print("   smoke train step, O0, fusion static: card (fused kernels) "
           "against host (plain versions); loss rtol 1e-5, params after one "
           "step atol 2e-5 (AdamW's first step is about lr·sign(g): a "
@@ -764,7 +1044,8 @@ def main() -> int:
     # 6. results -------------------------------------------------------------
     out = []
     for r in rows:
-        launches = (counts if r["name"] in ERT_KERNELS else counts_b)
+        launches = (counts if r["name"] in ERT_KERNELS else
+                    counts_c if r["name"] in FLASH_KERNELS else counts_b)
         out.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                    | {"launches": launches[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,13 +1,21 @@
 """``python -m repro_torch`` — the port's workflow as a CLI (mirrors the
-``characterize`` and ``profile`` subcommands of ``python -m repro``).
+``characterize``, ``profile``, ``record``, ``report`` and ``compare``
+subcommands of ``python -m repro``).
 
 * ``characterize`` — machine model: the card's datasheet ceilings, or
   (``--empirical``) the ceilings the hand-written ERT kernels measure;
 * ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
   phases (kernel table, three-term bound, roofline chart) at ``--fusion``
-  ``off`` or ``static``; ``--measure`` also times them on the device.
+  ``off`` or ``static`` and ``--attn-impl`` ``einsum``, ``chunked`` or
+  ``flash``; ``--measure`` also times them on the device;
+* ``record``       — measure the phases and append a record to the trace
+  store (``--store``, default the workspace's ``trace.jsonl``);
+  ``--scale-wall`` multiplies the stored wall times (regression drills);
+* ``report``       — the newest stored record, re-rendered;
+* ``compare``      — the newest record of each config against the one
+  before; exit code 1 when a cell regressed past 10%.
 
-Both run on the card unless ``--device cpu`` is given.
+Every subcommand runs on the card unless ``--device cpu`` is given.
 
 Examples::
 
@@ -16,6 +24,10 @@ Examples::
     python -m repro_torch profile --config glm4-9b --device cpu --measure
     python -m repro_torch profile --config glm4-9b --device cpu \
         --fusion static --phase bwd
+    python -m repro_torch record --config glm4-9b --full --layers 4 \
+        --seq 2048 --batch 2 --fusion static --attn-impl flash
+    python -m repro_torch report
+    python -m repro_torch compare
 """
 
 from __future__ import annotations
@@ -29,7 +41,10 @@ PROG = "python -m repro_torch"
 
 def _session(args):
     from repro_torch.session.session import Session
-    return Session(machine=args.machine, device=args.device)
+    from repro_torch.session.workspace import Workspace
+    store = getattr(args, "store", None)
+    return Session(machine=args.machine, device=args.device,
+                   workspace=Workspace.for_store(store) if store else None)
 
 
 def cmd_characterize(args) -> int:
@@ -52,14 +67,51 @@ def cmd_profile(args) -> int:
         res = s.profile(args.config,
                         phases=tuple(args.phase or ("fwd", "bwd", "opt")),
                         seq=args.seq, batch=args.batch, amp=args.amp,
-                        fusion=args.fusion, smoke=not args.full,
-                        n_layers=args.layers, measure=args.measure,
-                        iters=args.iters, warmup=args.warmup)
+                        fusion=args.fusion, attn_impl=args.attn_impl,
+                        smoke=not args.full, n_layers=args.layers,
+                        measure=args.measure, iters=args.iters,
+                        warmup=args.warmup)
     except (KeyError, NotImplementedError) as e:
         print(f"profile: {e.args[0] if e.args else e}", file=sys.stderr)
         return 2
     print(res.render(charts=args.charts, top_kernels=args.top))
     return 0
+
+
+def cmd_record(args) -> int:
+    try:
+        s = _session(args)
+        res = s.record(args.config, seq=args.seq, batch=args.batch,
+                       amp=args.amp, fusion=args.fusion,
+                       attn_impl=args.attn_impl, smoke=not args.full,
+                       n_layers=args.layers, iters=args.iters,
+                       warmup=args.warmup, scale_wall=args.scale_wall)
+    except (RuntimeError, KeyError, NotImplementedError) as e:
+        print(f"record: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    print(f"run {res.data.run_id} -> {s.workspace.trace_path}")
+    return 0
+
+
+def cmd_report(args) -> int:
+    try:
+        res = _session(args).report(args.config)
+    except (RuntimeError, LookupError) as e:
+        print(f"report: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    return 0
+
+
+def cmd_compare(args) -> int:
+    try:
+        res = _session(args).compare(args.config)
+    except (RuntimeError, LookupError) as e:
+        print(f"compare: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    return res.exit_code
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,35 +139,75 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tiny problem sizes (for a quick check)")
     ch.set_defaults(fn=cmd_characterize)
 
+    def workload(p) -> None:
+        from repro_torch.configs.base import ATTN_IMPLS
+        p.add_argument("--config", required=True,
+                       help="registry config name (see repro_torch.configs)")
+        p.add_argument("--seq", type=int, default=32)
+        p.add_argument("--batch", type=int, default=4)
+        p.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
+        p.add_argument("--fusion", default="off", choices=("off", "static"),
+                       help="'static' routes the norms, the SwiGLU "
+                            "epilogue, the embedding backward, AdamW and "
+                            "eligible chunked attention through the "
+                            "hand-written kernels")
+        p.add_argument("--attn-impl", default="einsum", choices=ATTN_IMPLS,
+                       help="attention lowering; 'flash' runs the "
+                            "flash-attention kernel")
+        p.add_argument("--full", action="store_true",
+                       help="full config instead of the smoke variant")
+        p.add_argument("--layers", type=int, default=None,
+                       help="cut the depth to this many layers (widths "
+                            "kept)")
+        p.add_argument("--iters", type=int, default=5)
+        p.add_argument("--warmup", type=int, default=2)
+
+    def store(p) -> None:
+        p.add_argument("--store", default=None, metavar="PATH",
+                       help="trace-store JSONL file (default: trace.jsonl "
+                            "of the workspace: $REPRO_WORKSPACE, else "
+                            "./.repro-workspace in a checkout)")
+
     pr = sub.add_parser("profile",
                         help="aten-op walk of a registry config "
                              "(paper §II-B)")
     common(pr)
-    pr.add_argument("--config", required=True,
-                    help="registry config name (see repro_torch.configs)")
+    workload(pr)
     pr.add_argument("--phase", action="append", choices=("fwd", "bwd", "opt"),
                     help="phase to profile (repeatable; default all three)")
-    pr.add_argument("--seq", type=int, default=32)
-    pr.add_argument("--batch", type=int, default=4)
-    pr.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
-    pr.add_argument("--fusion", default="off", choices=("off", "static"),
-                    help="'static' routes the norms, the SwiGLU epilogue, "
-                         "the embedding backward and AdamW through the "
-                         "fused kernels")
-    pr.add_argument("--full", action="store_true",
-                    help="full config instead of the smoke variant")
-    pr.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to this many layers (widths kept)")
     pr.add_argument("--measure", action="store_true",
                     help="also run the same callable on the device and "
                          "fold measured time in")
-    pr.add_argument("--iters", type=int, default=5)
-    pr.add_argument("--warmup", type=int, default=2)
     pr.add_argument("--charts", type=int, default=0,
                     help="render up to N per-phase roofline charts")
     pr.add_argument("--top", type=int, default=10,
                     help="kernel-table rows per phase")
     pr.set_defaults(fn=cmd_profile)
+
+    rc = sub.add_parser("record",
+                        help="measure a config's phases and append a record "
+                             "to the trace store")
+    common(rc)
+    workload(rc)
+    store(rc)
+    rc.add_argument("--scale-wall", type=float, default=1.0,
+                    help="multiply stored wall times (regression drills)")
+    rc.set_defaults(fn=cmd_record)
+
+    rp = sub.add_parser("report", help="the newest stored record")
+    common(rp)
+    store(rp)
+    rp.add_argument("--config", default=None,
+                    help="newest record of this config (default: any)")
+    rp.set_defaults(fn=cmd_report)
+
+    cp = sub.add_parser("compare",
+                        help="newest record of each config against the one "
+                             "before; exit 1 on a regression")
+    common(cp)
+    store(cp)
+    cp.add_argument("--config", default=None)
+    cp.set_defaults(fn=cmd_compare)
     return ap
 
 

@@ -89,13 +89,16 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Execution policy.  The port runs ``fusion`` ``"off"`` or
-    ``"static"``, the einsum attention and AdamW; the other settings raise
-    until their slice lands."""
+    ``"static"``, the ``einsum``, ``chunked`` and ``flash`` attention and
+    AdamW; the other settings raise until their slice lands."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
     remat: str = "none"
+    # attention lowering: "einsum" | "chunked" (query chunks of attn_chunk,
+    # recomputed in the backward) | "flash" (the hand-written kernel)
     attn_impl: str = "einsum"
+    attn_chunk: int = 1024
     # attention softmax statistics in fp32 (False = compute dtype)
     softmax_f32: bool = True
     fusion: str = "off"
@@ -119,6 +122,9 @@ class RunConfig:
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {self.optimizer!r}; "
                              f"valid: {OPTIMIZERS}")
+        if self.attn_chunk < 1:
+            raise ValueError(f"attn_chunk must be >= 1, got "
+                             f"{self.attn_chunk}")
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")
@@ -130,10 +136,6 @@ class RunConfig:
             raise NotImplementedError(
                 f"optimizer={self.optimizer!r}: the port has AdamW only "
                 "(ROADMAP queue 1)")
-        if self.attn_impl != "einsum":
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} needs the chunked path and "
-                "the flash kernel (ROADMAP queue 1 item 5, queue 2 item 4)")
         if self.remat != "none":
             raise NotImplementedError(
                 f"remat={self.remat!r} applies to the backward pass "

@@ -19,11 +19,12 @@ kernel:
 * ``hbm_bytes`` = operand bytes + result bytes.  An unfused aten op is
   its own kernel, so every intermediate crosses device memory and
   ``vmem_bytes`` (the on-chip level's traffic) equals ``hbm_bytes``;
-* the port's own ops (``repro_torch::``, one per fused kernel) are
+* the port's own ops (``repro_torch::``, one per hand-written kernel) are
   category ``custom`` — the reference's label for a custom call — with
   the FLOPs of the kernel module's count, and bytes = operands + results
   + the operands the op writes in place (the in-place AdamW update
-  returns nothing but writes p, m and v).
+  returns nothing but writes p, m and v); flash attention carries its
+  module's ``hbm_bytes`` instead (K/V counted once per query head).
 """
 
 from __future__ import annotations
@@ -256,6 +257,11 @@ def _custom_flops(func, args) -> float:
     return op_flops(func._opname, args)
 
 
+def _custom_bytes(func, args) -> float | None:
+    from repro_torch.kernels.fused.ops import op_bytes
+    return op_bytes(func._opname, args)
+
+
 def _written_args_bytes(func, args, kwargs) -> int:
     """Bytes of the operands an op mutates (its schema's ``Tensor(a!)``)."""
     out = 0
@@ -303,7 +309,9 @@ class _OpRecorder(TorchDispatchMode):
             cls = self.matmul_class
         nbytes = sum(map(_nbytes, inputs)) + sum(map(_nbytes, outputs))
         if port:
-            nbytes += _written_args_bytes(func, args, kwargs)
+            model = _custom_bytes(func, args)
+            nbytes = (int(model) if model is not None else
+                      nbytes + _written_args_bytes(func, args, kwargs))
         self.records[key] = KernelRecord(
             name=f"{packet.__name__}.{len(self.records)}",
             opcode=packet.__name__,

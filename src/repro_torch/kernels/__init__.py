@@ -11,13 +11,15 @@ from __future__ import annotations
 def _counters() -> dict:
     """{kernel name: (module, name of its counter)}."""
     from repro_torch.kernels.ert import bandwidth, flops, gemm
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.fused import adamw, norm, swiglu
     return {"triad": (bandwidth, "LAUNCHES"), "fma_chain": (flops, "LAUNCHES"),
             "ert_gemm": (gemm, "LAUNCHES"),
             "fused_rmsnorm": (norm, "LAUNCHES"),
             "fused_rmsnorm_residual": (norm, "RESIDUAL_LAUNCHES"),
             "fused_swiglu": (swiglu, "LAUNCHES"),
-            "fused_adamw": (adamw, "LAUNCHES")}
+            "fused_adamw": (adamw, "LAUNCHES"),
+            "flash_attention": (flash, "LAUNCHES")}
 
 
 def launch_counts() -> dict[str, int]:

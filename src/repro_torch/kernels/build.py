@@ -59,9 +59,17 @@ _SIGNATURES = {
                         _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
         "fused_error_string": (_I,),
     },
+    "flash": {
+        # q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, dtype, stream
+        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _I, _P),
+        "flash_tile": (_I,),
+        "flash_error_string": (_I,),
+    },
 }
 _RESTYPES = {"ert_error_string": ctypes.c_char_p,
-             "fused_error_string": ctypes.c_char_p}
+             "fused_error_string": ctypes.c_char_p,
+             "flash_error_string": ctypes.c_char_p}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -10,7 +10,10 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
   rows with a stride of the grid);
 * ``block_m`` / ``block_n`` / ``block_k`` — GEMM tiles.  The GEMM's tiles
   are compile-time constants of ``csrc/ert.cu``: the config states them
-  and the wrapper refuses any other value.
+  and the wrapper refuses any other value;
+* ``block_q`` / ``block_k`` — flash attention's query rows per block and
+  keys per shared-memory tile, likewise compiled into ``csrc/flash.cu``
+  (fp32 at hd > 128 takes 32-key tiles to fit shared memory).
 
 The reference's ``block_rows`` / ``block`` (rows or elements per VMEM
 block) have no counterpart: a Hopper block holds one row, or strides
@@ -64,6 +67,10 @@ DEFAULTS: dict[str, KernelConfig] = {
                                       blocks_per_sm=8),
     "fused_adamw": KernelConfig.make("fused_adamw", threads=256,
                                      blocks_per_sm=8),
+    # four warps of 16 query rows; a bf16 block at hd 128 holds 85 KiB of
+    # shared memory (Q and double-buffered K/V tiles), so two share an SM
+    "flash_attention": KernelConfig.make("flash_attention", block_q=64,
+                                         block_k=64, threads=128),
 }
 
 

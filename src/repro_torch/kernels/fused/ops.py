@@ -49,6 +49,8 @@ NORM_D_MAX = 16_384
 SWIGLU_D_MAX = 32_768
 # transient one-hot budget for the scatter-free embedding backward
 ONEHOT_BYTES_MAX = 2 ** 28
+# the flash-from-chunked route needs a non-degenerate q/k block
+FLASH_MIN_BLOCK = 16
 
 #: modes that route through this package at all
 _ENABLED_MODES = ("static", "auto", "measured")
@@ -83,6 +85,15 @@ def use_embed(run, table, tokens, compute_dtype) -> bool:
     del compute_dtype
     return fusion_enabled(run) and embed_grad_eligible(
         tokens, int(table.shape[0]))
+
+
+def use_flash_from_chunked(run, q_shape, k_shape, *, causal: bool,
+                           softmax_f32: bool) -> bool:
+    """May ``attn_impl="chunked"`` take the flash kernel at this call?
+    (The port's attention has no memory and no KV cache.)"""
+    return fusion_enabled(run) and flash_from_chunked_eligible(
+        int(q_shape[1]), int(k_shape[1]), causal=causal, has_memory=False,
+        has_cache=False, softmax_f32=softmax_f32)
 
 
 # --------------------------------------------------------------------------
@@ -122,6 +133,35 @@ def adamw_eligible(g, m, v, p) -> bool:
 def embed_grad_eligible(tokens, vocab: int) -> bool:
     """Cap the transient (B·S, V) one-hot the matmul backward builds."""
     return 0 < tokens.numel() * vocab * 4 <= ONEHOT_BYTES_MAX
+
+
+def flash_from_chunked_eligible(sq: int, sk_: int, *, causal: bool,
+                                has_memory: bool, has_cache: bool,
+                                softmax_f32: bool) -> bool:
+    """May the chunked path route to the flash kernel?
+
+    The kernel is causal self-attention with fp32 online-softmax
+    statistics.  The reference also wants its largest block that divides
+    the sequence non-degenerate (a prime-length 17-token sequence would
+    run 1-wide TPU blocks); the rule is kept on the reference's blocks,
+    so both packages route the same shapes, although the Hopper kernel
+    masks a ragged tile and takes any length.
+    """
+    if has_memory or has_cache or not causal or not softmax_f32:
+        return False
+    if sq != sk_:
+        return False
+
+    def fit(block: int, dim: int) -> int:
+        block = min(block, dim)
+        while block > 1 and dim % block:
+            block //= 2
+        return block
+
+    from repro_torch.kernels.flash_attention.kernel import (DEFAULT_BLOCK_K,
+                                                            DEFAULT_BLOCK_Q)
+    return (fit(DEFAULT_BLOCK_Q, sq) >= FLASH_MIN_BLOCK
+            and fit(DEFAULT_BLOCK_K, sk_) >= FLASH_MIN_BLOCK)
 
 
 # --------------------------------------------------------------------------
@@ -306,12 +346,22 @@ def adamw_leaf(g, m, v, p, bc, *, lr: float, b1: float, b2: float,
 
 
 # --------------------------------------------------------------------------
-# Op walk: FLOPs of each routed op (core/op_analysis.py reads these)
+# Op walk: FLOPs (and, for flash attention, bytes) of each routed op
+# (core/op_analysis.py reads these)
 # --------------------------------------------------------------------------
+
+def _flash_dims(args: Sequence) -> tuple[int, int, int, int]:
+    """(B·H, Sq, Sk, hd) of a ``repro_torch::flash_attention`` call."""
+    b, sq, kv, g, hd = args[0].shape
+    return b * kv * g, sq, int(args[1].shape[1]), hd
+
 
 def op_flops(name: str, args: Sequence) -> float:
     """FLOPs of one call of the ``repro_torch::<name>`` op, from the
     kernel module's count."""
+    if name == "flash_attention":
+        from repro_torch.kernels.flash_attention import kernel as fk
+        return fk.flops(*_flash_dims(args), causal=bool(args[3]))
     if name in ("rmsnorm", "rmsnorm_residual"):
         rows, d = args[0].shape
         return nk.flops(rows, d, residual=name == "rmsnorm_residual")
@@ -321,6 +371,17 @@ def op_flops(name: str, args: Sequence) -> float:
     if name in ("adamw", "adamw_"):
         return ak.flops(args[3].numel())
     raise KeyError(f"no FLOP rule for repro_torch::{name}")
+
+
+def op_bytes(name: str, args: Sequence) -> float | None:
+    """Device-memory bytes of one call where the kernel module's model is
+    not operands + results: flash attention's ``hbm_bytes``, which counts
+    K/V once per *query* head as the reference's does.  ``None``: the op
+    walk's own rule."""
+    if name == "flash_attention":
+        from repro_torch.kernels.flash_attention import kernel as fk
+        return fk.hbm_bytes(*_flash_dims(args), args[0].element_size())
+    return None
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,10 @@ once would hold a second copy of every weight).
 The norms, the MLP epilogue and the embedding take a ``run``: with
 ``fusion="static"`` an eligible call routes through the fused kernels
 (``repro_torch.kernels.fused.ops``) at the reference's call sites; an
-ineligible one keeps the plain math below.
+ineligible one keeps the plain math below.  Attention follows
+``run.attn_impl``: ``"flash"`` takes the flash-attention kernel,
+``"chunked"`` the query-chunked path (or, under fusion, the kernel where
+the shape is eligible), anything else the einsum path.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.params import P
@@ -119,10 +123,35 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                  chunk: int, stat_dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+    """Query-chunked attention: O(chunk × Sk) live scores.
+
+    Each chunk runs under ``checkpoint`` (the reference's
+    ``jax.checkpoint`` over a ``scan``): only the chunk outputs
+    (B, chunk, K, G, hd) survive to the backward pass, and the score and
+    softmax matrices are recomputed there.
+    """
+    Sq = q.shape[1]
+    outs = [checkpoint(_sdpa, q[:, i:i + chunk], k, v, q_pos[i:i + chunk],
+                       k_pos, causal, stat_dtype, use_reentrant=False)
+            for i in range(0, Sq - Sq % chunk, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def _flash(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return fa_ops.flash_attention_gqa(qg, k, v)
+
+
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     run: RunConfig, positions: torch.Tensor | None = None
                     ) -> torch.Tensor:
-    """Causal GQA self-attention (no KV cache)."""
+    """Causal GQA self-attention (no KV cache), lowered by
+    ``run.attn_impl``."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
@@ -137,7 +166,23 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     qg = q.reshape(B, S, K, G, hd)
-    out = _sdpa(qg, k, v, positions, positions, causal=True, stat_dtype=sd)
+    if run.attn_impl == "flash":
+        out = _flash(qg, k, v)
+    elif (run.attn_impl == "chunked" and S > run.attn_chunk
+            and S % run.attn_chunk == 0):
+        # under fusion the chunked path takes the flash kernel where the
+        # shape is eligible: the same score math, no (chunk × S) matrices
+        fops = _fused(run)
+        if fops is not None and fops.use_flash_from_chunked(
+                run, qg.shape, k.shape, causal=True,
+                softmax_f32=run.softmax_f32):
+            out = _flash(qg, k, v)
+        else:
+            out = _sdpa_chunked(qg, k, v, positions, positions, True,
+                                run.attn_chunk, stat_dtype=sd)
+    else:
+        out = _sdpa(qg, k, v, positions, positions, causal=True,
+                    stat_dtype=sd)
     out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
     return y.to(x.dtype)

@@ -10,7 +10,7 @@ from typing import Any
 from repro_torch.core.machine import MachineSpec
 
 #: RooflineResult.kind values this slice produces
-KINDS = ("characterize", "profile")
+KINDS = ("characterize", "profile", "record", "report", "compare")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +22,11 @@ class LevelStat:
     bound_s: float
     achieved_bytes_per_s: float      # 0 = analytical only
     frac_of_peak: float
+
+
+def phases_from_record(rec: Any) -> dict[str, dict[str, Any]]:
+    """Phase payloads of a stored TraceRecord (defensive copy)."""
+    return {name: dict(p) for name, p in rec.phases.items()}
 
 
 def payload_from_profile(res: Any) -> dict[str, Any]:
@@ -63,6 +68,8 @@ class RooflineResult:
     analyses: dict[str, Any] = dataclasses.field(default_factory=dict)
     text: str = ""
     data: Any = None
+    #: CLI exit status this result implies (compare: 1 on regression)
+    exit_code: int = 0
 
     def __post_init__(self) -> None:
         if self.kind not in KINDS:
@@ -96,6 +103,8 @@ class RooflineResult:
         bits = [f"[{self.kind}] {self.name}", f"machine={self.machine.name}"]
         if "device" in self.provenance:
             bits.append(f"device={self.provenance['device']}")
+        if "run_id" in self.provenance:
+            bits.append(f"run={self.provenance['run_id']}")
         if self.phases:
             bits.append(f"phases={','.join(self.phases)}")
             if self.measured:
@@ -114,10 +123,12 @@ class RooflineResult:
         parts = [self.summary()]
         if self.kind == "characterize":
             parts.append(self.text or machine_table(self.machine))
+        elif self.kind == "compare":
+            parts.append(self.text)
         else:
             if self.measured:
                 parts.append(achieved_table({self.name: self.phases}))
-            elif self.data is not None:
+            elif self.data is not None and self.kind == "profile":
                 parts.append(terms_table(
                     {f"{self.name}/{ph}": res
                      for ph, res in self.data.items()}))

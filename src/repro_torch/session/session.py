@@ -1,12 +1,17 @@
 """Session: the paper's workflow as one object (port of
-``repro.session.session``) — characterize the machine, then characterize
-the application against it.
+``repro.session.session``) — characterize the machine, characterize the
+application against it, record measured runs and read them back::
+
+    characterize → profile → record → report → compare
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
-on the host.  ``profile`` builds the dense LM's fwd, bwd and opt phases
-(``repro_torch.train.step.make_phases``) at ``fusion`` ``"off"`` or
-``"static"``.
+on the host.  ``profile`` and ``record`` build the dense LM's fwd, bwd
+and opt phases (``repro_torch.train.step.make_phases``) at ``fusion``
+``"off"`` or ``"static"`` and ``attn_impl`` ``"einsum"``, ``"chunked"``
+or ``"flash"``.  Records go to the workspace's trace store
+(:class:`~repro_torch.session.workspace.Workspace`), in the reference's
+schema.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from torch.utils._pytree import tree_map
 from repro_torch.core.machine import (CPU_HOST, MachineSpec, datasheet_for,
                                       get_machine)
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.session.result import RooflineResult, payload_from_profile
+from repro_torch.session.result import (RooflineResult, payload_from_profile,
+                                        phases_from_record)
+from repro_torch.session.workspace import Workspace
 
 #: phases of one training step, in execution order (the paper's split)
 TRAIN_PHASES = ("fwd", "bwd", "opt")
@@ -36,21 +43,28 @@ class Session:
     """One analysis session: a machine model on one device.
 
     ``machine`` is a :class:`MachineSpec`, a registry name, or ``None``
-    for the datasheet spec of the device (``cpu-host`` on the host).
+    for the datasheet spec of the device (``cpu-host`` on the host);
+    ``workspace`` is a :class:`Workspace`, a root path, or ``None`` for
+    the default root (``REPRO_WORKSPACE`` > ``./.repro-workspace`` in a
+    checkout > ``~/.repro``).
     """
 
     def __init__(self, machine: MachineSpec | str | None = None,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 workspace: Workspace | str | None = None):
         self.device = resolve_device(device)
         if machine is None:
             machine = (datasheet_for(torch.cuda.get_device_name(self.device))
                        if self.device.type == "cuda" else CPU_HOST)
         self.machine = (machine if isinstance(machine, MachineSpec)
                         else get_machine(machine))
+        self.workspace = (workspace if isinstance(workspace, Workspace)
+                          else Workspace(workspace))
 
     def __repr__(self) -> str:
         return (f"Session(machine={self.machine.name!r}, "
-                f"device={str(self.device)!r})")
+                f"device={str(self.device)!r}, "
+                f"workspace={self.workspace.root!r})")
 
     def _provenance(self, **extra: Any) -> dict[str, Any]:
         dev = str(self.device)
@@ -79,15 +93,15 @@ class Session:
     def profile(self, target: str | Callable, args: Sequence[Any] = (),
                 *, phases: Sequence[str] = TRAIN_PHASES,
                 seq: int = 32, batch: int = 4, amp: str = "O1",
-                fusion: str = "off", smoke: bool = True,
-                n_layers: int | None = None,
+                fusion: str = "off", attn_impl: str = "einsum",
+                smoke: bool = True, n_layers: int | None = None,
                 measure: bool = False, iters: int = 5, warmup: int = 2
                 ) -> RooflineResult:
         """Aten-op walk of a registry config's phases — or of *your* torch
         function (pass a callable + ``args``).
 
         ``n_layers`` cuts (or sets) the depth of the config, keeping its
-        widths.  ``measure=True`` also runs the same callable on the
+        widths; ``attn_impl`` fills ``RunConfig.attn_impl``.  ``measure=True`` also runs the same callable on the
         session's device (parameters drawn there from seed :data:`SEED`) and
         attributes the measured time over its kernels; without it the walk
         runs on meta tensors and allocates nothing, even at full width.
@@ -102,8 +116,8 @@ class Session:
             label = target
             phase_args, run = self._build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
-                fusion=fusion, smoke=smoke, n_layers=n_layers,
-                concrete=measure)
+                fusion=fusion, attn_impl=attn_impl, smoke=smoke,
+                n_layers=n_layers, concrete=measure)
             mm = _matmul_class(run)
 
         results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
@@ -126,9 +140,93 @@ class Session:
             analyses={ph: res.analysis for ph, res in results.items()},
             data=results)
 
+    # -- 3. measured trace into the store (time-based roofline) ----------
+    def record(self, config: str, *, seq: int = 32, batch: int = 4,
+               amp: str = "O1", fusion: str = "off",
+               attn_impl: str = "einsum", smoke: bool = True,
+               n_layers: int | None = None, iters: int = 5, warmup: int = 2,
+               scale_wall: float = 1.0,
+               meta: Mapping[str, Any] | None = None) -> RooflineResult:
+        """Measure one config's train phases on the session's device and
+        append a provenance-stamped record to the workspace trace store.
+
+        ``scale_wall`` multiplies the measured wall times before storing
+        (regression drills).  ``n_layers`` cuts the depth as in
+        :meth:`profile`.  The reference's meta also stamps the tune
+        store's ``kernel_configs``, the measured ``dispatch_table`` and
+        ``net_ceilings``; neither subsystem is ported, so those keys are
+        left out of the port's records.
+        """
+        from repro_torch.trace.collector import (measurement_from_profile,
+                                                 scale_measurement)
+        from repro_torch.trace.store import record_from_phases
+        from repro_torch.trace.timeline import ascii_timeline, build_timeline
+
+        prof = self.profile(config, seq=seq, batch=batch, amp=amp,
+                            fusion=fusion, attn_impl=attn_impl, smoke=smoke,
+                            n_layers=n_layers, measure=True, iters=iters,
+                            warmup=warmup)
+        ms = {ph: scale_measurement(measurement_from_profile(
+            res, self.machine), scale_wall)
+            for ph, res in prof.data.items()}
+        rec = record_from_phases(
+            config, ms, machine=self.machine.name,
+            meta={"smoke": smoke, "seq": seq, "batch": batch, "amp": amp,
+                  "fusion": fusion, "attn_impl": attn_impl,
+                  "n_layers": n_layers, "scale_wall": scale_wall,
+                  "device": self._provenance()["device"],
+                  **dict(meta or {})})
+        self.workspace.trace_store.append(rec)
+        self.workspace.write_header(self.machine.name)
+        return RooflineResult(
+            kind="record", name=config, machine=self.machine,
+            provenance=self._provenance(run_id=rec.run_id,
+                                        store=self.workspace.trace_path),
+            phases=phases_from_record(rec),
+            text=ascii_timeline(build_timeline(ms)),
+            data=rec)
+
+    # -- 4. read back without re-running ---------------------------------
+    def report(self, config: str | None = None) -> RooflineResult:
+        """Newest stored record for ``config`` (or the newest record of
+        any config) from the workspace trace store."""
+        recs = self.workspace.trace_store.last(config, n=1)
+        if not recs:
+            which = f"config {config!r}" if config else "any config"
+            raise LookupError(
+                f"no records for {which} in {self.workspace.trace_path} — "
+                "run Session.record() (or `python -m repro_torch record`) "
+                "first")
+        rec = recs[0]
+        machine = (self.machine if rec.machine == self.machine.name
+                   else get_machine(rec.machine))
+        from repro_torch.trace.timeline import (ascii_timeline,
+                                                timeline_from_record)
+        return RooflineResult(
+            kind="report", name=rec.config, machine=machine,
+            provenance=self._provenance(run_id=rec.run_id,
+                                        git_sha=rec.git_sha,
+                                        store=self.workspace.trace_path),
+            phases=phases_from_record(rec),
+            text=ascii_timeline(timeline_from_record(rec)),
+            data=rec)
+
+    # -- 5. regressions between stored runs -------------------------------
+    def compare(self, config: str | None = None) -> RooflineResult:
+        """Diff the newest stored run of each config against the one
+        before; ``exit_code`` is 1 when any cell regressed past 10%."""
+        from repro_torch.trace.compare import (compare_last, format_deltas,
+                                               has_regressions)
+        deltas = compare_last(self.workspace.trace_store, config)
+        return RooflineResult(
+            kind="compare", name=config or "all", machine=self.machine,
+            provenance=self._provenance(store=self.workspace.trace_path),
+            text=format_deltas(deltas), data=deltas,
+            exit_code=1 if has_regressions(deltas) else 0)
+
     def _build_phases(self, config: str, *, phases: Sequence[str], seq: int,
-                      batch: int, amp: str, fusion: str, smoke: bool,
-                      n_layers: int | None, concrete: bool):
+                      batch: int, amp: str, fusion: str, attn_impl: str,
+                      smoke: bool, n_layers: int | None, concrete: bool):
         """({phase: (fn, args)}, run) for a registry config: real tensors
         on the session's device for the measured path, meta tensors for
         the analytical one.  Gradients and optimizer state are built only
@@ -148,7 +246,7 @@ class Session:
         cfg = get_smoke(config) if smoke else get_config(config)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        run = RunConfig(amp=amp, fusion=fusion)
+        run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl)
         model = M.build(cfg)
         device = self.device if concrete else torch.device("meta")
         gen = (torch.Generator(device=device).manual_seed(SEED)

@@ -117,3 +117,15 @@ def measurement_from_profile(res: ProfileResult,
         flops=res.analysis.total_flops,
         hbm_bytes=res.analysis.total_hbm_bytes,
         vmem_bytes=res.analysis.total_vmem_bytes)
+
+
+def scale_measurement(m: PhaseMeasurement, factor: float) -> PhaseMeasurement:
+    """Scale a measurement's wall time (regression drills / tests)."""
+    if factor == 1.0:
+        return m
+    kernels = [dataclasses.replace(
+        k, attributed_s=k.attributed_s * factor,
+        achieved_flops_per_s=k.achieved_flops_per_s / factor,
+        pct_of_roofline=k.pct_of_roofline / factor)
+        for k in m.kernels]
+    return dataclasses.replace(m, wall_s=m.wall_s * factor, kernels=kernels)

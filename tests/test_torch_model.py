@@ -202,11 +202,13 @@ def test_config_copies_match_reference():
 @pytest.mark.parametrize("kw,exc", [
     ({"optimizer": "adafactor"}, NotImplementedError),
     ({"fusion": "auto"}, NotImplementedError),
-    ({"attn_impl": "flash"}, NotImplementedError),
-    ({"attn_impl": "chunked"}, NotImplementedError),
+    ({"fusion": "measured"}, NotImplementedError),
+    ({"remat": "dots"}, NotImplementedError),
     ({"remat": "full"}, NotImplementedError),
     ({"fusion": "bogus"}, ValueError),
     ({"amp": "O3"}, ValueError),
+    ({"attn_impl": "bogus"}, ValueError),
+    ({"attn_chunk": 0}, ValueError),
 ])
 def test_run_config_refuses_what_this_slice_lacks(kw, exc):
     with pytest.raises(exc):
