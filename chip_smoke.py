@@ -9,17 +9,20 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``; it builds the
 hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. builds the kernel libraries ``ert``, ``fused`` and ``flash`` (one
-   ``nvcc`` each, started together; one line of ``ptxas`` register /
+2. builds the kernel libraries ``ert``, ``fused``, ``flash`` and ``ssd``
+   (one ``nvcc`` each, started together; one line of ``ptxas`` register /
    spill use each);
 3. holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at odd sizes, checks the
    gradient through each routed op against the plain route, and times
    kernel, plain version and library call beside the datasheet bound
-   (the fused and flash kernels' times replay a CUDA graph of many calls,
-   so no host launch overhead is timed; the fused kernels' eager
-   back-to-back time is printed beside it);
-4. drives three main paths, each with every launch count set to 0 just
+   (the fused, flash and SSD kernels' times replay a CUDA graph of many
+   calls, so no host launch overhead is timed; the fused kernels' eager
+   back-to-back time is printed beside it).  The SSD checks hold the
+   ``ssd_scan`` kernel to 1e-4 of each (b, h, chunk) block's own max at
+   the main shape (chunk 256 and the reference's 128), the reference's
+   test shapes, a single chunk, no decay and an underflowing decay;
+4. drives four main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True)``,
       the ladder and the GEMM size sweep, each ceiling checked against
@@ -40,10 +43,19 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       must route to the kernel, then ``Session.record`` into
       ``build/chip_workspace`` and ``Session.report``, which must read
       the same run back;
-5. checks the smoke-size fwd (einsum, and flash: the kernel on the card
-   against the plain version on the host) and one smoke train step (O0,
-   ``static``) on the card against the same functions on the host (the
-   port's CPU path, which the tests hold against the JAX reference);
+   d. mamba2-1.3b at full width (seq 2048, batch 2, AMP O1, ``static``):
+      the 48-layer fwd phase at ``ssd_impl="xla"`` and ``"kernel"``
+      (finite losses that agree; at ``kernel`` the matmul FLOPs must
+      equal ``ssm.matmul_flops``, the ssd_scan records' FLOPs 48x the
+      kernel's model, one launch per layer in each fwd pass), the
+      48-layer train step at ``kernel`` (fwd, bwd and opt phases, then 3
+      steps with a finite loss each), and the bwd phase of both routes
+      at 12 layers;
+5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
+   on the card against the same functions on the host (the port's CPU
+   path, which the tests hold against the JAX reference): glm4-9b at
+   einsum and flash attention, mamba2-1.3b at the SSD kernel (the
+   kernels on the card, their plain versions on the host);
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -60,11 +72,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-LIBRARIES = ("ert", "fused", "flash")
+LIBRARIES = ("ert", "fused", "flash", "ssd")
 ERT_KERNELS = ("triad", "fma_chain", "ert_gemm")
 FUSED_KERNELS = ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
                  "fused_adamw")
 FLASH_KERNELS = ("flash_attention",)
+SSD_KERNELS = ("ssd_scan",)
 
 
 def _fail(msg: str) -> int:
@@ -596,6 +609,100 @@ def flash_checks(dev, sheet) -> list[dict]:
     return [row]
 
 
+def ssd_checks(dev, sheet) -> list[dict]:
+    """Phase 3 for the SSD scan: the kernel against its plain version at
+    the main path's shape, the reference's chunk and odd shapes (both
+    layouts), each (b, h, chunk) block held to its own scale; the gradient
+    through the routed op against the plain route; and the times."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def operands(b, h, s, p, n, layout="kernel", a_kind="random"):
+        """x, a, B, C as the reference's tests draw them: x, B, C at 0.5,
+        a = -0.1 |N(0, 1)|; ``a_kind`` "zero" (no decay) or "underflow"
+        (a <= -200: every decay but the diagonal's underflows to 0)."""
+        xs, as_ = (((b, h, s, p), (b, h, s)) if layout == "kernel"
+                   else ((b, s, h, p), (b, s, h)))
+        a = -randn(as_).abs() * 0.1
+        if a_kind == "zero":
+            a = torch.zeros_like(a)
+        elif a_kind == "underflow":
+            a = a * 100.0 - 200.0
+        return randn(xs, 0.5), a, randn((b, s, n), 0.5), randn((b, s, n), 0.5)
+
+    print(f"ssd_scan: (tolerance, per (b, h, chunk) block, "
+          f"ref.kernel_tolerance: {ref.REL_TOL:g} of the block's own "
+          f"max|ref| — fp32 FMAs in another order, no TF32; per block, so a "
+          f"wrong state carried into a late chunk cannot hide under another "
+          f"block's larger outputs)")
+    main = (2, 64, 2048, 64, 128, 256)
+    for (b, h, s, p, n, q), a_kind in ((main, "random"),
+                                       ((2, 64, 2048, 64, 128, 128), "random"),
+                                       ((2, 3, 256, 16, 8, 64), "random"),
+                                       ((1, 2, 128, 32, 16, 32), "random"),
+                                       ((2, 1, 64, 8, 8, 64), "random"),
+                                       ((2, 4, 256, 64, 128, 256), "random"),
+                                       ((1, 4, 1024, 64, 128, 256), "zero"),
+                                       ((1, 4, 1024, 64, 128, 256),
+                                        "underflow")):
+        x, a, bm, cm = operands(b, h, s, p, n, a_kind=a_kind)
+        want = ref.ssd_ref(x, a, bm, cm, chunk=q)
+        check_within(f"ssd {b}x{h}x{s}x{p} N={n} Q={q} a={a_kind}",
+                     sk.ssd_scan(x, a, bm, cm, chunk=q), want,
+                     ref.kernel_tolerance(want, q))
+    print("gradient through the routed ssd_scan op against the xla route "
+          "(tolerance: 1e-5 of each gradient's max — the backward "
+          "recomputes the same plain math)")
+    xh, a, bm, cm = operands(1, 4, 256, 64, 128, layout="model")
+    gy = randn(xh.shape)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (xh, a, bm, cm)]
+        return torch.autograd.grad(fn(*leaves), leaves, gy)
+
+    for i, (got, w) in enumerate(zip(
+            grads(lambda *t: ops.ssd_scan_model_layout(*t, 64)),
+            grads(lambda *t: ssd_chunked(*t, 64)))):
+        check(f"grad ssd_scan input {i}", got, w,
+              1e-5 * w.float().abs().max().item())
+    del xh, a, bm, cm, gy
+
+    b, h, s, p, n, q = main
+    sets, nxt = rotating(lambda: operands(b, h, s, p, n, layout="model"),
+                         k=2)
+    xh, a, bm, cm = sets[0]
+    want = ssd_chunked(xh, a, bm, cm, q)
+    tol = ref.kernel_tolerance(want.transpose(1, 2), q).transpose(1, 2)
+    err = check_within("ssd main shape, model layout, timed operands",
+                       sk.ssd_scan_model(xh, a, bm, cm, chunk=q), want, tol)
+    del want, tol
+    row = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+        "shape": "f32 xh (2, 2048, 64, 64), a (2, 2048, 64), B/C (2, 2048, "
+                 "128), chunk 256 (every SSD scan of path d)",
+        "max_abs_err": err,
+        "ms": graph_ms(lambda: sk.ssd_scan_model(*nxt(), chunk=q)),
+        "plain_ms": graph_ms(lambda: ssd_chunked(*nxt(), q), calls=2),
+        # no single PyTorch call computes the chunked SSD scan
+        "library_ms": None,
+        # the work the scan needs (causal pairs, C·Bᵀ shared by the
+        # heads), not the reference's coarser ``flops`` model
+        **bound(sk.hbm_bytes(b, h, s, p, n),
+                sk.needed_flops(b, h, s, p, n, q), "f32", sheet)}
+    del sets, xh, a, bm, cm
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
     """Least time for the work on the datasheet card: the larger of bytes
     over HBM bandwidth and operations over the class's peak."""
@@ -605,23 +712,23 @@ def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_summary(label: str, ph: str, prof, sheet) -> tuple[float, float]:
+def phase_summary(label: str, ph: str, prof, sheet,
+                  custom: str = "flash_attention") -> tuple[float, float]:
     """Print one measured phase of a profile: wall against the datasheet
     bound, peak memory, launches, zero-AI launches, FLOPs and bytes;
-    returns (matmul FLOPs, flash-attention FLOPs)."""
+    returns (matmul FLOPs, FLOPs of the ``custom`` kernel's records)."""
     from repro_torch.core.roofline import roofline_terms
     pr, ana = prof.data[ph], prof.analyses[ph]
     mm = sum(k.total_flops for k in ana.kernels if k.category == "matmul")
-    fl = sum(k.total_flops for k in ana.kernels
-             if k.opcode == "flash_attention")
+    fl = sum(k.total_flops for k in ana.kernels if k.opcode == custom)
     z_inv, z_bytes = ana.zero_ai_census()["zero-AI"]
     bound_ms = 1e3 * roofline_terms(ana, sheet).bound_overlap_s
     print(f"  {label:<6} {ph}: wall {pr.wall_s * 1e3:.3f} ms (median of "
           f"{pr.measure_iters}) | datasheet bound {bound_ms:.3f} ms | peak "
           f"device memory {pr.peak_device_bytes / 1e9:.2f} GB | launches "
           f"{sum(k.exec_count for k in ana.kernels)}, zero-AI {z_inv} "
-          f"({z_bytes / 1e9:.3f} GB) | matmul FLOPs {mm:.0f} | flash FLOPs "
-          f"{fl:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
+          f"({z_bytes / 1e9:.3f} GB) | matmul FLOPs {mm:.0f} | {custom} "
+          f"FLOPs {fl:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
     return mm, fl
 
 
@@ -843,6 +950,215 @@ def attention_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
     return counts
 
 
+#: relative tolerance between the xla and kernel routes' fwd losses under
+#: O1: the xla route runs the scan in bf16, the kernel route in fp32 and
+#: rounds its output once (the reference's own routes differ the same way).
+#: Set from the readings on the H100: 2.889e-6 at full width and depth, so
+#: the bound leaves a margin of about 35x and no more
+SSD_ROUTE_LOSS_RTOL = 1e-4
+
+
+def ssm_path(cfg, sheet, *, device: str = "cuda", layers: int | None = None,
+             bwd_layers: int = 12, seq: int = 2048, batch: int = 2,
+             smoke: bool = False, arch: str = "mamba2-1.3b") -> dict:
+    """Main path d: mamba2-1.3b at full width, AMP O1, ``fusion="static"``
+    (``cfg`` is the registry config ``arch``; the keywords exist to rehearse
+    the path on the host at the smoke size):
+
+    1. the fwd phase at full depth on both SSD routes (``xla``, then
+       ``kernel``): finite losses within :data:`SSD_ROUTE_LOSS_RTOL`; at
+       ``kernel`` the matmul FLOPs equal ``ssm.matmul_flops``, the
+       ssd_scan records' FLOPs equal layers x ``kernel.flops``, and the
+       kernel launches once per layer per fwd pass;
+    2. the train step at ``kernel``: fwd, bwd and opt phases, then 3
+       steps of ``make_train_step``, each with a finite loss;
+    3. the bwd phase of both routes at ``bwd_layers`` layers (the xla
+       route's autograd keeps (B, chunks, Q, Q, H) tensors a layer).
+
+    Launch counts are set to 0 just before and read just after; returns
+    them."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import api as M
+    from repro_torch.models.ssm import matmul_flops
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    layers = cfg.n_layers if layers is None else layers
+    cfg_d = dataclasses.replace(cfg, n_layers=layers)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, seq)
+    want_ssd = layers * sk.flops(batch, H, seq, P, N, q)
+    iters, warmup = 5, 2
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def empty_cache():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    print(f"== 4d. main path: {cfg.name} at full width (d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {H} heads x {P}, state {N}, "
+          f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}), seq {seq} batch "
+          f"{batch} amp O1 fusion static; {layers} layers "
+          f"({cfg_d.param_count() / 1e9:.3f} B params analytic; params, "
+          f"grads and both AdamW moments in fp32 take "
+          f"{16 * cfg_d.param_count() / 1e9:.1f} GB)")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    losses = {}
+    for impl in ("xla", "kernel"):
+        before = kernels.launch_counts()["ssd_scan"]
+        t0 = time.perf_counter()
+        prof = s.profile(arch, smoke=smoke, n_layers=layers, seq=seq,
+                         batch=batch, amp="O1", fusion="static",
+                         ssd_impl=impl, phases=("fwd",), measure=True,
+                         iters=iters, warmup=warmup)
+        mm, fl = phase_summary(impl, "fwd", prof, sheet, custom="ssd_scan")
+        losses[impl] = float(prof.data["fwd"].output)
+        launched = kernels.launch_counts()["ssd_scan"] - before
+        print(f"  {impl:<6} fwd loss {losses[impl]:.6f}; ssd_scan launches "
+              f"{launched}; profile call {time.perf_counter() - t0:.1f} s")
+        if not math.isfinite(losses[impl]):
+            raise AssertionError(f"{impl} fwd loss is not finite")
+        if impl == "kernel":
+            want_mm = matmul_flops(cfg_d, batch, seq)
+            if mm != want_mm or fl != want_ssd:
+                raise AssertionError(f"kernel fwd: matmul FLOPs {mm} != "
+                                     f"{want_mm} or ssd_scan FLOPs {fl} != "
+                                     f"{want_ssd}")
+            # one launch per layer in each of the warmup + iters passes
+            if cuda and launched != (warmup + iters) * layers:
+                raise AssertionError(f"ssd_scan launched {launched} times, "
+                                     f"not {(warmup + iters) * layers}")
+        del prof
+        empty_cache()
+    rel = abs(losses["kernel"] - losses["xla"]) / abs(losses["xla"])
+    print(f"  fwd loss xla {losses['xla']:.6f} kernel {losses['kernel']:.6f}"
+          f": relative difference {rel:.3e} (rtol {SSD_ROUTE_LOSS_RTOL:g})")
+    if not rel <= SSD_ROUTE_LOSS_RTOL:
+        raise AssertionError(f"the two SSD routes' losses differ by {rel}")
+
+    t0 = time.perf_counter()
+    prof = s.profile(arch, smoke=smoke, n_layers=layers, seq=seq,
+                     batch=batch, amp="O1", fusion="static", ssd_impl="kernel",
+                     measure=True, iters=iters, warmup=warmup)
+    for ph in ("fwd", "bwd", "opt"):
+        phase_summary("kernel", ph, prof, sheet, custom="ssd_scan")
+    print(f"  kernel train phases: profile call "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(prof.render(charts=0, top_kernels=8))
+    del prof
+    empty_cache()
+
+    run = RunConfig(amp="O1", fusion="static", ssd_impl="kernel")
+    model = M.build(cfg_d)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg_d, ShapeSpec("t", seq, batch,
+                                                     "train"),
+                                    batch, gen, device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  kernel train step {i + 1}: loss {loss:.6f} | grad norm "
+              f"{float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"kernel train step {i + 1}: loss {loss}")
+    if cuda:
+        print(f"  train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, step
+    empty_cache()
+
+    for impl in ("xla", "kernel"):
+        prof = s.profile(arch, smoke=smoke, n_layers=bwd_layers, seq=seq,
+                         batch=batch, amp="O1", fusion="static",
+                         ssd_impl=impl, phases=("bwd",), measure=True,
+                         iters=iters, warmup=warmup)
+        phase_summary(f"{impl}@{bwd_layers}", "bwd", prof, sheet,
+                      custom="ssd_scan")
+        del prof
+        empty_cache()
+
+    counts = kernels.launch_counts()
+    print(f"launches on main path d: {json.dumps(counts)}")
+    for name in ("ssd_scan", "fused_rmsnorm", "fused_adamw"):
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path d")
+    return counts
+
+
+def smoke_checks(dev, arch: str, fwd_runs: dict, step_run) -> None:
+    """Step 5 for one registry config at its smoke size (seq 32, batch 4):
+    the fwd at each of ``fwd_runs`` and one train step at ``step_run``, on
+    the card against the same functions on the host (the port's CPU path,
+    which the tests hold against the JAX reference; a routed kernel runs
+    on the card, its plain version on the host)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models import api as M
+    from repro_torch.models.params import init
+    from repro_torch.train.step import TrainState, init_state, make_train_step
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    scfg = get_smoke(arch)
+    model = M.build(scfg)
+    gen = torch.Generator().manual_seed(0)
+    params = init(model.spec, gen, torch.float32, "cpu")
+    batch_c = M.synthetic_batch(scfg, ShapeSpec("s", 32, 4, "train"), 4, gen)
+    # copies: the train step updates its state in place
+    params_d, batch_d = tree_map(lambda t: t.to(dev, copy=True),
+                                 (params, batch_c))
+    for label, run in fwd_runs.items():
+        with torch.no_grad():
+            lc = model.forward_fn(params, batch_c, run)
+            lg = model.forward_fn(params_d, batch_d, run).cpu()
+            loss_c = model.loss_fn(params, batch_c, run)[0].item()
+            loss_g = model.loss_fn(params_d, batch_d, run)[0].item()
+        check(f"{arch} smoke logits at {label}: card vs host", lg, lc, 1e-4)
+        print(f"  {arch} smoke loss at {label}: card {loss_g:.7f} host "
+              f"{loss_c:.7f}")
+        if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
+            raise AssertionError(f"{arch} smoke loss {loss_g} vs host "
+                                 f"{loss_c}")
+    st_c = init_state(model, step_run, torch.Generator().manual_seed(0),
+                      "cpu")
+    st_d = TrainState(*tree_map(lambda t: t.to(dev, copy=True),
+                                tuple(st_c)))
+    step = make_train_step(model, step_run)
+    st_c, m_c = step(st_c, batch_c)
+    st_d, m_d = step(st_d, batch_d)
+    print(f"  {arch} smoke train step ({step_run.amp}, fusion "
+          f"{step_run.fusion}, attn {step_run.attn_impl}, ssd "
+          f"{step_run.ssd_impl}): loss card {float(m_d['loss']):.7f} host "
+          f"{float(m_c['loss']):.7f}; grad norm card "
+          f"{float(m_d['grad_norm']):.7f} host {float(m_c['grad_norm']):.7f}")
+    if not math.isclose(float(m_d["loss"]), float(m_c["loss"]),
+                        rel_tol=1e-5):
+        raise AssertionError(f"{arch} smoke train loss differs between card "
+                             "and host")
+    err = max(max_abs_err(a.cpu(), b)[0] for a, b in zip(
+        tree_flatten(st_d.params)[0], tree_flatten(st_c.params)[0]))
+    print(f"  {arch} smoke params after one step: max_abs_err {err:.3e} "
+          "(atol 2e-5)")
+    if not err <= 2e-5:
+        raise AssertionError(f"{arch} smoke params differ by {err}")
+
+
 def main() -> int:
     try:
         import torch
@@ -895,6 +1211,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += fused_checks(dev, sheet)
     rows += flash_checks(dev, sheet)
+    rows += ssd_checks(dev, sheet)
     for r in rows:
         lib = r["library_ms"]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
@@ -986,66 +1303,33 @@ def main() -> int:
         cfg, sheet, workspace=os.path.join(ROOT, "build", "chip_workspace"))
     torch.cuda.empty_cache()
 
+    # 4d. main path: mamba2-1.3b at full width, both SSD routes, train step --
+    counts_d = ssm_path(get_config("mamba2-1.3b"), sheet)
+    torch.cuda.empty_cache()
+
     # 5. the smoke fwd and train step on the card against the host -----------
-    print("== 5. smoke fwd: card against host (O0 loss rtol 1e-5, logits "
-          "atol 1e-4: fp32 sums in another order)")
-    from repro_torch.configs.base import RunConfig, ShapeSpec
-    from repro_torch.configs.registry import get_smoke
-    from repro_torch.models import api as M
-    from repro_torch.models.params import init
-    from torch.utils._pytree import tree_flatten, tree_map
-    scfg = get_smoke("glm4-9b")
-    model = M.build(scfg)
-    run = RunConfig(amp="O0")
-    gen = torch.Generator().manual_seed(0)
-    params = init(model.spec, gen, torch.float32, "cpu")
-    batch_c = M.synthetic_batch(scfg, ShapeSpec("s", 32, 4, "train"), 4, gen)
-    params_d, batch_d = tree_map(lambda t: t.to(dev), (params, batch_c))
-    with torch.no_grad():
-        lc = model.forward_fn(params, batch_c, run)
-        lg = model.forward_fn(params_d, batch_d, run).cpu()
-        loss_c = model.loss_fn(params, batch_c, run)[0].item()
-        loss_g = model.loss_fn(params_d, batch_d, run)[0].item()
-    check("smoke logits card vs host", lg, lc, 1e-4)
-    print(f"  smoke loss card {loss_g:.7f} host {loss_c:.7f}")
-    if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
-        raise AssertionError(f"smoke loss {loss_g} vs host {loss_c}")
-    run_f = RunConfig(amp="O0", attn_impl="flash")
-    with torch.no_grad():
-        check("smoke logits at flash: card (kernel) vs host (plain)",
-              model.forward_fn(params_d, batch_d, run_f).cpu(),
-              model.forward_fn(params, batch_c, run_f), 1e-4)
-    print("   smoke train step, O0, fusion static: card (fused kernels) "
-          "against host (plain versions); loss rtol 1e-5, params after one "
-          "step atol 2e-5 (AdamW's first step is about lr·sign(g): a "
+    from repro_torch.configs.base import RunConfig
+    print("== 5. smoke fwd and train step: card against host (O0 loss rtol "
+          "1e-5, logits atol 1e-4: fp32 sums in another order; params after "
+          "one step atol 2e-5: AdamW's first step is about lr·sign(g), so a "
           "near-zero gradient summed in another order moves its weight by "
           "up to 2·lr·|Δg|/(|g|+eps); see tests/test_torch_train.py)")
-    from repro_torch.train.step import TrainState, init_state, make_train_step
-    run_s = RunConfig(amp="O0", fusion="static")
-    st_c = init_state(model, run_s, torch.Generator().manual_seed(0), "cpu")
-    st_d = TrainState(*tree_map(lambda t: t.to(dev), tuple(st_c)))
-    step = make_train_step(model, run_s)
-    st_c, m_c = step(st_c, batch_c)
-    st_d, m_d = step(st_d, batch_d)
-    print(f"  smoke train loss card {float(m_d['loss']):.7f} host "
-          f"{float(m_c['loss']):.7f}; grad norm card "
-          f"{float(m_d['grad_norm']):.7f} host {float(m_c['grad_norm']):.7f}")
-    if not math.isclose(float(m_d["loss"]), float(m_c["loss"]),
-                        rel_tol=1e-5):
-        raise AssertionError("smoke train loss differs between card and "
-                             "host")
-    err = max(max_abs_err(a.cpu(), b)[0] for a, b in zip(
-        tree_flatten(st_d.params)[0], tree_flatten(st_c.params)[0]))
-    print(f"  smoke params after one step: max_abs_err {err:.3e} (atol "
-          "2e-5)")
-    if not err <= 2e-5:
-        raise AssertionError(f"smoke params differ by {err}")
+    smoke_checks(dev, "glm4-9b",
+                 {"einsum": RunConfig(amp="O0"),
+                  "flash (kernel on the card)": RunConfig(
+                      amp="O0", attn_impl="flash")},
+                 RunConfig(amp="O0", fusion="static"))
+    smoke_checks(dev, "mamba2-1.3b",
+                 {"ssd kernel (kernel on the card)": RunConfig(
+                     amp="O0", ssd_impl="kernel")},
+                 RunConfig(amp="O0", fusion="static", ssd_impl="kernel"))
 
     # 6. results -------------------------------------------------------------
     out = []
     for r in rows:
         launches = (counts if r["name"] in ERT_KERNELS else
-                    counts_c if r["name"] in FLASH_KERNELS else counts_b)
+                    counts_c if r["name"] in FLASH_KERNELS else
+                    counts_d if r["name"] in SSD_KERNELS else counts_b)
         out.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                    | {"launches": launches[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

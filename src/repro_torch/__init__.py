@@ -14,6 +14,15 @@ kernels build on first use.  Entry points run on the card unless the
 caller passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
 """
 
+import torch
+
 from repro_torch.session.session import Session
 
 __all__ = ["Session"]
+
+# On some CPU hosts the first concurrent call of PyTorch's host vector math
+# (``exp``, ``log``) hands one intra-op thread's share of the elements to a
+# less accurate approximation, up to 1e-4 off (``tools/torch_first_exp.py``
+# reproduces it).  One small call on the importing thread first sets that
+# path up for the whole process, so the port's CPU paths never meet it.
+torch.ones(8).exp()

@@ -6,8 +6,9 @@ subcommands of ``python -m repro``).
   (``--empirical``) the ceilings the hand-written ERT kernels measure;
 * ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
   phases (kernel table, three-term bound, roofline chart) at ``--fusion``
-  ``off`` or ``static`` and ``--attn-impl`` ``einsum``, ``chunked`` or
-  ``flash``; ``--measure`` also times them on the device;
+  ``off`` or ``static``, ``--attn-impl`` ``einsum``, ``chunked`` or
+  ``flash`` and ``--ssd-impl`` ``xla`` or ``kernel``; ``--measure`` also
+  times them on the device;
 * ``record``       — measure the phases and append a record to the trace
   store (``--store``, default the workspace's ``trace.jsonl``);
   ``--scale-wall`` multiplies the stored wall times (regression drills);
@@ -24,6 +25,8 @@ Examples::
     python -m repro_torch profile --config glm4-9b --device cpu --measure
     python -m repro_torch profile --config glm4-9b --device cpu \
         --fusion static --phase bwd
+    python -m repro_torch profile --config mamba2-1.3b --device cpu \
+        --ssd-impl kernel --fusion static --phase bwd
     python -m repro_torch record --config glm4-9b --full --layers 4 \
         --seq 2048 --batch 2 --fusion static --attn-impl flash
     python -m repro_torch report
@@ -68,8 +71,9 @@ def cmd_profile(args) -> int:
                         phases=tuple(args.phase or ("fwd", "bwd", "opt")),
                         seq=args.seq, batch=args.batch, amp=args.amp,
                         fusion=args.fusion, attn_impl=args.attn_impl,
-                        smoke=not args.full, n_layers=args.layers,
-                        measure=args.measure, iters=args.iters,
+                        ssd_impl=args.ssd_impl, smoke=not args.full,
+                        n_layers=args.layers, measure=args.measure,
+                        iters=args.iters,
                         warmup=args.warmup)
     except (KeyError, NotImplementedError) as e:
         print(f"profile: {e.args[0] if e.args else e}", file=sys.stderr)
@@ -83,8 +87,9 @@ def cmd_record(args) -> int:
         s = _session(args)
         res = s.record(args.config, seq=args.seq, batch=args.batch,
                        amp=args.amp, fusion=args.fusion,
-                       attn_impl=args.attn_impl, smoke=not args.full,
-                       n_layers=args.layers, iters=args.iters,
+                       attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
+                       smoke=not args.full, n_layers=args.layers,
+                       iters=args.iters,
                        warmup=args.warmup, scale_wall=args.scale_wall)
     except (RuntimeError, KeyError, NotImplementedError) as e:
         print(f"record: {e.args[0] if e.args else e}", file=sys.stderr)
@@ -140,7 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
     ch.set_defaults(fn=cmd_characterize)
 
     def workload(p) -> None:
-        from repro_torch.configs.base import ATTN_IMPLS
+        from repro_torch.configs.base import ATTN_IMPLS, SSD_IMPLS
         p.add_argument("--config", required=True,
                        help="registry config name (see repro_torch.configs)")
         p.add_argument("--seq", type=int, default=32)
@@ -154,6 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--attn-impl", default="einsum", choices=ATTN_IMPLS,
                        help="attention lowering; 'flash' runs the "
                             "flash-attention kernel")
+        p.add_argument("--ssd-impl", default="xla", choices=SSD_IMPLS,
+                       help="SSD scan lowering (SSM configs); 'kernel' "
+                            "runs the ssd_scan kernel")
         p.add_argument("--full", action="store_true",
                        help="full config instead of the smoke variant")
         p.add_argument("--layers", type=int, default=None,

@@ -19,6 +19,7 @@ Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio",
 FUSION_MODES = ("off", "static", "auto", "measured")
 AMP_MODES = ("O0", "O1", "O2")
 ATTN_IMPLS = ("einsum", "chunked", "flash")
+SSD_IMPLS = ("xla", "kernel")
 REMAT_MODES = ("none", "dots", "full")
 OPTIMIZERS = ("adamw", "adafactor")
 
@@ -71,14 +72,46 @@ class ModelConfig:
         logit columns are masked in the loss."""
         return (self.vocab_size + 127) // 128 * 128
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing (the long-context cell applies)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense model (embedding included)."""
-        if self.family != "dense":
+        """Analytic parameter count of a dense or SSM model (embedding
+        included), as the reference writes it.
+
+        The ``ssm`` branch is the reference's count, mirrored and not
+        corrected: it takes the embedding at ``vocab_size`` (not the padded
+        table) and leaves out ``dt_bias`` and ``conv_b``, so for
+        ``mamba2-1.3b`` it reads 1,343,528,960, 261,120 below the
+        1,343,790,080 leaves of the spec tree."""
+        if self.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"param_count for family {self.family!r} comes with its "
                 "model family (ROADMAP queue 1)")
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         total = V * D * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di, G, N = self.d_inner, self.ssm_n_groups, self.ssm_state
+            H = self.ssm_heads
+            ssm = (D * (2 * di + 2 * G * N + H)           # in_proj
+                   + self.ssm_conv_width * (di + 2 * G * N)   # conv_w
+                   + di * D                               # out_proj
+                   + 2 * H + di)                          # A_log, D, norm
+            return total + L * (ssm + D) + D
         attn = (D * self.n_heads * self.head_dim
                 + 2 * D * self.n_kv_heads * self.head_dim
                 + self.n_heads * self.head_dim * D)
@@ -89,8 +122,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Execution policy.  The port runs ``fusion`` ``"off"`` or
-    ``"static"``, the ``einsum``, ``chunked`` and ``flash`` attention and
-    AdamW; the other settings raise until their slice lands."""
+    ``"static"``, the ``einsum``, ``chunked`` and ``flash`` attention, the
+    ``xla`` and ``kernel`` SSD scans and AdamW; the other settings raise
+    until their slice lands."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
@@ -99,6 +133,9 @@ class RunConfig:
     # recomputed in the backward) | "flash" (the hand-written kernel)
     attn_impl: str = "einsum"
     attn_chunk: int = 1024
+    # SSD lowering: "xla" (the chunked dual form in torch ops) | "kernel"
+    # (the hand-written ssd_scan kernel); the reference's names
+    ssd_impl: str = "xla"
     # attention softmax statistics in fp32 (False = compute dtype)
     softmax_f32: bool = True
     fusion: str = "off"
@@ -116,6 +153,9 @@ class RunConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; "
                              f"valid: {ATTN_IMPLS}")
+        if self.ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; "
+                             f"valid: {SSD_IMPLS}")
         if self.remat not in REMAT_MODES:
             raise ValueError(f"unknown remat {self.remat!r}; "
                              f"valid: {REMAT_MODES}")

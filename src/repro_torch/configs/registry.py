@@ -1,7 +1,7 @@
 """Config registry: name → (full config, smoke config).
 
-The port registers a config once its model family is ported; this slice
-has the dense ``glm4-9b``.
+The port registers a config once its model family is ported: the dense
+``glm4-9b`` and the SSM ``mamba2-1.3b``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "glm4-9b": "glm4_9b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ARCHS = tuple(_MODULES)

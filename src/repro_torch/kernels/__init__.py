@@ -13,13 +13,15 @@ def _counters() -> dict:
     from repro_torch.kernels.ert import bandwidth, flops, gemm
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.fused import adamw, norm, swiglu
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     return {"triad": (bandwidth, "LAUNCHES"), "fma_chain": (flops, "LAUNCHES"),
             "ert_gemm": (gemm, "LAUNCHES"),
             "fused_rmsnorm": (norm, "LAUNCHES"),
             "fused_rmsnorm_residual": (norm, "RESIDUAL_LAUNCHES"),
             "fused_swiglu": (swiglu, "LAUNCHES"),
             "fused_adamw": (adamw, "LAUNCHES"),
-            "flash_attention": (flash, "LAUNCHES")}
+            "flash_attention": (flash, "LAUNCHES"),
+            "ssd_scan": (ssd, "LAUNCHES")}
 
 
 def launch_counts() -> dict[str, int]:

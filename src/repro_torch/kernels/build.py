@@ -66,10 +66,18 @@ _SIGNATURES = {
         "flash_tile": (_I,),
         "flash_error_string": (_I,),
     },
+    "ssd": {
+        # x, a, B, C, y, B, S, H, P, N, chunk, layout, stream
+        "ssd_scan_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+        "ssd_tile": (_I,),
+        "ssd_error_string": (_I,),
+    },
 }
 _RESTYPES = {"ert_error_string": ctypes.c_char_p,
              "fused_error_string": ctypes.c_char_p,
-             "flash_error_string": ctypes.c_char_p}
+             "flash_error_string": ctypes.c_char_p,
+             "ssd_error_string": ctypes.c_char_p}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

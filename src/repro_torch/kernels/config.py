@@ -13,7 +13,12 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
   and the wrapper refuses any other value;
 * ``block_q`` / ``block_k`` — flash attention's query rows per block and
   keys per shared-memory tile, likewise compiled into ``csrc/flash.cu``
-  (fp32 at hd > 128 takes 32-key tiles to fit shared memory).
+  (fp32 at hd > 128 takes 32-key tiles to fit shared memory);
+* ``chunk`` — the SSD scan's chunk length (the reference's, an argument
+  of the kernel); ``block_q`` / ``block_p`` — its query and key rows per
+  shared-memory tile and the columns of x and y per block, compiled into
+  ``csrc/ssd.cu`` with ``max_chunk`` and ``max_state``, the largest chunk
+  and state width the kernel takes.
 
 The reference's ``block_rows`` / ``block`` (rows or elements per VMEM
 block) have no counterpart: a Hopper block holds one row, or strides
@@ -52,8 +57,8 @@ class KernelConfig:
         return KernelConfig(self.kernel, tuple(sorted(merged.items())))
 
 
-# the kernels this port has written; the others raise in ``resolve`` until
-# their slice lands (ROADMAP queue 2)
+# every kernel of ``KERNELS`` (``fused_norm`` is the rmsnorm kernels' entry;
+# the reference's layernorm shares it and is not ported yet)
 DEFAULTS: dict[str, KernelConfig] = {
     "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=8),
     "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
@@ -71,15 +76,19 @@ DEFAULTS: dict[str, KernelConfig] = {
     # shared memory (Q and double-buffered K/V tiles), so two share an SM
     "flash_attention": KernelConfig.make("flash_attention", block_q=64,
                                          block_k=64, threads=128),
+    # chunk 128 as the reference; one block of 8 warps per (32 columns of
+    # P, head, batch) walks the chunks in order with the (32, N) state in
+    # shared memory, 64-row tiles of C, B and x: about 110 KB, two blocks
+    # to an SM
+    "ssd_scan": KernelConfig.make("ssd_scan", chunk=128, block_q=64,
+                                  block_p=32, threads=256, max_chunk=256,
+                                  max_state=128),
 }
 
 
 def default_config(kernel: str) -> KernelConfig:
     if kernel not in KERNELS:
         raise KeyError(f"unknown kernel {kernel!r}; known: {KERNELS}")
-    if kernel not in DEFAULTS:
-        raise KeyError(f"kernel {kernel!r} is not ported yet (ROADMAP "
-                       "queue 2); ported: " + ", ".join(DEFAULTS))
     return DEFAULTS[kernel]
 
 

@@ -336,7 +336,10 @@ def adamw_leaf(g, m, v, p, bc, *, lr: float, b1: float, b2: float,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Routed fused AdamW update for one leaf → (p′, m′, v′); ``bc`` is
     the (2,) fp32 tensor of bias corrections.  ``inplace=True`` writes
-    over p, m, v and returns them."""
+    over p, m, v and returns them.  The kernel reads the leaves flat, and
+    a gradient may come back strided (a tied embedding's is a gather's
+    plus a transpose's), so g is made contiguous first."""
+    g = g.contiguous()
     hyper = (float(lr), float(b1), float(b2), float(eps),
              float(weight_decay))
     if inplace:
@@ -349,6 +352,12 @@ def adamw_leaf(g, m, v, p, bc, *, lr: float, b1: float, b2: float,
 # Op walk: FLOPs (and, for flash attention, bytes) of each routed op
 # (core/op_analysis.py reads these)
 # --------------------------------------------------------------------------
+
+def _ssd_dims(args: Sequence) -> tuple[int, int, int, int, int, int]:
+    """(B, H, S, P, N, chunk) of a ``repro_torch::ssd_scan`` call."""
+    b, s, h, p = args[0].shape
+    return b, h, s, p, int(args[2].shape[-1]), int(args[4])
+
 
 def _flash_dims(args: Sequence) -> tuple[int, int, int, int]:
     """(B·H, Sq, Sk, hd) of a ``repro_torch::flash_attention`` call."""
@@ -370,6 +379,9 @@ def op_flops(name: str, args: Sequence) -> float:
         return sk.flops(rows, d, args[2])
     if name in ("adamw", "adamw_"):
         return ak.flops(args[3].numel())
+    if name == "ssd_scan":
+        from repro_torch.kernels.ssd_scan import kernel as ssd
+        return ssd.flops(*_ssd_dims(args))
     raise KeyError(f"no FLOP rule for repro_torch::{name}")
 
 
@@ -377,7 +389,8 @@ def op_bytes(name: str, args: Sequence) -> float | None:
     """Device-memory bytes of one call where the kernel module's model is
     not operands + results: flash attention's ``hbm_bytes``, which counts
     K/V once per *query* head as the reference's does.  ``None``: the op
-    walk's own rule."""
+    walk's own rule (for ``ssd_scan`` that rule equals the module's
+    ``hbm_bytes``: B and C are operands once per batch, not per head)."""
     if name == "flash_attention":
         from repro_torch.kernels.flash_attention import kernel as fk
         return fk.hbm_bytes(*_flash_dims(args), args[0].element_size())

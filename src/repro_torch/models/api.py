@@ -1,4 +1,5 @@
-"""Model facade (port of ``repro.models.api``) for the dense family.
+"""Model facade (port of ``repro.models.api``) for the dense and SSM
+families.
 
 ``build(cfg)`` returns a :class:`Model` whose ``loss_fn`` / ``forward_fn``
 close over the config; ``batch_schema`` and ``synthetic_batch`` give the
@@ -13,6 +14,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
+from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TR
 
 Params = Any
@@ -27,8 +29,8 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 
     ``vocab``: real vocab size — columns ≥ vocab are embedding-table
     padding (``ModelConfig.vocab_padded``) and are masked with -1e30.
-    The dense family has no auxiliary loss, so the reference's
-    ``0.01 * aux`` term is zero and left out.
+    The dense and SSM families have no auxiliary loss, so the
+    reference's ``0.01 * aux`` term is zero and left out.
     """
     V = logits.shape[-1]
     lg = logits.float()
@@ -52,26 +54,34 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: this slice ports the dense LM only "
-            "(ROADMAP queue 1)")
+    if cfg.family == "dense":
+        return _build_lm(cfg, TR)
+    if cfg.family == "ssm":
+        return _build_lm(cfg, SM)
+    raise NotImplementedError(
+        f"family {cfg.family!r}: the port has the dense and SSM LMs "
+        "(ROADMAP queue 1)")
+
+
+def _build_lm(cfg: ModelConfig, module) -> Model:
+    """The reference's ``_build_dense`` / ``_build_ssm``: a token LM whose
+    ``module`` has ``lm_spec`` and ``forward``."""
 
     def loss_fn(params, batch, run):
-        logits = TR.forward(params, batch["tokens"], cfg, run)
+        logits = module.forward(params, batch["tokens"], cfg, run)
         return lm_loss(logits, batch["targets"], cfg.vocab_size)
 
     def forward_fn(params, batch, run):
-        return TR.forward(params, batch["tokens"], cfg, run)
+        return module.forward(params, batch["tokens"], cfg, run)
 
-    return Model(cfg, TR.lm_spec(cfg), loss_fn, forward_fn)
+    return Model(cfg, module.lm_spec(cfg), loss_fn, forward_fn)
 
 
 def batch_schema(cfg: ModelConfig, shape: ShapeSpec,
                  per_device_batch: int | None = None
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of one train cell's input batch (dense
-    family); prefill and decode cells come with serving (ROADMAP queue 1
+    """{name: (shape, dtype)} of one train cell's input batch (token LMs);
+    prefill and decode cells come with serving (ROADMAP queue 1
     item 12)."""
     if shape.kind != "train":
         raise NotImplementedError(f"{shape.kind} cells come with serving "

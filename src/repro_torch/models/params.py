@@ -56,6 +56,22 @@ def stack_layers(spec_fn: Callable[[], Any], n: int) -> Any:
         spec_fn())
 
 
+def unstack_layers(tree: Any) -> list[Any]:
+    """The per-layer trees of a layer-stacked tree (the port's counterpart
+    of the reference's ``lax.scan`` slices): every leaf unbound once along
+    its leading axis, so each layer's leaves are views into the stack.
+
+    Unbinding, not indexing layer by layer: the backward of ``unbind`` is
+    one stack of the per-layer gradients, where each index's backward
+    would write a zero-padded gradient of the whole stack and add it to
+    the others — O(L²) bytes over L layers."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def init(specs: Any, generator: torch.Generator | None,
          dtype: torch.dtype = torch.float32,
          device: str | torch.device = "cpu") -> Any:

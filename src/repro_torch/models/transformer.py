@@ -2,7 +2,8 @@
 
 The reference scans the layer stack with ``jax.lax.scan``; here the scan
 is a Python loop over the leading ``n_layers`` axis of the stacked
-parameters (each layer's leaves are views into the stack).
+parameters (``params.unstack_layers``: each layer's leaves are views into
+the stack).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import stack_layers
+from repro_torch.models.params import stack_layers, unstack_layers
 
 Params = Any
 
@@ -41,18 +42,13 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
 def lm_spec(cfg: ModelConfig) -> Params:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r}: this slice ports the dense LM only")
+            f"family {cfg.family!r}: the transformer LM is the dense "
+            "family's")
     return {
         "embed": L.embed_spec(cfg),
         "blocks": stack_layers(lambda: block_spec(cfg), cfg.n_layers),
         "ln_f": L.rmsnorm_spec(cfg.d_model),
     }
-
-
-def _layer(tree: Params, i: int) -> Params:
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
@@ -72,7 +68,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Full-sequence forward → logits (B, S, vocab_padded)."""
     x = L.embed_apply(params["embed"], tokens, run)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x = block_apply(_layer(params["blocks"], i), x, cfg, run, positions)
+    for lp in unstack_layers(params["blocks"]):
+        x = block_apply(lp, x, cfg, run, positions)
     x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
     return L.unembed_apply(params["embed"], x, run)

@@ -6,10 +6,11 @@ application against it, record measured runs and read them back::
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
-on the host.  ``profile`` and ``record`` build the dense LM's fwd, bwd
+on the host.  ``profile`` and ``record`` build a registry LM's fwd, bwd
 and opt phases (``repro_torch.train.step.make_phases``) at ``fusion``
-``"off"`` or ``"static"`` and ``attn_impl`` ``"einsum"``, ``"chunked"``
-or ``"flash"``.  Records go to the workspace's trace store
+``"off"`` or ``"static"``, ``attn_impl`` ``"einsum"``, ``"chunked"`` or
+``"flash"`` (dense) and ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM).
+Records go to the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
 schema.
 """
@@ -94,15 +95,16 @@ class Session:
                 *, phases: Sequence[str] = TRAIN_PHASES,
                 seq: int = 32, batch: int = 4, amp: str = "O1",
                 fusion: str = "off", attn_impl: str = "einsum",
-                smoke: bool = True, n_layers: int | None = None,
-                measure: bool = False, iters: int = 5, warmup: int = 2
-                ) -> RooflineResult:
+                ssd_impl: str = "xla", smoke: bool = True,
+                n_layers: int | None = None, measure: bool = False,
+                iters: int = 5, warmup: int = 2) -> RooflineResult:
         """Aten-op walk of a registry config's phases — or of *your* torch
         function (pass a callable + ``args``).
 
         ``n_layers`` cuts (or sets) the depth of the config, keeping its
-        widths; ``attn_impl`` fills ``RunConfig.attn_impl``.  ``measure=True`` also runs the same callable on the
-        session's device (parameters drawn there from seed :data:`SEED`) and
+        widths; ``attn_impl`` and ``ssd_impl`` fill ``RunConfig``'s.
+        ``measure=True`` also runs the same callable on the session's
+        device (parameters drawn there from seed :data:`SEED`) and
         attributes the measured time over its kernels; without it the walk
         runs on meta tensors and allocates nothing, even at full width.
         """
@@ -116,8 +118,8 @@ class Session:
             label = target
             phase_args, run = self._build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
-                fusion=fusion, attn_impl=attn_impl, smoke=smoke,
-                n_layers=n_layers, concrete=measure)
+                fusion=fusion, attn_impl=attn_impl, ssd_impl=ssd_impl,
+                smoke=smoke, n_layers=n_layers, concrete=measure)
             mm = _matmul_class(run)
 
         results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
@@ -143,8 +145,9 @@ class Session:
     # -- 3. measured trace into the store (time-based roofline) ----------
     def record(self, config: str, *, seq: int = 32, batch: int = 4,
                amp: str = "O1", fusion: str = "off",
-               attn_impl: str = "einsum", smoke: bool = True,
-               n_layers: int | None = None, iters: int = 5, warmup: int = 2,
+               attn_impl: str = "einsum", ssd_impl: str = "xla",
+               smoke: bool = True, n_layers: int | None = None,
+               iters: int = 5, warmup: int = 2,
                scale_wall: float = 1.0,
                meta: Mapping[str, Any] | None = None) -> RooflineResult:
         """Measure one config's train phases on the session's device and
@@ -163,7 +166,8 @@ class Session:
         from repro_torch.trace.timeline import ascii_timeline, build_timeline
 
         prof = self.profile(config, seq=seq, batch=batch, amp=amp,
-                            fusion=fusion, attn_impl=attn_impl, smoke=smoke,
+                            fusion=fusion, attn_impl=attn_impl,
+                            ssd_impl=ssd_impl, smoke=smoke,
                             n_layers=n_layers, measure=True, iters=iters,
                             warmup=warmup)
         ms = {ph: scale_measurement(measurement_from_profile(
@@ -173,7 +177,8 @@ class Session:
             config, ms, machine=self.machine.name,
             meta={"smoke": smoke, "seq": seq, "batch": batch, "amp": amp,
                   "fusion": fusion, "attn_impl": attn_impl,
-                  "n_layers": n_layers, "scale_wall": scale_wall,
+                  "ssd_impl": ssd_impl, "n_layers": n_layers,
+                  "scale_wall": scale_wall,
                   "device": self._provenance()["device"],
                   **dict(meta or {})})
         self.workspace.trace_store.append(rec)
@@ -226,7 +231,8 @@ class Session:
 
     def _build_phases(self, config: str, *, phases: Sequence[str], seq: int,
                       batch: int, amp: str, fusion: str, attn_impl: str,
-                      smoke: bool, n_layers: int | None, concrete: bool):
+                      ssd_impl: str, smoke: bool, n_layers: int | None,
+                      concrete: bool):
         """({phase: (fn, args)}, run) for a registry config: real tensors
         on the session's device for the measured path, meta tensors for
         the analytical one.  Gradients and optimizer state are built only
@@ -246,7 +252,8 @@ class Session:
         cfg = get_smoke(config) if smoke else get_config(config)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl)
+        run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl,
+                        ssd_impl=ssd_impl)
         model = M.build(cfg)
         device = self.device if concrete else torch.device("meta")
         gen = (torch.Generator(device=device).manual_seed(SEED)

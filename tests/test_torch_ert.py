@@ -130,14 +130,14 @@ def test_wrappers_validate_operands():
 
 def test_kernel_names_line_up_with_reference():
     assert p_config.KERNELS == r_config.KERNELS
-    assert set(p_config.DEFAULTS) == {"triad", "fma_chain", "ert_gemm",
-                                      "fused_norm", "fused_swiglu",
-                                      "fused_adamw", "flash_attention"}
+    assert set(p_config.DEFAULTS) == set(r_config.KERNELS)
     cfg = p_config.resolve("ert_gemm", None, block_m=64)
     assert cfg.get("block_m") == 64 and cfg.get("block_k") == 32
     assert p_config.resolve("ert_gemm", cfg) == cfg
-    with pytest.raises(KeyError, match="not ported"):
-        p_config.resolve("ssd_scan", None)
+    assert p_config.resolve("ssd_scan", None).get("chunk") == \
+        r_config.DEFAULTS["ssd_scan"].get("chunk") == 128
+    with pytest.raises(KeyError, match="unknown kernel"):
+        p_config.resolve("fused_layernorm", None)
     with pytest.raises(ValueError, match="passed to"):
         p_config.resolve("triad", p_config.DEFAULTS["fma_chain"])
 

@@ -196,7 +196,7 @@ def test_config_copies_match_reference():
     assert dataclasses.asdict(full_p) == dataclasses.asdict(full_r)
     assert full_p.param_count() == full_r.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        p_get_config("mamba2-1.3b")
+        p_get_config("zamba2-1.2b")
 
 
 @pytest.mark.parametrize("kw,exc", [
