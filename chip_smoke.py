@@ -18,13 +18,17 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernel, plain version and library call beside the datasheet bound
    (the fused, flash and SSD kernels' times replay a CUDA graph of many
    calls, so no host launch overhead is timed; the fused kernels' eager
-   back-to-back time is printed beside it).  The SSD checks hold the
+   back-to-back time is printed beside it).  ``fused_layernorm`` is held
+   at its dispatch site's shape (4096, 4096) bf16, odd widths up to
+   16384, mixed dtypes and rows whose mean (1e3) is large against their
+   spread, with its gradient.  The SSD checks hold the
    ``ssd_scan`` kernel to 1e-4 of each (b, h, chunk) block's own max at
    the main shape (chunk 256 and the reference's 128), the reference's
    test shapes, a single chunk, no decay and an underflowing decay;
-4. drives four main paths, each with every launch count set to 0 just
+4. drives five main paths, each with every launch count set to 0 just
    before it and read just after:
-   a. machine characterization (``Session.characterize(empirical=True)``,
+   a. machine characterization (``Session.characterize(empirical=True,
+      tuned=False)``,
       the ladder and the GEMM size sweep, each ceiling checked against
       1.05x its datasheet value), then the full-width, full-depth
       glm4-9b fwd phase at ``fusion="off"``, whose loss must be finite
@@ -51,6 +55,19 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       48-layer train step at ``kernel`` (fwd, bwd and opt phases, then 3
       steps with a finite loss each), and the bwd phase of both routes
       at 12 layers;
+   e. tuning and the measured dispatch in ``build/chip_workspace``
+      (:func:`tuning_path`; its tune store is emptied before path c):
+      ``Session.tune()`` of path b's step twice (the fused kernels at
+      the points that step launches them at, the ERT kernels through
+      the ceiling searches; the second pass all store hits), the tuned
+      ceilings against
+      path a's and the datasheet, the dispatch search of path b's step
+      at ``attn_impl="chunked"`` plus the layernorm site (which launches
+      ``fused_layernorm``) twice (the second measures nothing), the
+      step's phases at ``fusion="auto"`` under ``REPRO_DISPATCH=frozen``
+      beside ``"static"``, and a record that reads back with its
+      ``kernel_configs`` and ``dispatch_table`` and whose every fused
+      launch found a tuned config;
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
    on the card against the same functions on the host (the port's CPU
    path, which the tests hold against the JAX reference): glm4-9b at
@@ -64,6 +81,7 @@ the package beside it, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -78,6 +96,8 @@ FUSED_KERNELS = ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
                  "fused_adamw")
 FLASH_KERNELS = ("flash_attention",)
 SSD_KERNELS = ("ssd_scan",)
+#: kernels whose main path is path e (the dispatch site's)
+TUNE_KERNELS = ("fused_layernorm",)
 
 
 def _fail(msg: str) -> int:
@@ -501,6 +521,124 @@ def fused_checks(dev, sheet) -> list[dict]:
                                        grads(plain_fn, *inputs, cot=cot))):
             check(f"grad {name} input {i}", a, w, ulp_tol(w.dtype, w))
     return rows
+
+
+def layernorm_checks(dev, sheet) -> list[dict]:
+    """Phase 3 for ``fused_layernorm``: the kernel against ``layernorm_ref``
+    at the dispatch site's shape (4096, 4096) bf16 and at odd ones, the
+    gradient through ``repro_torch::layernorm`` against the plain route,
+    and the times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused import norm, ops
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    eps = 1e-5
+
+    def randn(shape, dtype, scale=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                + mean).to(dtype)
+
+    def tol(out_dtype, want, x=None, scale=None):
+        """1 ulp of a bf16 output at max|ref|, 8 of an f32 one (sums in
+        another order); for a row with a large mean, plus 8 fp32 ulps of
+        max|x| carried through the normalization (|scale| / σ): any two
+        orders of the fp32 statistics differ by that much there."""
+        ulp = 2.0 ** -7 if out_dtype == bf16 else 8 * 2.0 ** -22
+        t = ulp * want.float().abs().max().item()
+        if x is not None:
+            xf = x.float()
+            sigma = xf.var(dim=-1, correction=0).min().sqrt().item()
+            t += (8 * torch.finfo(f32).eps / 2 * xf.abs().max().item()
+                  * scale.float().abs().max().item() / sigma)
+        return t
+
+    print("fused_layernorm: (tolerance: bf16 out 1 ulp at max|ref| — one "
+          "rounding at the write of fp32 values that differ in their last "
+          "bits; f32 out 8 ulps at max|ref| — the mean and variance of up to "
+          "16384 values summed in another order; rows with mean 1e3 and "
+          "spread 1 add 8 fp32 ulps of max|x| times |scale|/σ, the "
+          "statistics' own rounding, which E[x²] − μ² would miss by 4-10% "
+          "of max|ref|)")
+    stack = torch.rand((4, 16_385), generator=g, device=dev) + 0.5
+    cases = (((4096, 4096), bf16, bf16, f32, "scale/bias f32"),
+             ((4097, 4095), bf16, bf16, f32, "scalar path"),
+             ((3001, 1000), f32, f32, f32, ""),
+             ((333, 16_384), bf16, bf16, f32, "64 KiB of shared memory"),
+             ((4096, 4096), f32, bf16, f32, "f32 in, bf16 out"),
+             ((4096, 4096), bf16, bf16, bf16, "scale/bias bf16"),
+             ((1, 8), f32, f32, f32, "one row"),
+             ((5000, 1), f32, f32, f32, "d = 1"))
+    for (r, d), dt, odt, sdt, what in cases:
+        x = randn((r, d), dt, 3.0)
+        # fresh (16-byte aligned) copies: the vector path where d allows
+        sc, bi = stack[1, :d].to(sdt).clone(), stack[2, :d].to(sdt) - 1.0
+        want = norm.layernorm_ref(x, sc, bi, eps, odt)
+        check(f"layernorm {str(dt)[6:]}->{str(odt)[6:]} {r}x{d} {what}",
+              norm.fused_layernorm(x, sc, bi, out_dtype=odt), want,
+              tol(odt, want))
+    # scale and bias as views at a 4-byte offset: the scalar path
+    x = randn((4096, 4096), bf16, 3.0)
+    sc, bi = stack[1, 1:4097], stack[2, 3:4099]
+    want = norm.layernorm_ref(x, sc, bi, eps, bf16)
+    check("layernorm bf16 4096x4096 scale/bias views", norm.fused_layernorm(
+        x, sc, bi), want, tol(bf16, want))
+    for dt in (f32, bf16):
+        x = randn((512, 4096), dt, 1.0, mean=1e3)
+        sc, bi = stack[1, :4096].clone(), stack[2, :4096].clone()
+        want = norm.layernorm_ref(x, sc, bi, eps, dt)
+        check(f"layernorm {str(dt)[6:]} 512x4096 mean 1e3 spread 1",
+              norm.fused_layernorm(x, sc, bi), want, tol(dt, want, x, sc))
+
+    print("gradient through repro_torch::layernorm against the plain route "
+          "(tolerance: 1 ulp of each gradient's dtype at its max — the "
+          "backward recomputes the same plain math)")
+    x = randn((2, 256, 4096), bf16, 3.0)
+    sc, bi = stack[1, :4096].clone(), stack[2, :4096] - 1.0
+    gy = randn((2, 256, 4096), bf16)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, sc, bi)]
+        return torch.autograd.grad(fn(*leaves), leaves, gy)
+
+    for i, (a, w) in enumerate(zip(
+            grads(lambda a, s, b: ops.layernorm(a, s, b, eps=eps)),
+            grads(lambda a, s, b: norm.layernorm_ref(a, s, b, eps, bf16)))):
+        ulp = 2.0 ** -7 if w.dtype == bf16 else 2.0 ** -22
+        check(f"grad layernorm input {i}", a, w,
+              ulp * w.float().abs().max().item())
+
+    sc, bi = stack[1, :4096].clone(), stack[2, :4096].clone()
+    sets, nxt = rotating(lambda: randn((4096, 4096), bf16, 3.0))
+    x = sets[0]
+    err = max_abs_err(norm.fused_layernorm(x, sc, bi),
+                      norm.layernorm_ref(x, sc, bi, eps, bf16))[0]
+
+    # ATen's layer_norm takes its weight and bias in the input's dtype:
+    # bf16 copies of the scale and bias (16 KB against 67 MB of rows, the
+    # same bytes; they differ from ours only in those two roundings)
+    sc16, bi16 = sc.to(bf16), bi.to(bf16)
+
+    def library(x):
+        return F.layer_norm(x, (4096,), sc16, bi16, eps)
+
+    row = {
+        "name": "fused_layernorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/norm.py:81",
+        "shape": "bf16 (4096, 4096), f32 scale and bias (the layernorm "
+                 "dispatch site of path e)",
+        "max_abs_err": err,
+        "ms": graph_ms(lambda: norm.fused_layernorm(nxt(), sc, bi)),
+        "plain_ms": graph_ms(lambda: norm.layernorm_ref(nxt(), sc, bi, eps,
+                                                        bf16)),
+        "library_ms": graph_ms(lambda: library(nxt())),
+        **bound(norm.hbm_bytes(4096, 4096, 2, bias=True),
+                norm.layernorm_flops(4096, 4096), "f32", sheet)}
+    del sets, x, stack
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def flash_checks(dev, sheet) -> list[dict]:
@@ -1101,6 +1239,238 @@ def ssm_path(cfg, sheet, *, device: str = "cuda", layers: int | None = None,
     return counts
 
 
+#: relative tolerance between the fwd losses of the ``auto`` and ``static``
+#: routes of path e: a site that chose ``reference`` computes the same
+#: function as the kernel but rounds elsewhere (the plain SwiGLU rounds
+#: silu(g) to bf16 before the product; the kernel rounds once).  Set from
+#: the readings, a few times the larger: 1.088e-5 on the H100 at 4 layers,
+#: 5.1e-5 at the smoke size on the host.  At random initialisation the
+#: loss sits near ln(vocab) and moves little per element, so the bound is
+#: kept near the readings for a wrong route to show
+ROUTE_LOSS_RTOL = 2e-4
+
+
+@contextlib.contextmanager
+def launch_sources(session):
+    """Yield a dict that fills, for every launch in the body of a kernel
+    that reads its config from the tune store (``for_launch`` with no
+    config), with (kernel, shape, dtype) → ``"tuned"`` or ``"default"``,
+    as the session's store answers it."""
+    from repro_torch.kernels import config as kc
+    from repro_torch.tune import dispatch as dsp
+    from repro_torch.tune.space import STEP_KERNELS
+    from repro_torch.tune.store import config_source
+    plain, sources = kc.for_launch, {}
+
+    def for_launch(kernel, config, t, shape):
+        if config is None and kernel in STEP_KERNELS:
+            point = (kernel, tuple(int(d) for d in shape),
+                     dsp.dtype_name(t.dtype))
+            sources[point] = config_source(
+                *point, machine=session.machine.name,
+                store=session.workspace.tune_store)[0]
+        return plain(kernel, config, t, shape)
+
+    kc.for_launch = for_launch
+    try:
+        yield sources
+    finally:
+        kc.for_launch = plain
+
+
+def tuning_path(cfg, sheet, untuned, *, device: str = "cuda",
+                layers: int = 4, seq: int = 2048, batch: int = 2,
+                smoke: bool = False, workspace: str | None = None) -> dict:
+    """Main path e: tuning and the measured dispatch (``cfg`` is the full
+    glm4-9b; ``untuned`` the machine path a measured; the keywords exist
+    to rehearse the path on the host at the smoke size):
+
+    1. ``Session.tune()`` of the step (the fused kernels at every
+       (shape, dtype) the ``layers``-layer step launches them at, the
+       ERT kernels through the ceiling searches), then again: every
+       point a store hit, nothing timed;
+    2. ``Session.characterize(empirical=True, tuned=True)``: each tuned
+       ceiling ≥ 0.97x the untuned one of path a and ≤ 1.05x the
+       datasheet (the on-chip level above the measured HBM roof);
+    3. the dispatch search of the ``layers``-layer train step at
+       ``attn_impl="chunked"``, plus the layernorm site (4096, 4096) bf16
+       through ``measure_site`` — the route the reference reaches
+       ``fused_layernorm`` by — then again: nothing measured;
+    4. the train step's phases at ``fusion="auto"`` under
+       ``REPRO_DISPATCH=frozen`` (every site must hit) beside
+       ``"static"``: fwd losses within :data:`ROUTE_LOSS_RTOL`;
+    5. ``Session.record`` at ``auto``, read back with its
+       ``kernel_configs`` and ``dispatch_table``; every launch of a
+       fused kernel in it finds a tuned config in the store.
+
+    Launch counts are set to 0 just before and read just after; returns
+    them."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.session.session import Session
+    from repro_torch.tune import dispatch as dsp
+
+    cuda = torch.device(device).type == "cuda"
+    print(f"== 4e. main path: tuning and the measured dispatch (workspace "
+          f"{workspace})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device, workspace=workspace)
+
+    # 1. the kernels' launch configs, at the points the step launches them
+    t0 = time.perf_counter()
+    step = dict(config="glm4-9b", full=not smoke, seq=seq, batch=batch,
+                n_layers=layers, attn_impl="chunked")
+    tuned = s.tune(smoke=smoke, **step)
+    print(f"  tune: {len(tuned.data)} points in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, oc in tuned.data.items():
+        r = oc.record
+        # a step point's name is its kernel, shape and dtype
+        print(f"  tune {name.split()[0]:<16} "
+              f"{'x'.join(map(str, r.shape)):<18} "
+              f"{r.dtype:<8} default {r.default_wall_s * 1e3:.4f} ms -> "
+              f"tuned {r.wall_s * 1e3:.4f} ms ({r.speedup:.3f}x, "
+              f"{r.n_candidates} candidates) {r.params}")
+        if oc.cached:
+            raise AssertionError(f"tune {name}: a store hit in a fresh "
+                                 "workspace")
+    got = {oc.record.kernel for oc in tuned.data.values()}
+    if cuda and not {"fused_norm", "fused_swiglu", "fused_adamw", "triad",
+                     "fma_chain", "ert_gemm"} <= got:
+        raise AssertionError(f"tune searched only {sorted(got)}")
+    again = s.tune(smoke=smoke, **step)
+    timed = [n for n, oc in again.data.items() if not oc.cached
+             or oc.candidates]
+    print(f"  tune again: {len(again.data)} store hits, {len(timed)} timed")
+    if timed:
+        raise AssertionError(f"second tune pass timed {timed}")
+
+    # 2. tuned ceilings
+    t0 = time.perf_counter()
+    meas = s.characterize(empirical=True, tuned=True, smoke=smoke).machine
+    print(f"  characterize(tuned=True): {time.perf_counter() - t0:.1f} s")
+    for name, got, base, peak in (
+            ("f32", meas.peak_flops["f32"], untuned.peak_flops["f32"],
+             sheet.peak_flops["f32"]),
+            ("bf16", meas.peak_flops["bf16"], untuned.peak_flops["bf16"],
+             sheet.peak_flops["bf16"]),
+            ("hbm", meas.hbm.bytes_per_s, untuned.hbm.bytes_per_s,
+             sheet.hbm.bytes_per_s),
+            (meas.vmem.name, meas.vmem.bytes_per_s, untuned.vmem.bytes_per_s,
+             None)):
+        print(f"  ceiling {name:<5} tuned {got:.4e} untuned {base:.4e} "
+              f"({got / base:.4f}x)"
+              + (f" datasheet {peak:.4e} ({100 * got / peak:.1f}%)"
+                 if peak else f" (must exceed the tuned hbm "
+                              f"{meas.hbm.bytes_per_s:.4e})"))
+        if cuda and not got >= 0.97 * base:
+            raise AssertionError(f"tuned ceiling {name} {got} below 0.97 x "
+                                 f"the untuned {base}")
+        if cuda and peak and not got <= 1.05 * peak:
+            raise AssertionError(f"tuned ceiling {name} {got} above 1.05 x "
+                                 f"the datasheet {peak}")
+    if cuda and not meas.vmem.bytes_per_s > meas.hbm.bytes_per_s:
+        raise AssertionError("tuned on-chip ceiling not above the HBM one")
+
+    # 3. the dispatch table
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    search = dict(dispatch=True, **step)
+    found = s.tune(**search).data
+    print(f"  {found.describe()}")
+    print(f"  dispatch search: {time.perf_counter() - t0:.1f} s")
+    after = kernels.launch_counts()
+    ops = {r.op for r in found.records}
+    for op, kernel in (("fused_norm", "fused_rmsnorm"),
+                       ("fused_norm", "fused_rmsnorm_residual"),
+                       ("fused_swiglu", "fused_swiglu"),
+                       ("fused_adamw", "fused_adamw"),
+                       ("flash_attn", "flash_attention")):
+        if cuda and op in ops and after[kernel] <= before[kernel]:
+            raise AssertionError(f"the fused candidate of {op} did not "
+                                 f"launch {kernel}")
+    x = torch.empty((4096, 4096), dtype=torch.bfloat16, device="meta")
+    sc = torch.empty(4096, device="meta")
+    with dsp.dispatch_scope(store=s.workspace.tune_store,
+                            machine=s.machine.name, device=s.device):
+        key = dsp.norm_key(x, sc, sc, kind="layernorm")
+        rec = dsp.measure_site(key)
+    print(f"  layernorm site {key.key}\n    {rec.describe()}")
+    again = s.tune(**search).data
+    with dsp.dispatch_scope(store=s.workspace.tune_store,
+                            machine=s.machine.name, device=s.device,
+                            mode="measure") as scope:
+        dsp.decide(key)
+    print(f"  dispatch search again: {again.n_sites} sites, "
+          f"{again.n_measured} measured; layernorm site "
+          f"{scope.n_measured} measured")
+    if again.n_measured or scope.n_measured:
+        raise AssertionError("the second dispatch search measured a site")
+    if cuda and kernels.launch_counts()["fused_layernorm"] <= 0:
+        raise AssertionError("fused_layernorm was not launched by its "
+                             "dispatch site")
+
+    # 4 and 5: every launch of a kernel that reads its config from the
+    # store finds the tuned winner of its point
+    with launch_sources(s) as sources:
+        # 4. the step from the table, beside static
+        losses, walls = {}, {}
+        with dsp.dispatch_scope(mode="frozen") as scope:
+            for fusion in ("static", "auto"):
+                scope.reset_stats()
+                prof = s.profile(
+                    "glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                    batch=batch, amp="O1", fusion=fusion,
+                    attn_impl="chunked", measure=True, iters=5, warmup=2)
+                losses[fusion] = float(prof.data["fwd"].output)
+                walls[fusion] = {ph: prof.data[ph].wall_s * 1e3
+                                 for ph in ("fwd", "bwd", "opt")}
+                if fusion == "auto":
+                    table = {r.key: r.impl for r in dsp.dispatch_table(
+                        s.workspace.tune_store, s.machine.name)}
+                    print(f"  auto: {len(scope.sites)} sites, {scope.n_hit} "
+                          f"lookups, {scope.n_measured} measured")
+                    for k in sorted(scope.sites):
+                        print(f"    {table[k]:<9} {k}")
+                del prof
+                if cuda:
+                    torch.cuda.empty_cache()
+        for ph in ("fwd", "bwd", "opt"):
+            print(f"  {ph}: auto {walls['auto'][ph]:.3f} ms | static "
+                  f"{walls['static'][ph]:.3f} ms")
+        rel = abs(losses["auto"] - losses["static"]) / abs(losses["static"])
+        print(f"  fwd loss auto {losses['auto']:.6f} static "
+              f"{losses['static']:.6f} (rel {rel:.3e}, bound "
+              f"{ROUTE_LOSS_RTOL:g})")
+        if not (math.isfinite(losses["auto"]) and rel <= ROUTE_LOSS_RTOL):
+            raise AssertionError(f"auto fwd loss {losses['auto']} vs static "
+                                 f"{losses['static']}")
+
+        # 5. a record under auto carries the table
+        with dsp.dispatch_scope(mode="frozen"):
+            rec = s.record("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
+                           batch=batch, amp="O1", fusion="auto",
+                           attn_impl="chunked", iters=2, warmup=1)
+    print("  launch configs in steps 4 and 5: "
+          + ", ".join(f"{k} {'x'.join(map(str, sh))} {dt}: {src}"
+                      for (k, sh, dt), src in sorted(sources.items())))
+    if cuda and (not sources or set(sources.values()) != {"tuned"}):
+        raise AssertionError(f"a launch found no tuned config: {sources}")
+    meta = s.report("glm4-9b").data.meta
+    stamped = {k: v["source"] for k, v in meta["kernel_configs"].items()}
+    print(f"  record {rec.data.run_id}: kernel_configs {stamped}; "
+          f"dispatch_table {len(meta['dispatch_table'])} sites")
+    if s.report("glm4-9b").data.run_id != rec.data.run_id or \
+            not meta["dispatch_table"] or meta["fusion"] != "auto":
+        raise AssertionError("the auto record did not read back with its "
+                             "dispatch table")
+    counts = kernels.launch_counts()
+    print(f"launches on main path e: {json.dumps(counts)}")
+    if cuda:
+        torch.cuda.empty_cache()
+    return counts
+
+
 def smoke_checks(dev, arch: str, fwd_runs: dict, step_run) -> None:
     """Step 5 for one registry config at its smoke size (seq 32, batch 4):
     the fwd at each of ``fwd_runs`` and one train step at ``step_run``, on
@@ -1210,6 +1580,7 @@ def main() -> int:
     rows = kernel_checks(dev, sheet)
     torch.cuda.empty_cache()
     rows += fused_checks(dev, sheet)
+    rows += layernorm_checks(dev, sheet)
     rows += flash_checks(dev, sheet)
     rows += ssd_checks(dev, sheet)
     for r in rows:
@@ -1226,7 +1597,7 @@ def main() -> int:
     print("== 4a. main path: characterize, ladder, sweep, full-width profile")
     kernels.reset_launch_counts()
     s = Session(machine=sheet, device="cuda")
-    res = s.characterize(empirical=True)
+    res = s.characterize(empirical=True, tuned=False)
     print(res.render())
     lad = ops.ladder("cuda")
     for k, v in lad.items():
@@ -1298,13 +1669,22 @@ def main() -> int:
     counts_b = train_path(cfg, sheet)
     torch.cuda.empty_cache()
 
+    # paths c and e share a workspace whose tune store starts empty: paths
+    # a-d launch the default configs, and path e's first tune pass times
+    workspace = os.path.join(ROOT, "build", "chip_workspace")
+    if os.path.exists(os.path.join(workspace, "tune.json")):
+        os.remove(os.path.join(workspace, "tune.json"))
+
     # 4c. main path: the same step at flash attention, record and report ----
-    counts_c = attention_path(
-        cfg, sheet, workspace=os.path.join(ROOT, "build", "chip_workspace"))
+    counts_c = attention_path(cfg, sheet, workspace=workspace)
     torch.cuda.empty_cache()
 
     # 4d. main path: mamba2-1.3b at full width, both SSD routes, train step --
     counts_d = ssm_path(get_config("mamba2-1.3b"), sheet)
+    torch.cuda.empty_cache()
+
+    # 4e. main path: tuning, tuned ceilings, the dispatch table, auto --------
+    counts_e = tuning_path(cfg, sheet, meas, workspace=workspace)
     torch.cuda.empty_cache()
 
     # 5. the smoke fwd and train step on the card against the host -----------
@@ -1329,7 +1709,8 @@ def main() -> int:
     for r in rows:
         launches = (counts if r["name"] in ERT_KERNELS else
                     counts_c if r["name"] in FLASH_KERNELS else
-                    counts_d if r["name"] in SSD_KERNELS else counts_b)
+                    counts_d if r["name"] in SSD_KERNELS else
+                    counts_e if r["name"] in TUNE_KERNELS else counts_b)
         out.append({k: r[k] for k in ("name", "route", "source", "replaces")}
                    | {"launches": launches[r["name"]],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -3,7 +3,9 @@
 subcommands of ``python -m repro``).
 
 * ``characterize`` — machine model: the card's datasheet ceilings, or
-  (``--empirical``) the ceilings the hand-written ERT kernels measure;
+  (``--empirical``) the ceilings the hand-written ERT kernels measure,
+  best-of-tuned through the workspace's tune store (``--untuned``: the
+  default launch configs, timed once);
 * ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
   phases (kernel table, three-term bound, roofline chart) at ``--fusion``
   ``off`` or ``static``, ``--attn-impl`` ``einsum``, ``chunked`` or
@@ -14,7 +16,10 @@ subcommands of ``python -m repro``).
   ``--scale-wall`` multiplies the stored wall times (regression drills);
 * ``report``       — the newest stored record, re-rendered;
 * ``compare``      — the newest record of each config against the one
-  before; exit code 1 when a cell regressed past 10%.
+  before; exit code 1 when a cell regressed past 10%;
+* ``tune``         — kernel autotuning (``search`` / ``show`` / ``apply``)
+  and the dispatch table (``dispatch search`` / ``show`` / ``apply``),
+  forwarded to ``repro_torch.tune.cli``.
 
 Every subcommand runs on the card unless ``--device cpu`` is given.
 
@@ -31,6 +36,8 @@ Examples::
         --seq 2048 --batch 2 --fusion static --attn-impl flash
     python -m repro_torch report
     python -m repro_torch compare
+    python -m repro_torch tune search --device cpu --smoke
+    python -m repro_torch tune dispatch search --config glm4-9b --device cpu
 """
 
 from __future__ import annotations
@@ -56,7 +63,8 @@ def cmd_characterize(args) -> int:
     except RuntimeError as e:            # no CUDA device for --device cuda
         print(f"characterize: {e}", file=sys.stderr)
         return 2
-    print(s.characterize(empirical=args.empirical, smoke=args.smoke).render())
+    print(s.characterize(empirical=args.empirical, tuned=not args.untuned,
+                         smoke=args.smoke).render())
     return 0
 
 
@@ -140,22 +148,29 @@ def build_parser() -> argparse.ArgumentParser:
     common(ch)
     ch.add_argument("--empirical", action="store_true",
                     help="measure the device's ceilings with the ERT kernels")
+    ch.add_argument("--untuned", action="store_true",
+                    help="time the default launch configs once instead of "
+                         "taking the best-of-tuned winners from the "
+                         "workspace's tune store")
     ch.add_argument("--smoke", action="store_true",
                     help="tiny problem sizes (for a quick check)")
     ch.set_defaults(fn=cmd_characterize)
 
     def workload(p) -> None:
-        from repro_torch.configs.base import ATTN_IMPLS, SSD_IMPLS
+        from repro_torch.configs.base import (ATTN_IMPLS, FUSION_MODES,
+                                              SSD_IMPLS)
         p.add_argument("--config", required=True,
                        help="registry config name (see repro_torch.configs)")
         p.add_argument("--seq", type=int, default=32)
         p.add_argument("--batch", type=int, default=4)
         p.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
-        p.add_argument("--fusion", default="off", choices=("off", "static"),
+        p.add_argument("--fusion", default="off", choices=FUSION_MODES,
                        help="'static' routes the norms, the SwiGLU "
                             "epilogue, the embedding backward, AdamW and "
                             "eligible chunked attention through the "
-                            "hand-written kernels")
+                            "hand-written kernels; 'auto' (alias "
+                            "'measured') only the sites whose measured "
+                            "dispatch verdict is fused")
         p.add_argument("--attn-impl", default="einsum", choices=ATTN_IMPLS,
                        help="attention lowering; 'flash' runs the "
                             "flash-attention kernel")
@@ -216,10 +231,23 @@ def build_parser() -> argparse.ArgumentParser:
     store(cp)
     cp.add_argument("--config", default=None)
     cp.set_defaults(fn=cmd_compare)
+
+    # listed for --help; ``main`` forwards ``tune ...`` before parsing
+    tu = sub.add_parser("tune", add_help=False,
+                        help="kernel autotuning and the dispatch table "
+                             "(try `tune --help`)")
+    tu.add_argument("rest", nargs=argparse.REMAINDER)
     return ap
 
 
 def main(argv: Sequence[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["tune"]:
+        from repro_torch.tune.cli import main as tune_main
+        try:
+            return tune_main(argv[1:], prog=f"{PROG} tune")
+        except SystemExit as e:             # --help or a usage error
+            return int(e.code or 0)
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

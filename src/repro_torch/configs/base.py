@@ -121,10 +121,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Execution policy.  The port runs ``fusion`` ``"off"`` or
-    ``"static"``, the ``einsum``, ``chunked`` and ``flash`` attention, the
-    ``xla`` and ``kernel`` SSD scans and AdamW; the other settings raise
-    until their slice lands."""
+    """Execution policy.  The port runs every ``fusion`` mode (``"auto"`` /
+    ``"measured"`` route by the measured dispatch table,
+    ``repro_torch.tune.dispatch``), the ``einsum``, ``chunked`` and
+    ``flash`` attention, the ``xla`` and ``kernel`` SSD scans and AdamW;
+    the other settings raise until their slice lands."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
@@ -168,10 +169,6 @@ class RunConfig:
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")
-        if self.fusion not in ("off", "static"):
-            raise NotImplementedError(
-                f"fusion={self.fusion!r} routes by measured winners and "
-                "needs the dispatch table (ROADMAP queue 1, tune/dispatch)")
         if self.optimizer != "adamw":
             raise NotImplementedError(
                 f"optimizer={self.optimizer!r}: the port has AdamW only "

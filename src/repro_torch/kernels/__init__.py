@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels (port of ``repro.kernels``).
 
 Each kernel module keeps a plain-int counter (``LAUNCHES``; the norm
-module a second one, ``RESIDUAL_LAUNCHES``) that its wrapper bumps once
-per launch of the CUDA kernel (never for the plain CPU path).
+module two more, ``RESIDUAL_LAUNCHES`` and ``LAYERNORM_LAUNCHES``) that its
+wrapper bumps once per launch of the CUDA kernel (never for the plain CPU
+path).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ def _counters() -> dict:
             "ert_gemm": (gemm, "LAUNCHES"),
             "fused_rmsnorm": (norm, "LAUNCHES"),
             "fused_rmsnorm_residual": (norm, "RESIDUAL_LAUNCHES"),
+            "fused_layernorm": (norm, "LAYERNORM_LAUNCHES"),
             "fused_swiglu": (swiglu, "LAUNCHES"),
             "fused_adamw": (adamw, "LAUNCHES"),
             "flash_attention": (flash, "LAUNCHES"),

@@ -51,6 +51,10 @@ _SIGNATURES = {
         # blocks, threads, stream
         "fused_rmsnorm": (_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I,
                           _I, _P),
+        # x, scale, bias, y, rows, d, eps, x_dtype, scale_dtype, bias_dtype,
+        # out_dtype, blocks, threads, stream
+        "fused_layernorm": (_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I,
+                            _I, _P),
         # g, u, y, n, act, in_dtype, out_dtype, blocks, threads, stream
         "fused_swiglu": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
         # g, m, v, p, bc, p_out, m_out, v_out, n, lr, b1, b2, 1-b1, 1-b2,

@@ -23,6 +23,11 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
 The reference's ``block_rows`` / ``block`` (rows or elements per VMEM
 block) have no counterpart: a Hopper block holds one row, or strides
 over the flat leaf, and masks the ragged edge itself.
+
+A wrapper called with no ``config`` launches with :func:`for_launch`:
+the tune store's winner for its kernel, shape, dtype and machine
+(:func:`best_config`, the reference's ``fused/ops.py::_lookup``), or
+the default on a miss.
 """
 
 from __future__ import annotations
@@ -57,8 +62,8 @@ class KernelConfig:
         return KernelConfig(self.kernel, tuple(sorted(merged.items())))
 
 
-# every kernel of ``KERNELS`` (``fused_norm`` is the rmsnorm kernels' entry;
-# the reference's layernorm shares it and is not ported yet)
+# every kernel of ``KERNELS`` (``fused_norm`` is the entry of both rmsnorm
+# kernels and the layernorm, as in the reference)
 DEFAULTS: dict[str, KernelConfig] = {
     "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=8),
     "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
@@ -101,3 +106,27 @@ def resolve(kernel: str, config: "KernelConfig | None",
         raise ValueError(f"config for {base.kernel!r} passed to {kernel!r}")
     explicit = {k: v for k, v in overrides.items() if v is not None}
     return base.replace(**explicit) if explicit else base
+
+
+def best_config(kernel: str, shape: tuple[int, ...], dtype: str = "float32",
+                machine: str = "cpu-host", *, backend: str = "cuda",
+                store=None) -> KernelConfig:
+    """The tune store's winner for (kernel, shape, dtype, machine,
+    backend), or the kernel's default on a miss."""
+    from repro_torch.tune.store import best_config as stored
+    return stored(kernel, shape, dtype, machine, backend, store)
+
+
+def for_launch(kernel: str, config: "KernelConfig | None", t,
+               shape: tuple[int, ...]) -> KernelConfig:
+    """The config a wrapper launches ``kernel`` with on the CUDA tensor
+    ``t``: ``config`` when given, else :func:`best_config` at ``shape`` and
+    ``t``'s dtype in the bound tune store, under the bound machine key
+    (``repro_torch.tune.store.bind``)."""
+    if config is not None:
+        return resolve(kernel, config)
+    # imported here: the tune store builds on this module
+    from repro_torch.tune.store import active_store, machine_for
+    return best_config(kernel, tuple(int(s) for s in shape),
+                       str(t.dtype).removeprefix("torch."),
+                       machine_for(t.device), store=active_store())

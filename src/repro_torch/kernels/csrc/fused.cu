@@ -33,6 +33,25 @@
 //   so it may sit at any offset: the vector path is taken only when every
 //   pointer is 16-byte aligned and d is a multiple of 8.
 //
+// layernorm — replaces repro/kernels/fused/norm.py::fused_layernorm
+//   (_layernorm_kernel): per row in fp32, mu = mean(x), var = mean((x - mu)^2)
+//   (the population variance, two passes, as jnp.var computes it; never
+//   E[x^2] - mu^2, which cancels when the mean is large against the
+//   spread), y = (x - mu) * rsqrt(var + eps) * scale + bias, cast once at
+//   the write.  x f32 or bf16; scale and bias each f32 or bf16, views at any
+//   offset; any output dtype of the two.
+//   Bound: bytes (x read once, y written once, scale and bias once; about
+//   7 FLOPs per element).
+//   Design: the rmsnorm's shape — one block per row, grid-stride over rows,
+//   16-byte vectors where every pointer is aligned and d % 8 == 0, and
+//   block_sum — with the row kept in shared memory as fp32 between its
+//   three passes: pass 1 reads x from device memory once, stores it and
+//   sums it; pass 2 sums (x - mu)^2 from shared memory; pass 3 writes y
+//   from shared memory.  Each thread reads back only the elements it
+//   stored, so the passes need no barrier of their own (block_sum's
+//   barriers order the rows).  d * 4 bytes of dynamic shared memory: 16 KiB
+//   at d = 4096, 64 KiB at the largest row (NORM_D_MAX = 16,384).
+//
 // swiglu — replaces repro/kernels/fused/swiglu.py::fused_swiglu
 //   (_swiglu_kernel): y = act(gate) * up in fp32, one rounding at the write;
 //   act is silu (g * sigmoid(g), sigmoid = 1 / (1 + exp(-g))) or the tanh
@@ -237,6 +256,92 @@ int launch_rmsnorm(const void* x, const void* h, const void* scale, void* r,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- layernorm --
+
+template <typename T, typename S, typename B, typename O, bool VEC>
+__global__ void layernorm_kernel(const T* __restrict__ x,
+                                 const S* __restrict__ scale,
+                                 const B* __restrict__ bias,
+                                 O* __restrict__ y, int64_t rows, int d,
+                                 float eps) {
+  // the current row in fp32, d floats.  With vectors, element j of the
+  // 8-element chunk at i sits at j * (d / 8) + i / 8, so a warp's 32
+  // threads touch 32 consecutive words (no bank conflict)
+  extern __shared__ float row_f[];
+  const int step = VEC ? 8 * blockDim.x : blockDim.x;
+  const int first = VEC ? 8 * threadIdx.x : threadIdx.x;
+  const int n = VEC ? 8 : 1;
+  const int stride = VEC ? d / 8 : 0;
+  auto at = [&](int i, int j) { return VEC ? j * stride + i / 8 : i; };
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * (int64_t)d;
+    O* yr = y + row * (int64_t)d;
+    // pass 1: x into shared memory, and its fp32 sum
+    float s = 0.0f;
+    for (int i = first; i < d; i += step) {
+      float v[8];
+      if (VEC) load8(xr + i, v);
+      else v[0] = to_f(xr[i]);
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        row_f[at(i, j)] = v[j];
+        s = __fadd_rn(s, v[j]);
+      }
+    }
+    const float mu = __fdiv_rn(block_sum(s), (float)d);
+    // pass 2: the population variance about mu
+    float ss = 0.0f;
+    for (int i = first; i < d; i += step) {
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        const float c = __fsub_rn(row_f[at(i, j)], mu);
+        ss = fmaf(c, c, ss);
+      }
+    }
+    const float var = __fdiv_rn(block_sum(ss), (float)d);
+    const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    // pass 3: y = ((x - mu) * rs) * scale + bias, rounded once at the write
+    for (int i = first; i < d; i += step) {
+      float v[8], sc[8], bi[8];
+      if (VEC) {
+        load8(scale + i, sc);
+        load8(bias + i, bi);
+      } else {
+        sc[0] = to_f(scale[i]);
+        bi[0] = to_f(bias[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        v[j] = __fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(row_f[at(i, j)], mu), rs), sc[j]),
+            bi[j]);
+      }
+      if (VEC) store8(yr + i, v);
+      else yr[i] = from_f<O>(v[0]);
+    }
+  }
+}
+
+template <typename T, typename S, typename B, typename O>
+int launch_layernorm(const void* x, const void* scale, const void* bias,
+                     void* y, int64_t rows, int d, float eps, bool vec,
+                     int blocks, int threads, cudaStream_t stream) {
+  const size_t smem = (size_t)d * sizeof(float);
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<blocks, threads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const S*>(scale),
+        static_cast<const B*>(bias), static_cast<O*>(y), rows, d, eps);
+    return (int)cudaGetLastError();
+  };
+  return vec ? go(layernorm_kernel<T, S, B, O, true>)
+             : go(layernorm_kernel<T, S, B, O, false>);
+}
+
 // ---------------------------------------------------------------- swiglu --
 
 template <int ACT> __device__ __forceinline__ float act(float g) {
@@ -353,6 +458,35 @@ int fused_rmsnorm(const void* x, const void* h, const void* scale, void* r,
                                                  eps, vec, blocks, threads, s)
                  : launch_rmsnorm<T, S, O, false>(x, h, scale, r, y, rows, d,
                                                   eps, vec, blocks, threads, s);
+      });
+    });
+  });
+}
+
+// x, y: row-major (rows, d), d <= 16384; scale, bias: (d,).  x has
+// x_dtype, scale scale_dtype, bias bias_dtype, y out_dtype.
+int fused_layernorm(const void* x, const void* scale, const void* bias,
+                    void* y, long long rows, int d, float eps, int x_dtype,
+                    int scale_dtype, int bias_dtype, int out_dtype,
+                    int blocks, int threads, void* stream) {
+  if (rows <= 0 || d <= 0 || d > 16384 || threads <= 0 || threads > 1024 ||
+      threads % 32 || blocks <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = d % 8 == 0 && aligned16(x) && aligned16(scale) &&
+                   aligned16(bias) && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_type(x_dtype, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    return with_type(scale_dtype, [&](auto st) {
+      using S = typename decltype(st)::type;
+      return with_type(bias_dtype, [&](auto bt) {
+        using B = typename decltype(bt)::type;
+        return with_type(out_dtype, [&](auto ot) {
+          using O = typename decltype(ot)::type;
+          return launch_layernorm<T, S, B, O>(x, scale, bias, y, rows, d, eps,
+                                              vec, blocks, threads, s);
+        });
       });
     });
   });

@@ -37,7 +37,8 @@ def triad(a: torch.Tensor, b: torch.Tensor, scale: float = 3.0, *,
                          f"{b.shape}/{b.dtype}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.triad_ref(a, b, scale)
-    cfg = kc.resolve("triad", config)
+    cfg = kc.for_launch("triad", config, a,
+                        (a.numel(),) if reps == 1 else (a.numel(), reps))
     build.require_cuda(a, b)
     code = build.dtype_code(a)
     out = torch.empty_like(a)

@@ -37,7 +37,7 @@ def fma_chain(x: torch.Tensor, n_iters: int = 64, ilp: int = 4, *,
         return ref.fma_chain_ref(x, n_iters, ilp)
     if ilp not in ILPS:
         raise ValueError(f"ilp={ilp} not compiled; compiled: {ILPS}")
-    cfg = kc.resolve("fma_chain", config)
+    cfg = kc.for_launch("fma_chain", config, x, (x.numel(),))
     build.require_cuda(x)
     code = build.dtype_code(x, ("float32", "bfloat16"))
     out = torch.empty_like(x)

@@ -36,8 +36,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.matmul_ref(a, b, out_dtype)
-    cfg = kc.resolve("ert_gemm", config, block_m=block_m, block_n=block_n,
-                     block_k=block_k)
+    cfg = kc.resolve("ert_gemm", kc.for_launch(
+        "ert_gemm", config, a, (a.shape[0], b.shape[1], a.shape[1])),
+        block_m=block_m, block_n=block_n, block_k=block_k)
     build.require_cuda(a, b)
     lib = build.load("ert")
     tiles = tuple(int(cfg.get(k)) for k in ("block_m", "block_n", "block_k"))

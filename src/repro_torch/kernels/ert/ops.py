@@ -15,8 +15,12 @@ more: an fp32 chain of 2^23 elements × 1024 iterations × 8 chains
 launch; an L2-resident triad of 3 × 8 MiB (24 MiB, inside the 50 MB L2)
 repeated 512 times; GEMMs up to 8192³ for the tensor-core ceiling.
 
-``tuned=True`` needs the tune-store port (ROADMAP queue 1, item 10) and
-raises until it lands.
+``tuned=True`` (the paper's discipline: a ceiling that was not tuned for
+is a data point, not a ceiling) takes every ceiling from the best-of-tuned
+winners of the ceiling searches (``repro_torch.tune.search.tune_ceilings``:
+the ``cuda`` spaces at these sizes on the card, the ``torch`` spaces on
+the host), persisted in the tune store, so a second characterization
+times nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.core.machine import CPU_HOST, MachineSpec, datasheet_for
 from repro_torch.device import resolve_device
+from repro_torch.kernels.config import DEFAULTS, KernelConfig
 from repro_torch.kernels.ert import bandwidth, flops, gemm
 
 
@@ -98,22 +103,27 @@ def _rand(shape, dtype: torch.dtype, device: torch.device,
 
 def measure_flops(dtype: torch.dtype = torch.float32, n: int = FULL.chain_n,
                   n_iters: int = FULL.chain_iters, ilp: int = 8,
-                  device: str | torch.device = "cuda") -> float:
-    """Peak FLOP/s of one precision on the FMA chain (paper Fig 1 ceiling)."""
+                  device: str | torch.device = "cuda",
+                  config: KernelConfig | None = None) -> float:
+    """Peak FLOP/s of one precision on the FMA chain (paper Fig 1 ceiling).
+    ``config``: the kernel's launch config (default: the tune store's
+    winner, else the default)."""
     dev = resolve_device(device)
     x = _rand((n,), dtype, dev)
-    t = time_launches(lambda: flops.fma_chain(x, n_iters, ilp), dev)
+    t = time_launches(lambda: flops.fma_chain(x, n_iters, ilp,
+                                              config=config), dev)
     return flops.fma_flops(n, n_iters, ilp) / t
 
 
 def measure_bandwidth(dtype: torch.dtype = torch.float32,
                       n: int = FULL.hbm_n, reps: int = FULL.hbm_reps,
-                      device: str | torch.device = "cuda") -> float:
+                      device: str | torch.device = "cuda",
+                      config: KernelConfig | None = None) -> float:
     """Sustained triad bytes/s over ``reps`` passes of ``n`` elements."""
     dev = resolve_device(device)
     a, b = _rand((n,), dtype, dev, 0), _rand((n,), dtype, dev, 1)
     if dev.type == "cuda":
-        fn = lambda: bandwidth.triad(a, b, reps=reps)
+        fn = lambda: bandwidth.triad(a, b, reps=reps, config=config)
     else:
         fn = lambda: [bandwidth.triad(a, b) for _ in range(reps)]
     t = time_launches(fn, dev)
@@ -121,12 +131,13 @@ def measure_bandwidth(dtype: torch.dtype = torch.float32,
 
 
 def measure_gemm(dtype: torch.dtype = torch.bfloat16, size: int = 1024,
-                 device: str | torch.device = "cuda") -> float:
+                 device: str | torch.device = "cuda",
+                 config: KernelConfig | None = None) -> float:
     """GEMM FLOP/s at one square size (paper Fig 2 point)."""
     dev = resolve_device(device)
     a = _rand((size, size), dtype, dev, 0)
     b = _rand((size, size), dtype, dev, 1)
-    t = time_launches(lambda: gemm.matmul(a, b), dev)
+    t = time_launches(lambda: gemm.matmul(a, b, config=config), dev)
     return gemm.gemm_flops(size, size, size) / t
 
 
@@ -153,35 +164,47 @@ def ladder(device: str | torch.device = "cuda", sizes: ErtSizes = FULL
 
 
 def characterize(device: str | torch.device = "cuda", tuned: bool = False,
-                 smoke: bool = False,
-                 machine: MachineSpec | None = None) -> MachineSpec:
+                 smoke: bool = False, machine: MachineSpec | None = None,
+                 store=None) -> MachineSpec:
     """Measured machine model of the device (paper Fig 1, measured).
 
     Starts from ``machine`` (default: the datasheet spec of the card, or
     ``cpu-host`` on the host) and overwrites the f32 and bf16 ceilings and
     the bandwidth of every memory level; int8/fp8 keep their datasheet
-    value (no ERT kernel measures them yet).
+    value (no ERT kernel measures them yet).  ``tuned=True`` takes them
+    from the tune store's ceiling winners under ``machine``'s name
+    (``store``: a :class:`~repro_torch.tune.store.TuneStore` or a path;
+    default the workspace's), searching the ones it lacks.
     """
-    if tuned:
-        raise NotImplementedError(
-            "characterize(tuned=True) needs the tune-store port "
-            "(ROADMAP queue 1, item 10); use tuned=False")
     dev = resolve_device(device)
     if machine is None:
         machine = (datasheet_for(torch.cuda.get_device_name(dev))
                    if dev.type == "cuda" else CPU_HOST)
+    if tuned:
+        from repro_torch.tune.search import tune_ceilings
+        c = tune_ceilings(machine=machine.name, store=store, smoke=smoke,
+                          backend="cuda" if dev.type == "cuda" else "torch")
+        peaks = {"f32": c["flops_f32"].record.metric,
+                 "bf16": max(c["flops_bf16"].record.metric,
+                             c["gemm_bf16"].record.metric)}
+        bw = {machine.hbm.name: c["bw_hbm"].record.metric,
+              machine.vmem.name: c["bw_vmem"].record.metric}
+        return machine.with_empirical(peaks, bw)
     sz = SMOKE if smoke else FULL
+    # untuned: the default launch configs, whatever the tune store holds
+    fma, triad, mm = (DEFAULTS[k] for k in ("fma_chain", "triad",
+                                            "ert_gemm"))
     peaks = {
         "f32": measure_flops(torch.float32, sz.chain_n, sz.chain_iters, 8,
-                             dev),
+                             dev, fma),
         "bf16": max(measure_flops(torch.bfloat16, sz.chain_n, sz.chain_iters,
-                                  8, dev),
-                    measure_gemm(torch.bfloat16, sz.gemm_ceiling, dev)),
+                                  8, dev, fma),
+                    measure_gemm(torch.bfloat16, sz.gemm_ceiling, dev, mm)),
     }
     bw = {
         machine.hbm.name: measure_bandwidth(torch.float32, sz.hbm_n,
-                                            sz.hbm_reps, dev),
+                                            sz.hbm_reps, dev, triad),
         machine.vmem.name: measure_bandwidth(torch.float32, sz.l2_n,
-                                             sz.l2_reps, dev),
+                                             sz.l2_reps, dev, triad),
     }
     return machine.with_empirical(peaks, bw)

@@ -75,7 +75,7 @@ def fused_adamw(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         for dst, src in zip((p, m, v), out):
             dst.copy_(src)
         return p, m, v
-    cfg = kc.resolve("fused_adamw", config)
+    cfg = kc.for_launch("fused_adamw", config, p, (p.numel(),))
     build.require_cuda(g, m, v, p, bc, align=1)
     codes = [common.code(t) for t in (g, m, v, p)]
     outs = (p, m, v) if inplace else tuple(

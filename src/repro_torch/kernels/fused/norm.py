@@ -1,18 +1,22 @@
-"""Fused RMSNorm and residual RMSNorm (port of ``repro.kernels.fused.norm``).
+"""Fused RMSNorm, residual RMSNorm and LayerNorm (port of
+``repro.kernels.fused.norm``).
 
-One pass does what the unfused chain spreads over an upcast, a square, a
-mean, an rsqrt, two multiplies and a downcast (and, before it, the
-residual add)::
+One pass does what the unfused chain spreads over an upcast, the
+statistics, the normalization, the affine terms and a downcast (and,
+before it, the residual add)::
 
     r = x + h                     (residual variant; rounded to x's dtype)
-    y = r · rsqrt(mean(r²) + eps) · scale     (statistics in fp32)
+    y = r · rsqrt(mean(r²) + eps) · scale     (rmsnorm; statistics in fp32)
+    y = (x − μ) · rsqrt(var + eps) · scale + bias   (layernorm; population
+                                                     variance, fp32)
     out = y.astype(out_dtype)     (one rounding at the write)
 
-On a CUDA tensor :func:`fused_rmsnorm` / :func:`fused_rmsnorm_residual`
-launch the hand-written kernels in ``csrc/fused.cu``; on a CPU tensor they
-run the plain versions :func:`rmsnorm_ref` / :func:`rmsnorm_residual_ref`,
-which repeat the reference's math op for op.  ``hbm_bytes`` and
-``flops`` are each kernel's roofline model.
+On a CUDA tensor :func:`fused_rmsnorm`, :func:`fused_rmsnorm_residual`
+and :func:`fused_layernorm` launch the hand-written kernels in
+``csrc/fused.cu``; on a CPU tensor they run the plain versions
+:func:`rmsnorm_ref`, :func:`rmsnorm_residual_ref` and
+:func:`layernorm_ref`, which repeat the reference's math op for op.
+``hbm_bytes`` and ``flops`` are each kernel's roofline model.
 """
 
 from __future__ import annotations
@@ -23,9 +27,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels import config as kc
 from repro_torch.kernels.fused import common
 
+#: the longest row the layernorm kernel takes (d fp32 values of shared
+#: memory; the reference's NORM_D_MAX)
+D_MAX = 16_384
+
 #: launches of the CUDA kernels (the plain CPU path does not count)
 LAUNCHES = 0
 RESIDUAL_LAUNCHES = 0
+LAYERNORM_LAUNCHES = 0
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -44,6 +53,18 @@ def rmsnorm_residual_ref(x: torch.Tensor, h: torch.Tensor,
     rounded ``r``."""
     r = x + h
     return r, rmsnorm_ref(r, scale, eps, out_dtype)
+
+
+def layernorm_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version (the reference's ``_ln_ref``): the population
+    variance (``jnp.var``; ``torch.var`` would default to
+    ``correction=1``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(out_dtype)
 
 
 def _operands(x: torch.Tensor, scale: torch.Tensor,
@@ -83,7 +104,7 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     rows, d = _operands(x, scale)
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps, out_dtype)
-    cfg = kc.resolve("fused_norm", config)
+    cfg = kc.for_launch("fused_norm", config, x, (rows, d))
     build.require_cuda(x, scale, align=1)
     y = torch.empty((rows, d), dtype=out_dtype, device=x.device)
     if rows == 0:
@@ -105,7 +126,7 @@ def fused_rmsnorm_residual(x: torch.Tensor, h: torch.Tensor,
     rows, d = _operands(x, scale, h)
     if all(t.device.type == "cpu" for t in (x, h, scale)):
         return rmsnorm_residual_ref(x, h, scale, eps, out_dtype)
-    cfg = kc.resolve("fused_norm", config)
+    cfg = kc.for_launch("fused_norm", config, x, (rows, d))
     build.require_cuda(x, h, scale, align=1)
     r = torch.empty_like(x)
     y = torch.empty((rows, d), dtype=out_dtype, device=x.device)
@@ -116,16 +137,63 @@ def fused_rmsnorm_residual(x: torch.Tensor, h: torch.Tensor,
     return r, y
 
 
+def fused_layernorm(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, *, eps: float = 1e-5,
+                    out_dtype: torch.dtype | None = None,
+                    config: kc.KernelConfig | None = None) -> torch.Tensor:
+    """x (rows, d), scale/bias (d,) → layernorm(x)·scale + bias as
+    ``out_dtype``.
+
+    Any rows and d up to :data:`D_MAX` (the kernel keeps a row in shared
+    memory); x and the output f32 or bf16; scale and bias each f32 or
+    bf16, views at any offset.
+    """
+    global LAYERNORM_LAUNCHES
+    out_dtype = out_dtype or x.dtype
+    rows, d = _operands(x, scale)
+    if tuple(bias.shape) != (d,):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != ({d},)")
+    if all(t.device.type == "cpu" for t in (x, scale, bias)):
+        return layernorm_ref(x, scale, bias, eps, out_dtype)
+    if d > D_MAX:
+        raise ValueError(f"fused_layernorm takes rows of at most {D_MAX}, "
+                         f"got d={d}")
+    cfg = kc.for_launch("fused_norm", config, x, (rows, d))
+    build.require_cuda(x, scale, bias, align=1)
+    y = torch.empty((rows, d), dtype=out_dtype, device=x.device)
+    if rows == 0:
+        return y
+    blocks, threads = common.row_grid(rows, d, cfg, x)
+    lib = build.load("fused")
+    err = lib.fused_layernorm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows,
+        d, float(eps), common.code(x), common.code(scale), common.code(bias),
+        common.code(y), blocks, threads, build.stream_of(x))
+    build.check(lib, err, "fused_layernorm")
+    LAYERNORM_LAUNCHES += 1
+    return y
+
+
 def hbm_bytes(rows: int, d: int, itemsize: int = 2,
-              residual: bool = False) -> float:
+              residual: bool = False, bias: bool = False) -> float:
     """Fused traffic: x (+h) in, y (+r) out, an f32 scale once (the
-    reference's formula; one dtype for every row stream)."""
+    reference's formula; one dtype for every row stream), and for the
+    layernorm (``bias=True``) an f32 bias once, which the reference's
+    formula leaves out."""
     n_streams = 4 if residual else 2
-    return float(n_streams * rows * d * itemsize + 4 * d)
+    return float(n_streams * rows * d * itemsize + (8 if bias else 4) * d)
 
 
 def flops(rows: int, d: int, residual: bool = False) -> float:
-    """Operations of the plain math, counted as the op walk counts them:
-    per element a square, a sum, two multiplies (and the residual add);
-    per row the mean's divide, the eps add and the rsqrt."""
+    """Operations of the plain rmsnorm math, counted as the op walk counts
+    them: per element a square, a sum, two multiplies (and the residual
+    add); per row the mean's divide, the eps add and the rsqrt."""
     return float((5 if residual else 4) * rows * d + 3 * rows)
+
+
+def layernorm_flops(rows: int, d: int) -> float:
+    """Operations of the plain layernorm math: per element the mean's sum,
+    the centring subtract, a square and a sum for the variance, the
+    normalizing multiply, the scale multiply and the bias add; per row
+    the two divides, the eps add and the rsqrt."""
+    return float(7 * rows * d + 4 * rows)

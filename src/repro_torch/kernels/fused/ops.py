@@ -7,9 +7,11 @@ census ranks hottest through the kernels of this package.  The
 eligibility predicates are hard correctness gates with the reference's
 limits: anything the kernels cannot take (other dtypes, degenerate
 shapes, oversized rows) keeps the plain math at the call site, with the
-same outputs.  ``"auto"`` / ``"measured"`` also consult a measured
-dispatch table in the reference; ``RunConfig`` refuses them until that
-table is ported, so here eligibility alone decides.
+same outputs.  Under ``"static"`` eligibility alone routes to the kernel;
+under ``"auto"`` (alias ``"measured"``) each eligible site also asks the
+measured dispatch table (:func:`repro_torch.tune.dispatch.decide`), so
+only sites whose fused timing beat the plain chain run fused.  The call
+sites ask the ``use_*`` helpers below.
 
 Each routed function is one op in the ``repro_torch::`` namespace
 (``torch.library.custom_op``):
@@ -52,8 +54,10 @@ ONEHOT_BYTES_MAX = 2 ** 28
 # the flash-from-chunked route needs a non-degenerate q/k block
 FLASH_MIN_BLOCK = 16
 
-#: modes that route through this package at all
+#: modes that route through this package at all / that consult the
+#: measured dispatch table instead of trusting eligibility
 _ENABLED_MODES = ("static", "auto", "measured")
+_MEASURED_MODES = ("auto", "measured")
 
 
 def fusion_enabled(run) -> bool:
@@ -61,39 +65,74 @@ def fusion_enabled(run) -> bool:
     return run is not None and getattr(run, "fusion", "off") in _ENABLED_MODES
 
 
+def fusion_measured(run) -> bool:
+    """Does this run route by measured winners (``auto`` / ``measured``)
+    rather than by eligibility alone (``static``)?"""
+    return (run is not None
+            and getattr(run, "fusion", "off") in _MEASURED_MODES)
+
+
+def _dispatch_fused(run, key: Callable, device) -> bool:
+    """The verdict of an eligible site: ``static`` takes the kernel; the
+    measured modes ask the dispatch table for ``key()`` (built only
+    then), which measures on ``device``, or raises, on a miss as
+    ``REPRO_DISPATCH`` says."""
+    if not fusion_measured(run):
+        return True
+    from repro_torch.tune import dispatch as dsp
+    return dsp.decide(key(), device=device) == "fused"
+
+
 # --------------------------------------------------------------------------
-# use_* — the one question each call site asks.  Under ``static`` the
-# answer is eligibility alone.
+# use_* — the one question each call site asks: eligibility (the hard
+# correctness gate) and then the dispatch verdict
 # --------------------------------------------------------------------------
 
 def use_norm(run, x, scale, bias=None, *, kind: str = "rmsnorm",
              out_dtype=None) -> bool:
-    del kind, out_dtype
-    return fusion_enabled(run) and norm_eligible(x, scale, bias)
+    if not (fusion_enabled(run) and norm_eligible(x, scale, bias)):
+        return False
+    from repro_torch.tune import dispatch as dsp
+    return _dispatch_fused(run, lambda: dsp.norm_key(
+        x, scale, bias, kind=kind, out_dtype=out_dtype), x.device)
 
 
 def use_swiglu(run, gate, up, *, act: str = "silu", out_dtype=None) -> bool:
-    del act, out_dtype
-    return fusion_enabled(run) and swiglu_eligible(gate, up)
+    if not (fusion_enabled(run) and swiglu_eligible(gate, up)):
+        return False
+    from repro_torch.tune import dispatch as dsp
+    return _dispatch_fused(run, lambda: dsp.swiglu_key(
+        gate, up, act=act, out_dtype=out_dtype), gate.device)
 
 
 def use_adamw(run, g, m, v, p) -> bool:
-    return fusion_enabled(run) and adamw_eligible(g, m, v, p)
+    if not (fusion_enabled(run) and adamw_eligible(g, m, v, p)):
+        return False
+    from repro_torch.tune import dispatch as dsp
+    return _dispatch_fused(run, lambda: dsp.adamw_key(p, m), p.device)
 
 
 def use_embed(run, table, tokens, compute_dtype) -> bool:
-    del compute_dtype
-    return fusion_enabled(run) and embed_grad_eligible(
-        tokens, int(table.shape[0]))
+    if not (fusion_enabled(run)
+            and embed_grad_eligible(tokens, int(table.shape[0]))):
+        return False
+    from repro_torch.tune import dispatch as dsp
+    return _dispatch_fused(run, lambda: dsp.embed_key(
+        table, tokens, compute_dtype), table.device)
 
 
-def use_flash_from_chunked(run, q_shape, k_shape, *, causal: bool,
-                           softmax_f32: bool) -> bool:
+def use_flash_from_chunked(run, q_shape, k_shape, dtype, *, causal: bool,
+                           softmax_f32: bool, chunk: int,
+                           device: torch.device | None = None) -> bool:
     """May ``attn_impl="chunked"`` take the flash kernel at this call?
     (The port's attention has no memory and no KV cache.)"""
-    return fusion_enabled(run) and flash_from_chunked_eligible(
-        int(q_shape[1]), int(k_shape[1]), causal=causal, has_memory=False,
-        has_cache=False, softmax_f32=softmax_f32)
+    if not (fusion_enabled(run) and flash_from_chunked_eligible(
+            int(q_shape[1]), int(k_shape[1]), causal=causal,
+            has_memory=False, has_cache=False, softmax_f32=softmax_f32)):
+        return False
+    from repro_torch.tune import dispatch as dsp
+    return _dispatch_fused(run, lambda: dsp.flash_key(
+        q_shape, k_shape, dtype, chunk=chunk, device=device), device)
 
 
 # --------------------------------------------------------------------------
@@ -262,6 +301,47 @@ def rmsnorm_residual(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     return r.reshape(x.shape), y.reshape(x.shape)
 
 
+@torch.library.custom_op("repro_torch::layernorm", mutates_args=())
+def _layernorm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float, out_dtype: torch.dtype) -> torch.Tensor:
+    return nk.fused_layernorm(x, scale, bias, eps=eps, out_dtype=out_dtype)
+
+
+@_layernorm_op.register_fake
+def _(x, scale, bias, eps, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+def _layernorm_setup(ctx, inputs, output):
+    x, scale, bias, ctx.eps, _ = inputs
+    ctx.save_for_backward(x, scale, bias)
+
+
+def _layernorm_bwd(ctx, gy):
+    gx, gs, gb = _vjp(
+        lambda a, s, b: nk.layernorm_ref(a, s, b, ctx.eps, torch.float32),
+        ctx.saved_tensors, (gy.float(),))
+    return gx, gs, gb, None, None
+
+
+_layernorm_op.register_autograd(_layernorm_bwd,
+                                setup_context=_layernorm_setup)
+
+
+#: the plain layernorm under the reference's name for it
+_ln_ref = nk.layernorm_ref
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              eps: float = 1e-5,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Routed fused LayerNorm on any (..., d) activation."""
+    d = x.shape[-1]
+    y = _layernorm_op(x.reshape(-1, d), scale, bias, float(eps),
+                      out_dtype or x.dtype)
+    return y.reshape(x.shape)
+
+
 # --------------------------------------------------------------------------
 # SwiGLU / GeGLU epilogue
 # --------------------------------------------------------------------------
@@ -374,6 +454,8 @@ def op_flops(name: str, args: Sequence) -> float:
     if name in ("rmsnorm", "rmsnorm_residual"):
         rows, d = args[0].shape
         return nk.flops(rows, d, residual=name == "rmsnorm_residual")
+    if name == "layernorm":
+        return nk.layernorm_flops(*args[0].shape)
     if name == "swiglu":
         rows, d = args[0].shape
         return sk.flops(rows, d, args[2])

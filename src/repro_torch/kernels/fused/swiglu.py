@@ -63,7 +63,7 @@ def fused_swiglu(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
                          f"{tuple(up.shape)}/{up.dtype} differ")
     if gate.device.type == "cpu" and up.device.type == "cpu":
         return swiglu_ref(gate, up, act, out_dtype)
-    cfg = kc.resolve("fused_swiglu", config)
+    cfg = kc.for_launch("fused_swiglu", config, gate, tuple(gate.shape))
     build.require_cuda(gate, up, align=1)
     y = torch.empty(gate.shape, dtype=out_dtype, device=gate.device)
     n = gate.numel()

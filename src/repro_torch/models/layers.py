@@ -10,8 +10,9 @@ once would hold a second copy of every weight).
 
 The norms, the MLP epilogue and the embedding take a ``run``: with
 ``fusion="static"`` an eligible call routes through the fused kernels
-(``repro_torch.kernels.fused.ops``) at the reference's call sites; an
-ineligible one keeps the plain math below.  Attention follows
+(``repro_torch.kernels.fused.ops``) at the reference's call sites, and
+with ``"auto"`` an eligible call whose measured dispatch verdict is
+``fused``; any other keeps the plain math below.  Attention follows
 ``run.attn_impl``: ``"flash"`` takes the flash-attention kernel,
 ``"chunked"`` the query-chunked path (or, under fusion, the kernel where
 the shape is eligible), anything else the einsum path.
@@ -67,6 +68,27 @@ def rmsnorm_residual_apply(p: Params, x: torch.Tensor, h: torch.Tensor,
         return fops.rmsnorm_residual(x, h, p["scale"], eps=eps)
     r = x + h
     return r, rmsnorm_apply(p, r, eps)
+
+
+def layernorm_spec(d: int) -> Params:
+    return {"scale": P((d,), ("embed",), "ones"),
+            "bias": P((d,), ("embed",), "zeros")}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5,
+                    run: RunConfig | None = None) -> torch.Tensor:
+    """LayerNorm with the population variance (the reference's
+    ``jnp.var``; ``torch.var`` defaults to ``correction=1``)."""
+    fops = _fused(run)
+    if fops is not None and fops.use_norm(run, x, p["scale"], p["bias"],
+                                          kind="layernorm"):
+        return fops.layernorm(x, p["scale"], p["bias"], eps=eps)
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -174,8 +196,9 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         # shape is eligible: the same score math, no (chunk × S) matrices
         fops = _fused(run)
         if fops is not None and fops.use_flash_from_chunked(
-                run, qg.shape, k.shape, causal=True,
-                softmax_f32=run.softmax_f32):
+                run, qg.shape, k.shape, qg.dtype, causal=True,
+                softmax_f32=run.softmax_f32, chunk=run.attn_chunk,
+                device=qg.device):
             out = _flash(qg, k, v)
         else:
             out = _sdpa_chunked(qg, k, v, positions, positions, True,

@@ -10,7 +10,7 @@ from typing import Any
 from repro_torch.core.machine import MachineSpec
 
 #: RooflineResult.kind values this slice produces
-KINDS = ("characterize", "profile", "record", "report", "compare")
+KINDS = ("characterize", "profile", "record", "report", "compare", "tune")
 
 
 @dataclasses.dataclass(frozen=True)

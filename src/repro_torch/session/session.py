@@ -7,12 +7,16 @@ application against it, record measured runs and read them back::
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
 on the host.  ``profile`` and ``record`` build a registry LM's fwd, bwd
-and opt phases (``repro_torch.train.step.make_phases``) at ``fusion``
-``"off"`` or ``"static"``, ``attn_impl`` ``"einsum"``, ``"chunked"`` or
-``"flash"`` (dense) and ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM).
-Records go to the workspace's trace store
+and opt phases (``repro_torch.train.step.make_phases``) at any
+``fusion`` mode, ``attn_impl`` ``"einsum"``, ``"chunked"`` or ``"flash"``
+(dense) and ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM).  Records go to
+the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
-schema.
+schema.  ``tune`` searches kernel launch configs, and (``dispatch=True``)
+the fused-vs-reference dispatch table, into the workspace's tune store;
+``profile``, ``record`` and ``characterize`` read that store under the
+session's machine key (``fusion="auto"`` routes by its dispatch table,
+the kernels launch with its winners).
 """
 
 from __future__ import annotations
@@ -74,20 +78,35 @@ class Session:
         return {"device": dev, "machine": self.machine.name,
                 "torch": torch.__version__, **extra}
 
+    def _scope(self):
+        """Bind the workspace's tune store, the session's machine key and
+        device for the dispatch table and the kernels' tuned configs."""
+        from repro_torch.tune.dispatch import dispatch_scope
+        return dispatch_scope(store=self.workspace.tune_store,
+                              machine=self.machine.name, device=self.device)
+
     # -- 1. machine characterization (paper §II-A) -----------------------
-    def characterize(self, empirical: bool = False, tuned: bool = False,
+    def characterize(self, empirical: bool = False, tuned: bool = True,
                      smoke: bool = False) -> RooflineResult:
         """Machine model: datasheet, or measured ERT ceilings of the device
-        (which then becomes the session's machine)."""
+        (which then becomes the session's machine).  ``tuned=True`` takes
+        each ceiling from the best-of-tuned winners in the workspace's tune
+        store (searched once, store hits after); ``tuned=False`` times the
+        default launch configs once."""
         if empirical:
             from repro_torch.kernels.ert.ops import characterize
-            self.machine = characterize(self.device, tuned=tuned, smoke=smoke,
-                                        machine=self.machine)
+            self.machine = characterize(
+                self.device, tuned=tuned, smoke=smoke, machine=self.machine,
+                store=self.workspace.tune_store)
+        self.workspace.write_header(self.machine.name)
         from repro_torch.core.report import machine_table
         return RooflineResult(
             kind="characterize", name=self.machine.name,
             machine=self.machine,
-            provenance=self._provenance(empirical=empirical),
+            provenance=self._provenance(
+                empirical=empirical,
+                tune_store=self.workspace.tune_path if empirical and tuned
+                else None),
             text=machine_table(self.machine))
 
     # -- 2. application characterization (paper §II-B) -------------------
@@ -108,6 +127,16 @@ class Session:
         attributes the measured time over its kernels; without it the walk
         runs on meta tensors and allocates nothing, even at full width.
         """
+        with self._scope():
+            return self._profile(target, args, phases=phases, seq=seq,
+                                 batch=batch, amp=amp, fusion=fusion,
+                                 attn_impl=attn_impl, ssd_impl=ssd_impl,
+                                 smoke=smoke, n_layers=n_layers,
+                                 measure=measure, iters=iters, warmup=warmup)
+
+    def _profile(self, target, args, *, phases, seq, batch, amp, fusion,
+                 attn_impl, ssd_impl, smoke, n_layers, measure, iters,
+                 warmup) -> RooflineResult:
         from repro_torch.core.profiler import profile_fn
 
         if callable(target):
@@ -116,10 +145,11 @@ class Session:
             mm = None
         else:
             label = target
-            phase_args, run = self._build_phases(
+            phase_args, run = build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
                 fusion=fusion, attn_impl=attn_impl, ssd_impl=ssd_impl,
-                smoke=smoke, n_layers=n_layers, concrete=measure)
+                smoke=smoke, n_layers=n_layers,
+                device=self.device if measure else torch.device("meta"))
             mm = _matmul_class(run)
 
         results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
@@ -155,11 +185,13 @@ class Session:
 
         ``scale_wall`` multiplies the measured wall times before storing
         (regression drills).  ``n_layers`` cuts the depth as in
-        :meth:`profile`.  The reference's meta also stamps the tune
-        store's ``kernel_configs``, the measured ``dispatch_table`` and
-        ``net_ceilings``; neither subsystem is ported, so those keys are
-        left out of the port's records.
+        :meth:`profile`.  The meta stamps what the workspace's tune store
+        held under the session's machine key, as the reference's does:
+        ``kernel_configs`` and the measured ``dispatch_table``.  The
+        reference's ``net_ceilings`` waits for the network level.
         """
+        from repro_torch.tune.dispatch import active_dispatch_table
+        from repro_torch.tune.store import active_kernel_configs
         from repro_torch.trace.collector import (measurement_from_profile,
                                                  scale_measurement)
         from repro_torch.trace.store import record_from_phases
@@ -180,6 +212,12 @@ class Session:
                   "ssd_impl": ssd_impl, "n_layers": n_layers,
                   "scale_wall": scale_wall,
                   "device": self._provenance()["device"],
+                  "kernel_configs": active_kernel_configs(
+                      machine=self.machine.name,
+                      store=self.workspace.tune_store),
+                  "dispatch_table": active_dispatch_table(
+                      machine=self.machine.name,
+                      store=self.workspace.tune_store),
                   **dict(meta or {})})
         self.workspace.trace_store.append(rec)
         self.workspace.write_header(self.machine.name)
@@ -229,48 +267,104 @@ class Session:
             text=format_deltas(deltas), data=deltas,
             exit_code=1 if has_regressions(deltas) else 0)
 
-    def _build_phases(self, config: str, *, phases: Sequence[str], seq: int,
-                      batch: int, amp: str, fusion: str, attn_impl: str,
-                      ssd_impl: str, smoke: bool, n_layers: int | None,
-                      concrete: bool):
-        """({phase: (fn, args)}, run) for a registry config: real tensors
-        on the session's device for the measured path, meta tensors for
-        the analytical one.  Gradients and optimizer state are built only
-        when the opt phase is asked for; its gradients are zeros, as the
-        reference's, and it updates the params in place."""
-        from repro_torch.configs.base import RunConfig, ShapeSpec
-        from repro_torch.configs.registry import get_config, get_smoke
-        from repro_torch.models import api as M
-        from repro_torch.models.params import init
-        from repro_torch.train import optim
-        from repro_torch.train.step import make_phases
+    # -- 6. kernel autotuning and the dispatch table ---------------------
+    def tune(self, kernels: Sequence[str] | None = None, *,
+             backend: str | None = None, smoke: bool = False,
+             ceilings: bool = False, force: bool = False, iters: int = 3,
+             warmup: int = 1, dispatch: bool = False,
+             config: str = "glm4-9b", seq: int = 16, batch: int = 2,
+             amp: str = "O1", full: bool = False,
+             n_layers: int | None = None,
+             attn_impl: str = "einsum") -> RooflineResult:
+        """Search kernel launch configs into the workspace's tune store
+        under the session's machine key (a point already stored is a pure
+        hit: nothing is timed).
 
-        for ph in phases:
-            if ph not in TRAIN_PHASES:
-                raise ValueError(f"unknown phase {ph!r}; valid: "
-                                 f"{TRAIN_PHASES}")
-        cfg = get_smoke(config) if smoke else get_config(config)
-        if n_layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl,
-                        ssd_impl=ssd_impl)
-        model = M.build(cfg)
-        device = self.device if concrete else torch.device("meta")
-        gen = (torch.Generator(device=device).manual_seed(SEED)
-               if concrete else None)
-        params = init(model.spec, gen, run.param_dtype, device)
-        batch_t = M.synthetic_batch(cfg, ShapeSpec("trace", seq, batch,
-                                                   "train"),
-                                    batch, gen, device)
+        ``backend`` is ``"cuda"`` (the hand-written kernels; the default on
+        the card) or ``"torch"`` (the plain versions; the default on the
+        host).  The points follow who reads the winners
+        (:func:`repro_torch.tune.search.tune_workload`): the fused kernels
+        at every (shape, dtype) ``config``'s train step launches them at
+        (the smoke variant unless ``full``; ``seq``, ``batch``, ``amp``,
+        ``n_layers`` and ``attn_impl`` as in :meth:`profile`), the ERT
+        kernels through the ceiling searches of ``characterize(tuned=True)``
+        (also run for ``ceilings`` or ``smoke``), the flash and SSD spaces
+        only when named.  ``smoke`` picks the small candidate grids and
+        ceiling sizes.  ``dispatch=True`` instead measures every dispatch
+        site of ``config``'s train step at ``fusion="auto"``: a second call
+        over the same workspace measures nothing.
+        """
+        store = self.workspace.tune_store
+        step = dict(seq=seq, batch=batch, amp=amp, n_layers=n_layers,
+                    attn_impl=attn_impl, device=self.device)
+        if dispatch:
+            from repro_torch.tune.dispatch import search_sites
+            outcome = search_sites(
+                config, machine=self.machine.name, store=store, iters=iters,
+                warmup=warmup, smoke=not full, force=force, **step)
+            self.workspace.write_header(self.machine.name)
+            return RooflineResult(
+                kind="tune", name=f"dispatch/{config}", machine=self.machine,
+                provenance=self._provenance(
+                    store=self.workspace.tune_path, n_sites=outcome.n_sites,
+                    n_measured=outcome.n_measured),
+                text=outcome.describe(), data=outcome)
+        from repro_torch.tune.search import tune_workload
+        backend = backend or ("cuda" if self.device.type == "cuda"
+                              else "torch")
+        outcomes = tune_workload(
+            kernels, backend=backend, machine=self.machine.name, store=store,
+            config=config, full=full, ceilings=ceilings, iters=iters,
+            warmup=warmup, smoke=smoke, force=force, **step)
+        self.workspace.write_header(self.machine.name)
+        return RooflineResult(
+            kind="tune", name=",".join(kernels or (backend,)),
+            machine=self.machine,
+            provenance=self._provenance(store=self.workspace.tune_path,
+                                        n_winners=len(list(store.keys()))),
+            text="\n".join(o.describe() for o in outcomes.values()),
+            data=outcomes)
 
-        fns = make_phases(model, run)
-        out = {}
-        for ph in phases:
-            if ph == "opt":
-                args = (params, tree_map(torch.zeros_like, params),
-                        optim.optimizer_init(params, run))
-            else:
-                args = (params, batch_t)
-            out[ph] = (fns[ph], args)
-        return out, run
 
+def build_phases(config: str, *, phases: Sequence[str], seq: int,
+                 batch: int, amp: str, fusion: str, attn_impl: str,
+                 ssd_impl: str, smoke: bool, n_layers: int | None,
+                 device: torch.device):
+    """({phase: (fn, args)}, run) for a registry config: real tensors on
+    ``device`` (parameters drawn from seed :data:`SEED`), or meta tensors
+    that allocate nothing.  Gradients and optimizer state are built only
+    when the opt phase is asked for; its gradients are zeros, as the
+    reference's, and it updates the params in place."""
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.models import api as M
+    from repro_torch.models.params import init
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_phases
+
+    for ph in phases:
+        if ph not in TRAIN_PHASES:
+            raise ValueError(f"unknown phase {ph!r}; valid: {TRAIN_PHASES}")
+    cfg = get_smoke(config) if smoke else get_config(config)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl,
+                    ssd_impl=ssd_impl)
+    model = M.build(cfg)
+    concrete = device.type != "meta"
+    gen = (torch.Generator(device=device).manual_seed(SEED)
+           if concrete else None)
+    params = init(model.spec, gen, run.param_dtype, device)
+    batch_t = M.synthetic_batch(cfg, ShapeSpec("trace", seq, batch, "train"),
+                                batch, gen, device)
+
+    fns = make_phases(model, run)
+    out = {}
+    for ph in phases:
+        if ph == "opt":
+            args = (params, tree_map(torch.zeros_like, params),
+                    optim.optimizer_init(params, run))
+        else:
+            args = (params, batch_t)
+        out[ph] = (fns[ph], args)
+    return out, run

@@ -1,12 +1,14 @@
 """Workspace: one root directory for the port's persistent state (port of
-the part of ``repro.session.workspace`` that ``record`` / ``report``
-need; the sweep and tune stores come with their subsystems).
+the part of ``repro.session.workspace`` that ``record`` / ``report`` and
+``tune`` need; the sweep store comes with its subsystem).
 
 .. code-block:: text
 
     <root>/
     ├── workspace.json           machine-provenance header
-    └── trace.jsonl              measured runs (repro_torch.trace.store)
+    ├── trace.jsonl              measured runs (repro_torch.trace.store)
+    └── tune.json                kernel-config and dispatch winners
+                                 (repro_torch.tune.store)
 
 Resolution order of the root: an explicit path, then the
 ``REPRO_WORKSPACE`` environment variable, then ``./.repro-workspace``
@@ -27,6 +29,7 @@ from repro_torch.trace.store import TraceStore, git_sha, host_fingerprint
 WORKSPACE_ENV = "REPRO_WORKSPACE"
 HEADER_SCHEMA_VERSION = 1
 TRACE_FILENAME = "trace.jsonl"
+TUNE_FILENAME = "tune.json"
 HEADER_FILENAME = "workspace.json"
 
 
@@ -44,13 +47,15 @@ def default_workspace_root() -> str:
 
 
 class Workspace:
-    """The trace store and its provenance header under one root."""
+    """The trace and tune stores and their provenance header under one
+    root."""
 
     def __init__(self, root: str | None = None,
                  trace_filename: str = TRACE_FILENAME):
         self.root = os.path.abspath(root or default_workspace_root())
         self.trace_filename = trace_filename
         self._trace_store: TraceStore | None = None
+        self._tune_store = None
 
     @classmethod
     def for_store(cls, path: str) -> "Workspace":
@@ -66,6 +71,10 @@ class Workspace:
         return os.path.join(self.root, self.trace_filename)
 
     @property
+    def tune_path(self) -> str:
+        return os.path.join(self.root, TUNE_FILENAME)
+
+    @property
     def header_path(self) -> str:
         return os.path.join(self.root, HEADER_FILENAME)
 
@@ -74,6 +83,15 @@ class Workspace:
         if self._trace_store is None:
             self._trace_store = TraceStore(self.trace_path)
         return self._trace_store
+
+    @property
+    def tune_store(self):
+        """The :class:`~repro_torch.tune.store.TuneStore` at
+        :attr:`tune_path` (shared with the kernel wrappers' lookups)."""
+        if self._tune_store is None:
+            from repro_torch.tune.store import _as_store
+            self._tune_store = _as_store(self.tune_path)
+        return self._tune_store
 
     def read_header(self) -> dict[str, Any]:
         """The stored header, or ``{}`` (a corrupt header is never
@@ -97,7 +115,7 @@ class Workspace:
             "host": host_fingerprint(),
             "created": prev.get("created", time.time()),
             "updated": time.time(),
-            "stores": {"trace": self.trace_filename},
+            "stores": {"trace": self.trace_filename, "tune": TUNE_FILENAME},
         }
         for key in ("merges", "tags"):
             if prev.get(key):

@@ -151,9 +151,26 @@ def test_characterize_on_host_returns_measured_spec():
     assert all(lv.bytes_per_s > 0 for lv in spec.mem_levels)
 
 
-def test_characterize_tuned_needs_the_tune_store():
-    with pytest.raises(NotImplementedError, match="tune-store"):
-        ops.characterize(device="cpu", tuned=True)
+def test_characterize_tuned_needs_the_tune_store(tmp_path):
+    # tuned=True takes every ceiling from the store's winners; with every
+    # ceiling point stored it times nothing
+    from repro_torch.tune.search import ceiling_shapes
+    from repro_torch.tune.store import TuneStore, make_record
+    store = TuneStore(str(tmp_path / "tune.json"))
+    shapes = ceiling_shapes(smoke=True)
+    for kernel, shape, dtype, metric in (
+            ("fma_chain", shapes["flops_n"], "float32", 7e9),
+            ("fma_chain", shapes["flops_n"], "bfloat16", 5e9),
+            ("ert_gemm", shapes["gemm"], "bfloat16", 9e9),
+            ("triad", shapes["bw_hbm"], "float32", 2e10),
+            ("triad", shapes["bw_vmem"], "float32", 8e10)):
+        store.put(make_record(kernel, shape, dtype, "cpu-host", "torch", {},
+                              1e-3, metric, "x", 1e-3, metric, 1))
+    spec = ops.characterize(device="cpu", tuned=True, smoke=True,
+                            store=store)
+    assert spec.empirical and spec.peak_flops["f32"] == 7e9
+    assert spec.peak_flops["bf16"] == 9e9
+    assert (spec.hbm.bytes_per_s, spec.vmem.bytes_per_s) == (2e10, 8e10)
 
 
 def test_ladder_and_sweep_on_host():

@@ -373,10 +373,12 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     norm.fused_rmsnorm_residual(x, x, torch.ones(9))
     swiglu.fused_swiglu(x, x)
     adamw.fused_adamw(x, x, x.abs(), x, torch.tensor([0.1, 0.05]))
+    norm.fused_layernorm(x, torch.ones(9), torch.zeros(9))
     counts = kernels.launch_counts()
     assert set(counts) == {"triad", "fma_chain", "ert_gemm", "fused_rmsnorm",
-                           "fused_rmsnorm_residual", "fused_swiglu",
-                           "fused_adamw", "flash_attention", "ssd_scan"}
+                           "fused_rmsnorm_residual", "fused_layernorm",
+                           "fused_swiglu", "fused_adamw", "flash_attention",
+                           "ssd_scan"}
     assert all(c == 0 for c in counts.values())
 
 
@@ -398,15 +400,16 @@ def test_wrappers_refuse_meta_tensors():
 
 def test_the_library_interface_is_declared():
     sig = build._SIGNATURES["fused"]
-    assert set(sig) == {"fused_rmsnorm", "fused_swiglu", "fused_adamw",
-                        "fused_error_string"}
+    assert set(sig) == {"fused_rmsnorm", "fused_layernorm", "fused_swiglu",
+                        "fused_adamw", "fused_error_string"}
     assert build.library_path("fused").name.startswith("libfused_")
     src = (build.CSRC / "fused.cu").read_text()
-    for name in ("fused_rmsnorm", "fused_swiglu", "fused_adamw",
-                 "fused_error_string"):
+    for name in ("fused_rmsnorm", "fused_layernorm", "fused_swiglu",
+                 "fused_adamw", "fused_error_string"):
         assert f" {name}(" in src
     for ref in ("norm.py::fused_rmsnorm", "norm.py::fused_rmsnorm_residual",
-                "swiglu.py::fused_swiglu", "adamw.py::fused_adamw"):
+                "norm.py::fused_layernorm", "swiglu.py::fused_swiglu",
+                "adamw.py::fused_adamw"):
         assert ref in src
     from repro_torch.kernels import config as kc
     assert {"fused_norm", "fused_swiglu", "fused_adamw"} <= set(kc.DEFAULTS)
