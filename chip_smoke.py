@@ -11,14 +11,17 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the kernel libraries ``ert``, ``fused``, ``flash`` and ``ssd``
    (one ``nvcc`` each, started together; one line of ``ptxas`` register /
-   spill use each);
+   spill use each, the ``wgmma`` GEMM's own, and any ptxas warning);
 3. holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at odd sizes, checks the
    gradient through each routed op against the plain route, and times
    kernel, plain version and library call beside the datasheet bound
    (the fused, flash and SSD kernels' times replay a CUDA graph of many
    calls, so no host launch overhead is timed; the fused kernels' eager
-   back-to-back time is printed beside it).  ``fused_layernorm`` is held
+   back-to-back time is printed beside it), each row with the launch
+   config it ran.  ``ert_gemm`` is held at 8192³ in bf16, fp16 and
+   bf16→f32, at a shape ragged in M, N and K (1000³) and at the earlier
+   odd shapes.  ``fused_layernorm`` is held
    at its dispatch site's shape (4096, 4096) bf16, odd widths up to
    16384, mixed dtypes and rows whose mean (1e3) is large against their
    spread, with its gradient.  The SSD checks hold the
@@ -29,7 +32,8 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
-      the ladder and the GEMM size sweep, each ceiling checked against
+      the ladder and the GEMM size sweep with ``torch.matmul``'s rate
+      beside each size, each ceiling checked against
       1.05x its datasheet value), then the full-width, full-depth
       glm4-9b fwd phase at ``fusion="off"``, whose loss must be finite
       and whose matmul FLOPs must equal the analytic count;
@@ -44,8 +48,8 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       less the QK^T and PV products, the flash records' FLOPs the
       kernel's model, one launch per layer in each fwd pass), 3 steps
       with a finite loss each, one fwd at ``attn_impl="chunked"`` that
-      must route to the kernel, then ``Session.record`` into
-      ``build/chip_workspace`` and ``Session.report``, which must read
+      must route to the kernel, then ``Session.record`` into the
+      workspace and ``Session.report``, which must read
       the same run back;
    d. mamba2-1.3b at full width (seq 2048, batch 2, AMP O1, ``static``):
       the 48-layer fwd phase at ``ssd_impl="xla"`` and ``"kernel"``
@@ -55,8 +59,7 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       48-layer train step at ``kernel`` (fwd, bwd and opt phases, then 3
       steps with a finite loss each), and the bwd phase of both routes
       at 12 layers;
-   e. tuning and the measured dispatch in ``build/chip_workspace``
-      (:func:`tuning_path`; its tune store is emptied before path c):
+   e. tuning and the measured dispatch (:func:`tuning_path`):
       ``Session.tune()`` of path b's step twice (the fused kernels at
       the points that step launches them at, the ERT kernels through
       the ceiling searches; the second pass all store hits), the tuned
@@ -75,6 +78,10 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernels on the card, their plain versions on the host);
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
+Every step runs in one workspace, ``build/chip_workspace``, emptied at
+the start (``REPRO_WORKSPACE``): until path e tunes, every launch takes
+the default config, whatever a tune store elsewhere holds.
+
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside it, it exits non-zero before printing any result.
 """
@@ -85,6 +92,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -183,6 +191,7 @@ def kernel_checks(dev, sheet) -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/ert.cu",
         "replaces": "src/repro/kernels/ert/bandwidth.py:47",
         "shape": f"f32 n={n} reps={reps} (HBM triad of characterize)",
+        "config": launch_config("triad", a, (n, reps)),
         "max_abs_err": err,
         "ms": ms(lambda: bandwidth.triad(a, b, reps=reps)),
         "plain_ms": ms(lambda: [ref.triad_ref(a, b) for _ in range(reps)]),
@@ -220,6 +229,7 @@ def kernel_checks(dev, sheet) -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/ert.cu",
         "replaces": "src/repro/kernels/ert/flops.py:48",
         "shape": f"f32 n={n} n_iters={it} ilp=8 (f32 ceiling of characterize)",
+        "config": launch_config("fma_chain", x, (n,), n_iters=it, ilp=8),
         "max_abs_err": err,
         "ms": ms(lambda: flops.fma_chain(x, it, 8)),
         "plain_ms": ms(lambda: ref.fma_chain_ref(x, it, 8)),
@@ -231,9 +241,14 @@ def kernel_checks(dev, sheet) -> list[dict]:
     print("ert_gemm: (tolerance: bf16/f16 out 2^-7 of max|ref| — fp32 sums in "
           "another order, then one rounding to the 8-bit mantissa; f32 out "
           "1e-5 of max|ref|)")
+    s = full.gemm_ceiling
     for dtype, out_dtype, (m, n, k) in (
-            (torch.bfloat16, None, (full.gemm_ceiling,) * 3),
+            (torch.bfloat16, None, (s, s, s)),
+            (torch.float16, None, (s, s, s)),
+            (torch.bfloat16, torch.float32, (s, s, s)),
             (torch.bfloat16, None, (512, 512, 512)),
+            # ragged: M, N and K all off the 128 x 256 x 64 tile
+            (torch.bfloat16, None, (1000, 1000, 1000)),
             (torch.bfloat16, torch.float32, (256, 384, 96)),
             (torch.float16, None, (1024, 256, 2048)),
             (torch.float32, None, (2048, 2048, 2048)),
@@ -246,15 +261,19 @@ def kernel_checks(dev, sheet) -> list[dict]:
         rel = 1e-5 if od == torch.float32 else 2.0 ** -7
         check(f"ert_gemm {str(dtype)[6:]}->{str(od)[6:]} {m}x{n}x{k}", out,
               want, rel * want.float().abs().max().item() + 1e-6)
-    s = full.gemm_ceiling
-    a = rand((s, s), torch.bfloat16) - 0.5
-    b = rand((s, s), torch.bfloat16) - 0.5
-    err = max_abs_err(gemm.matmul(a, b), ref.matmul_ref(a, b))[0]
+    # timed on the operands of the ceiling (the rate depends on the data)
+    a, b = ops.gemm_operands(s, s, s, torch.bfloat16, dev)
+    want = ref.matmul_ref(a, b)
+    err = check(f"ert_gemm bfloat16 {s}x{s}x{s}, ceiling operands",
+                gemm.matmul(a, b), want,
+                2.0 ** -7 * want.float().abs().max().item())
+    del want
     rows.append({
         "name": "ert_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ert.cu",
         "replaces": "src/repro/kernels/ert/gemm.py:38",
         "shape": f"bf16 {s}x{s}x{s} (tensor-core ceiling of characterize)",
+        "config": launch_config("ert_gemm", a, (s, s, s)),
         "max_abs_err": err,
         "ms": ms(lambda: gemm.matmul(a, b)),
         "plain_ms": ms(lambda: ref.matmul_ref(a, b)),
@@ -267,28 +286,17 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     """Device milliseconds per call: ``calls`` calls captured in one CUDA
     graph and replayed, so no host launch overhead is timed."""
     import torch
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    out = start.elapsed_time(end) / (replays * calls)
-    del graph
-    torch.cuda.empty_cache()
-    return out
+    from repro_torch.kernels.ert.ops import time_graph
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return 1e3 * time_graph(fn, dev, calls=calls, replays=replays)
+
+
+def launch_config(kernel: str, t, shape, **runtime) -> dict:
+    """The config a wrapper called with no ``config`` launches ``kernel``
+    with at ``shape`` on ``t`` (the bound tune store's winner, else the
+    default), with the run-time arguments the call passes."""
+    from repro_torch.kernels import config as kc
+    return {**kc.for_launch(kernel, None, t, shape).dict, **runtime}
 
 
 def rotating(make, k=4):
@@ -373,6 +381,7 @@ def fused_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/fused/norm.py:55",
         "shape": "bf16 (4096, 4096), f32 scale (ln_attn / ln_f of the main "
                  "path)",
+        "config": launch_config("fused_norm", x, (4096, 4096)),
         "max_abs_err": err,
         "ms": ms(lambda: norm.fused_rmsnorm(nxt()[0], sc)),
         "eager_ms": eager_ms(lambda: norm.fused_rmsnorm(nxt()[0], sc)),
@@ -396,6 +405,7 @@ def fused_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/fused/norm.py:67",
         "shape": "bf16 (4096, 4096) x and h, f32 scale (ln_mlp of the main "
                  "path)",
+        "config": launch_config("fused_norm", x, (4096, 4096)),
         "max_abs_err": err,
         "ms": ms(lambda: norm.fused_rmsnorm_residual(*nxt(), sc)),
         "eager_ms": eager_ms(lambda: norm.fused_rmsnorm_residual(*nxt(),
@@ -427,6 +437,7 @@ def fused_checks(dev, sheet) -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/fused/swiglu.py:32",
         "shape": "bf16 (4096, 13696), silu (every MLP of the main path)",
+        "config": launch_config("fused_swiglu", a, (4096, 13_696)),
         "max_abs_err": err,
         "ms": ms(lambda: swiglu.fused_swiglu(*nxt())),
         "eager_ms": eager_ms(lambda: swiglu.fused_swiglu(*nxt())),
@@ -476,6 +487,7 @@ def fused_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/fused/adamw.py:47",
         "shape": "f32 unembed leaf (4096, 151552), in place as the train "
                  "step runs it",
+        "config": launch_config("fused_adamw", pp, (n,)),
         "max_abs_err": err,
         "ms": ms(lambda: adamw.fused_adamw(gg, m, v, pp, bc, inplace=True,
                                            **hyper), calls=5),
@@ -629,6 +641,7 @@ def layernorm_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/fused/norm.py:81",
         "shape": "bf16 (4096, 4096), f32 scale and bias (the layernorm "
                  "dispatch site of path e)",
+        "config": launch_config("fused_norm", x, (4096, 4096)),
         "max_abs_err": err,
         "ms": graph_ms(lambda: norm.fused_layernorm(nxt(), sc, bi)),
         "plain_ms": graph_ms(lambda: norm.layernorm_ref(nxt(), sc, bi, eps,
@@ -647,6 +660,7 @@ def flash_checks(dev, sheet) -> list[dict]:
     through the routed op against the plain route, and the times."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import config as kc
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -736,6 +750,8 @@ def flash_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
         "shape": "bf16 q (2, 2048, 2, 16, 128), k/v (2, 2048, 2, 128), "
                  "causal (every attention of path c)",
+        # compiled tiles: the wrapper reads no tune store
+        "config": kc.resolve("flash_attention", None).dict,
         "max_abs_err": err,
         "ms": graph_ms(lambda: fk.flash_attention_grouped(*nxt())),
         "plain_ms": graph_ms(lambda: ops._ref_gqa(*nxt(), True), calls=2),
@@ -753,6 +769,7 @@ def ssd_checks(dev, sheet) -> list[dict]:
     layouts), each (b, h, chunk) block held to its own scale; the gradient
     through the routed op against the plain route; and the times."""
     import torch
+    from repro_torch.kernels import config as kc
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan import ops, ref
     from repro_torch.models.ssm import ssd_chunked
@@ -827,6 +844,8 @@ def ssd_checks(dev, sheet) -> list[dict]:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
         "shape": "f32 xh (2, 2048, 64, 64), a (2, 2048, 64), B/C (2, 2048, "
                  "128), chunk 256 (every SSD scan of path d)",
+        # the model passes the chunk; the wrapper reads no tune store
+        "config": kc.resolve("ssd_scan", None, chunk=q).dict,
         "max_abs_err": err,
         "ms": graph_ms(lambda: sk.ssd_scan_model(*nxt(), chunk=q)),
         "plain_ms": graph_ms(lambda: ssd_chunked(*nxt(), q), calls=2),
@@ -1543,6 +1562,14 @@ def main() -> int:
                      "checkout of the repository")
     sys.path.insert(0, src)
     t_start = time.perf_counter()
+    # every path runs in one workspace, emptied here: its tune store starts
+    # empty, so step 3 and paths a-d launch the default configs whatever a
+    # tune.json elsewhere (./.repro-workspace) holds, and path e's first
+    # tune pass times
+    workspace = os.path.join(ROOT, "build", "chip_workspace")
+    shutil.rmtree(workspace, ignore_errors=True)
+    os.makedirs(workspace)
+    os.environ["REPRO_WORKSPACE"] = workspace
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1556,6 +1583,7 @@ def main() -> int:
     from repro_torch.models.transformer import matmul_flops
     from repro_torch.configs.registry import get_config
     from repro_torch.session.session import Session
+    from repro_torch.tune.store import active_store
 
     # 1. the card ----------------------------------------------------------
     gpu = describe_gpu()
@@ -1575,8 +1603,14 @@ def main() -> int:
         print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s")
 
     # 3. each kernel against its plain version -----------------------------
+    store = active_store()
     print("== 3. kernels against their plain versions (datasheet "
-          f"{sheet.name})")
+          f"{sheet.name}; tune store {store.path}, "
+          f"{len(list(store.keys()))} records)")
+    if store.path != os.path.join(workspace, "tune.json") or \
+            list(store.keys()):
+        raise AssertionError(f"step 3 reads the tune store {store.path}, "
+                             "not the emptied workspace's")
     rows = kernel_checks(dev, sheet)
     torch.cuda.empty_cache()
     rows += fused_checks(dev, sheet)
@@ -1590,7 +1624,8 @@ def main() -> int:
                  if "eager_ms" in r else "")
         print(f"  {r['name']:<22} {r['shape']}: kernel {r['ms']:.4f} ms"
               f"{eager} | plain {r['plain_ms']:.4f} ms | library {lib_s} | "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | config "
+              f"{r['config']}")
     torch.cuda.empty_cache()
 
     # 4a. main path: machine characterization and the full-depth fwd -------
@@ -1604,7 +1639,15 @@ def main() -> int:
         print(f"  ladder {k:<32} {v / 1e12:9.2f} TFLOP/s")
     sweep = ops.gemm_size_sweep(device="cuda")
     for size, v in sweep.items():
-        print(f"  gemm sweep {size:>5}^3 bf16 {v / 1e12:9.2f} TFLOP/s")
+        # the yardstick, timed as the sweep times the kernel (a replayed
+        # CUDA graph, the least of 3 samples) on the same operands
+        a, b = ops.gemm_operands(size, size, size, torch.bfloat16, dev)
+        lib = 2.0 * size ** 3 / ops.time_gemm(lambda: torch.matmul(a, b),
+                                              dev)
+        print(f"  gemm sweep {size:>5}^3 bf16 {v / 1e12:9.2f} TFLOP/s | "
+              f"torch.matmul {lib / 1e12:9.2f} TFLOP/s | config "
+              f"{launch_config('ert_gemm', a, (size,) * 3)}")
+        del a, b
     meas = s.machine
     for name, got, peak in (
             ("f32", meas.peak_flops["f32"], sheet.peak_flops["f32"]),
@@ -1668,12 +1711,6 @@ def main() -> int:
     # 4b. main path: the train step at full width, 4 layers -----------------
     counts_b = train_path(cfg, sheet)
     torch.cuda.empty_cache()
-
-    # paths c and e share a workspace whose tune store starts empty: paths
-    # a-d launch the default configs, and path e's first tune pass times
-    workspace = os.path.join(ROOT, "build", "chip_workspace")
-    if os.path.exists(os.path.join(workspace, "tune.json")):
-        os.remove(os.path.join(workspace, "tune.json"))
 
     # 4c. main path: the same step at flash attention, record and report ----
     counts_c = attention_path(cfg, sheet, workspace=workspace)

@@ -31,6 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+#: the library each tuned kernel is compiled into (``csrc/<name>.cu``)
+LIBRARY_OF = {"triad": "ert", "fma_chain": "ert", "ert_gemm": "ert",
+              "flash_attention": "flash", "ssd_scan": "ssd",
+              "fused_norm": "fused", "fused_swiglu": "fused",
+              "fused_adamw": "fused"}
+
 _P = ctypes.c_void_p
 _I, _F, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # every library exports ``<name>_error_string(int)``; :func:`load` binds it
@@ -97,31 +103,78 @@ def nvcc_path() -> str:
     return path
 
 
+def nvcc_flags() -> tuple[str, ...]:
+    """:data:`NVCC_FLAGS`, then the space-separated flags of the
+    ``REPRO_NVCC_FLAGS`` environment variable (a bring-up build's
+    ``-DERT_GEMM_WATCHDOG``, ``tools/ert_gemm_check.py --watchdog``)."""
+    return (*NVCC_FLAGS, *os.environ.get("REPRO_NVCC_FLAGS", "").split())
+
+
+#: name -> digest of its source and flags, taken once a process
+_DIGESTS: dict[str, str] = {}
+
+
+def digest(name: str) -> str:
+    """16 hex digits of the hash of ``csrc/<name>.cu`` and the flags it is
+    built with: the library's identity (its file name; the stamp of a tune
+    record of its kernels)."""
+    if name not in _DIGESTS:
+        src = (CSRC / f"{name}.cu").read_bytes()
+        _DIGESTS[name] = hashlib.sha256(
+            src + " ".join(nvcc_flags()).encode()).hexdigest()[:16]
+    return _DIGESTS[name]
+
+
+def kernel_digest(kernel: str) -> str:
+    """:func:`digest` of the library that compiles ``kernel``; ``""`` for
+    a kernel no library compiles."""
+    return digest(LIBRARY_OF[kernel]) if kernel in LIBRARY_OF else ""
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{digest(name)}.so"
 
 
-def ptxas_summary(report: str) -> str:
+#: per library, a pattern of the entry functions whose own registers and
+#: spills the build report prints beside the summary
+DETAIL = {"ert": "gemm_wgmma"}
+
+
+def ptxas_summary(report: str, detail: str | None = None) -> str:
     """One line from ``-Xptxas -v`` output: entry functions, the range of
-    registers per thread, the most shared memory, and any spills."""
+    registers per thread, the most shared memory, and any spills; then the
+    registers and spills of each entry function whose mangled name holds
+    ``detail``, and every ptxas warning (a serialized ``wgmma``, an ignored
+    ``setmaxnreg``)."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                             report))
     if not regs:
         return "no ptxas report"
-    return (f"{len(regs)} entry functions, {min(regs)}-{max(regs)} "
+    line = (f"{len(regs)} entry functions, {min(regs)}-{max(regs)} "
             f"registers/thread, up to {max(smem or [0])} B static smem, "
             f"{spills} B spilled")
+    if detail:
+        for fn, body in re.findall(r"Compiling entry function '(\S+)'"
+                                   r"(.*?)(?=Compiling entry function|$)",
+                                   report, re.S):
+            used = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            if detail in fn and used:
+                line += (f"\n  {fn}: {used.group(1)} registers/thread, "
+                         f"{spill.group(1) if spill else 0} B spilled")
+    for w in sorted(set(re.findall(r"ptxas[^\n]*warning[^\n]*", report))):
+        line += f"\n  {w.strip()}"
+    return line
 
 
 def build(name: str, verbose: bool = False) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns
     (library path, seconds spent compiling — 0.0 when it was already
-    built).  ``verbose`` adds ``-Xptxas -v`` and prints one summary line
-    of the compiler's register, shared-memory and spill report."""
+    built).  ``verbose`` adds ``-Xptxas -v`` and prints the summary of
+    the compiler's register, shared-memory and spill report
+    (:func:`ptxas_summary`)."""
     lib = library_path(name)
     if lib.exists():
         return lib, 0.0
@@ -129,7 +182,7 @@ def build(name: str, verbose: bool = False) -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [nvcc, *nvcc_flags(), *(["-Xptxas", "-v"] if verbose else []),
            "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -139,7 +192,7 @@ def build(name: str, verbose: bool = False) -> tuple[Path, float]:
         raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
                            f"{proc.stderr[-8000:]}")
     if verbose:
-        print(f"{name}.cu: {ptxas_summary(proc.stderr)}")
+        print(f"{name}.cu: {ptxas_summary(proc.stderr, DETAIL.get(name))}")
     os.replace(tmp, lib)      # atomic: a concurrent build sees all or none
     return lib, seconds
 

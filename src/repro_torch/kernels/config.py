@@ -8,9 +8,9 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
 * ``blocks_per_sm`` — grid size of a grid-stride kernel, per SM (the
   norms: the most row blocks launched per SM; each block then walks
   rows with a stride of the grid);
-* ``block_m`` / ``block_n`` / ``block_k`` — GEMM tiles.  The GEMM's tiles
-  are compile-time constants of ``csrc/ert.cu``: the config states them
-  and the wrapper refuses any other value;
+* ``block_m`` / ``block_n`` / ``block_k`` — the tensor-core GEMM's tile,
+  a compile-time constant of ``csrc/ert.cu``: the config states it and the
+  wrapper refuses any other value;
 * ``block_q`` / ``block_k`` — flash attention's query rows per block and
   keys per shared-memory tile, likewise compiled into ``csrc/flash.cu``
   (fp32 at hd > 128 takes 32-key tiles to fit shared memory);
@@ -27,7 +27,8 @@ over the flat leaf, and masks the ragged edge itself.
 A wrapper called with no ``config`` launches with :func:`for_launch`:
 the tune store's winner for its kernel, shape, dtype and machine
 (:func:`best_config`, the reference's ``fused/ops.py::_lookup``), or
-the default on a miss.
+the default on a miss.  A winner stamped with another build of its
+kernel's library than this one is a miss (``tune/store.py::current``).
 """
 
 from __future__ import annotations
@@ -67,8 +68,11 @@ class KernelConfig:
 DEFAULTS: dict[str, KernelConfig] = {
     "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=8),
     "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
-    "ert_gemm": KernelConfig.make("ert_gemm", block_m=128, block_n=128,
-                                  block_k=32),
+    # the tensor-core kernel's tile: two consumer warpgroups of 64 rows x
+    # 256 columns, K steps of 64 (the fp32 kernel has its own, compiled
+    # alone: ``ert_gemm_tile(3..5)``)
+    "ert_gemm": KernelConfig.make("ert_gemm", block_m=128, block_n=256,
+                                  block_k=64),
     # one row per block: 256 threads move a 4096-wide bf16 row as two
     # 16-byte vectors each; 16 blocks of 256 fill an SM's 2048 threads
     "fused_norm": KernelConfig.make("fused_norm", threads=256,

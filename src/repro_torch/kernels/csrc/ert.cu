@@ -35,21 +35,37 @@
 //   Bound: operations (tensor cores for bf16/fp16) at large sizes.
 //   Design: the TPU kernel carries its accumulator in VMEM scratch across a
 //   sequential K grid axis; Hopper blocks run in parallel with no order, so
-//   each block owns one 128x128 output tile and loops over K itself, its
-//   fp32 accumulators held in registers (wmma 16x16x16 fragments) while
-//   128x32 / 32x128 operand tiles stream through a two-stage cp.async ring
-//   in shared memory.  fp32 inputs run on the CUDA cores in full fp32
-//   (fmaf, no TF32), matching preferred_element_type=f32.  A simple kernel
-//   first: wgmma, TMA and persistent scheduling are later work.
+//   each block owns one 128x256 output tile and loops over K itself.  Only
+//   wgmma reaches Hopper's full tensor-core rate, and it must be fed without
+//   spending the consumers' issue slots on copies, so the block is
+//   warp-specialised: three warpgroups, one block per SM.  Warpgroup 0 is
+//   the producer: one of its threads keeps TMA loads of 128x64 A and 64x256
+//   B tiles (128-byte swizzle) in flight through a 4-stage ring in dynamic
+//   shared memory, each stage guarded by a "full" mbarrier (completed by the
+//   TMA's byte count) and an "empty" one (released by the consumers); it
+//   gives registers up with setmaxnreg.  Warpgroups 1 and 2 are consumers:
+//   each owns 64 rows of the tile in one m64n256k16 fp32 accumulator (128
+//   registers a thread), issues wgmma straight from the shared tiles (A
+//   K-major, B as given: row-major, N contiguous, read with the transpose
+//   bit, so no copy of B is made) and keeps one K step in flight, freeing a
+//   stage only after the wgmma that read it has finished.  TMA fills the
+//   ragged edge with zeros and the epilogue, straight from the accumulator
+//   registers, masks its stores, so any M, N, K with 16-byte rows runs.
+//   The grid walks the tiles in groups of 8 tile rows, column by column in
+//   a group, so the blocks in flight share A and B panels in the L2 (bf16
+//   8192^3 on an H100 80GB HBM3 at 700 W: 2.10 ms row by row, 1.42 ms so;
+//   tools/ert_gemm_check.py --group-m 1 8).
+//   fp32 inputs run on the CUDA cores in full fp32 (fmaf, no TF32),
+//   matching preferred_element_type=f32, with their own 128x128x32 tile.
 // ---------------------------------------------------------------------------
 
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include <type_traits>
 
 namespace {
 
@@ -172,115 +188,259 @@ __global__ void fma_chain_bf16_kernel(const __nv_bfloat16* x, __nv_bfloat16* o,
 
 // ------------------------------------------------------------------ gemm --
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// two neighbouring outputs of one row, cast and stored as one vector
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
+// Tensor-core tile (bf16/fp16 inputs): 128x256 outputs per block, K steps
+// of 64, a ring of 4 stages of 48 KiB.
+constexpr int kTcBM = 128, kTcBN = 256, kTcBK = 64, kTcStages = 4;
+constexpr int kTcThreads = 384;                    // producer + 2 consumers
+// tile rows per group of the grid's walk: at 8192^3 the 132 blocks in
+// flight read 8 A panels and about 17 B panels instead of 4 and all 32.
+// Walking row by row (1) took 2.1018 ms at bf16 8192^3 against 1.4181 ms
+// for 8 (NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kTcGroupM = 8;
+constexpr int kTcConsumerWarps = 8;
+constexpr int kTcABytes = kTcBM * kTcBK * 2;       // 16 KiB
+constexpr int kTcBBox = 64 * kTcBK * 2;            // one 64-wide B box, 8 KiB
+constexpr int kTcStageBytes = kTcABytes + kTcBN / 64 * kTcBBox;  // 48 KiB
+// the ring, 1 KiB to align it to the swizzle's 1024-byte period, and the
+// full and empty barriers
+constexpr int kTcSmemBytes = kTcStages * kTcStageBytes + 1024 + 2 * kTcStages * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of parity `parity` of `bar` has completed.  Built
+// with -DERT_GEMM_WATCHDOG (REPRO_NVCC_FLAGS, kernels/build.py), a wait that spins for about 2^28 polls traps, so
+// a broken pipeline fails its launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+#ifdef ERT_GEMM_WATCHDOG
+  uint32_t polls = 0;
+#endif
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+#ifdef ERT_GEMM_WATCHDOG
+    if (++polls == (1u << 28)) __trap();
+#endif
+  } while (!done);
+}
+
+// One TMA copy of a 2-D box at (c0, c1) (innermost coordinate first) into
+// shared memory, completing `bar`'s transaction count.  Out-of-bounds
+// elements arrive as zeros and still count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of the accumulator across a wait:
+// wgmma writes it asynchronously
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <typename OutT> __device__ __forceinline__ OutT to_out(float x);
-template <> __device__ __forceinline__ float to_out<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half to_out<__half>(float x) {
-  return __float2half_rn(x);
+#define ERT_ACC8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ERT_ACC32(i) ERT_ACC8(i), ERT_ACC8(i + 8), ERT_ACC8(i + 16), ERT_ACC8(i + 24)
+#define ERT_ACC_REGS                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "  \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "    \
+  "%123, %124, %125, %126, %127}"
+// d += A(64x16, K-major) @ B(16x256, N-major): scale-d 1, no negation,
+// A not transposed, B transposed (its N is contiguous)
+#define ERT_WGMMA(TY)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "    \
+               ERT_ACC_REGS ", %128, %129, p, 1, 1, 0, 1;\n}\n"                \
+               : ERT_ACC32(0), ERT_ACC32(32), ERT_ACC32(64), ERT_ACC32(96)    \
+               : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    ERT_WGMMA("f16");
+  } else {
+    ERT_WGMMA("bf16");
+  }
 }
 
-// Tensor-core GEMM: 8 warps as 2 (M) x 4 (N), each warp a 64x32 sub-tile
-// of 4x2 wmma fragments.  Rows of the shared tiles are padded by 8
-// elements (16 bytes) against bank conflicts; every fragment pointer stays
-// 32-byte aligned as wmma requires.
+// The tensor-core GEMM.  Shared memory of one stage: A as 128 rows of 64
+// K-values (128 bytes a row, K-major), then B as 4 boxes of 64 K-rows of 64
+// N-values (N-major); each 8-row, 1024-byte group is swizzled by TMA.
+//   A descriptor: 8-row groups 1024 B apart (stride offset); the K step of
+//   16 values moves the start 32 B inside the swizzled row.
+//   B descriptor: 8-K-row groups 1024 B apart (stride offset), the 64-wide
+//   N boxes 8 KiB apart (leading offset); a K step of 16 rows moves the
+//   start 2 KiB.
 template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-gemm_wmma_kernel(const T* A, const T* B, OutT* C, int M, int N, int K) {
-  constexpr int kAP = kBK + 8, kBP = kBN + 8;
-  __shared__ __align__(128) T As[2][kBM * kAP];
-  __shared__ __align__(128) T Bs[2][kBK * kBP];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
+__global__ void __launch_bounds__(kTcThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, OutT* C, int M,
+                  int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTcStages * kTcStageBytes);
+  uint64_t* empty = full + kTcStages;
+  const int wg = threadIdx.x / 128;
+  const int nk = (K + kTcBK - 1) / kTcBK;
+  // the grid walks the tiles in groups of kTcGroupM tile rows, column by
+  // column inside a group, so the blocks in flight share A and B panels
+  const int tiles_m = (M + kTcBM - 1) / kTcBM, tiles_n = (N + kTcBN - 1) / kTcBN;
+  const int per_group = kTcGroupM * tiles_n;
+  const int first_m = blockIdx.x / per_group * kTcGroupM;
+  const int gm = min(tiles_m - first_m, kTcGroupM);
+  const int m0 = (first_m + blockIdx.x % per_group % gm) * kTcBM;
+  const int n0 = (blockIdx.x % per_group / gm) * kTcBN;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  auto load_tiles = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;              // 0..511
-      const int ar = v / 4, ac = (v % 4) * 8;        // A: 128 rows x 4 chunks
-      cp_async16(&As[stage][ar * kAP + ac], A + (size_t)(bm + ar) * K + k0 + ac);
-      const int br = v / 16, bc = (v % 16) * 8;      // B: 32 rows x 16 chunks
-      cp_async16(&Bs[stage][br * kBP + bc], B + (size_t)(k0 + br) * N + bn + bc);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTcConsumerWarps);
     }
-    cp_async_commit();
-  };
-
-  const int nk = K / kBK;
-  load_tiles(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tiles(cur ^ 1, (kt + 1) * kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], &As[cur][(wm * 64 + i * 16) * kAP + kk], kAP);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[cur][kk * kBP + wn * 32 + j * 16], kBP);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // epilogue: each warp stages one 16x16 fp32 fragment at a time in the
-  // (now idle) A tiles, then writes it cast to OutT, 8 elements a lane
-  float* stage = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
+  if (wg == 0) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      // B boxes wholly past N are not loaded: they feed masked columns only
+      const int nbox = min(kTcBN / 64, (N - n0 + 63) / 64);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTcStages;
+        // round r of a stage waits for the consumers' r-th release
+        if (kt >= kTcStages) mbar_wait(&empty[s], ((kt / kTcStages) + 1) & 1);
+        uint8_t* sa = ring + s * kTcStageBytes;
+        mbar_expect_tx(&full[s], kTcABytes + nbox * kTcBBox);
+        tma_load_2d(sa, &map_a, &full[s], kt * kTcBK, m0);
+        for (int q = 0; q < nbox; ++q)
+          tma_load_2d(sa + kTcABytes + q * kTcBBox, &map_b, &full[s], n0 + 64 * q,
+                      kt * kTcBK);
+      }
+    }
+  } else {
+    // consumer c owns rows [64c, 64c + 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    float d[128];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+    fence_acc(d);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kTcStages;
+      mbar_wait(&full[s], (kt / kTcStages) & 1);
+      const uint32_t sa = smem_u32(ring + s * kTcStageBytes) + c * 64 * 128;
+      const uint64_t da = sw128_desc(sa, 16, 1024);
+      const uint64_t db = sw128_desc(sa - c * 64 * 128 + kTcABytes, kTcBBox, 1024);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane / 2, c0 = (lane % 2) * 8;
-      OutT* dst = C + (size_t)(bm + wm * 64 + i * 16 + r) * N + bn + wn * 32 + j * 16 + c0;
+      for (int kk = 0; kk < kTcBK / 16; ++kk)
+        wgmma_m64n256k16<T>(d, da + 2 * kk, db + 128 * kk);
+      wgmma_commit();
+      // the previous step's wgmma has finished: its stage may be refilled
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kTcStages]);
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+
+    // epilogue: accumulator register 4j + e holds (row + 8 for e >= 2,
+    // col0 + 8j + 1 for odd e)
+    const int row = m0 + 64 * c + 16 * warp + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = to_out<OutT>(stage[r * 16 + c0 + e]);
-      __syncwarp();
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j;
+      if (col < N) {  // N is even, so col + 1 < N too
+        if (row < M) store2(C + (size_t)row * N + col, d[4 * j], d[4 * j + 1]);
+        if (row + 8 < M)
+          store2(C + (size_t)(row + 8) * N + col, d[4 * j + 2], d[4 * j + 3]);
+      }
     }
   }
 }
+
+#undef ERT_WGMMA
+#undef ERT_ACC_REGS
+#undef ERT_ACC32
+#undef ERT_ACC8
+
+// fp32 tile (CUDA cores): 128x128 outputs per block, K steps of 32.
+constexpr int kF32BM = 128, kF32BN = 128, kF32BK = 32, kF32Threads = 256;
 
 // CUDA-core fp32 GEMM: each thread owns an 8x8 register tile (two 4-wide
 // row groups x two 4-wide column groups, 64 apart, so the float4 reads of
 // the shared tiles are conflict-free).  A is stored transposed in shared
 // memory so a thread's 8 A values along M are contiguous.
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
 gemm_f32_kernel(const float* A, const float* B, OutT* C, int M, int N, int K) {
+  constexpr int kBM = kF32BM, kBN = kF32BN, kBK = kF32BK, kThreads = kF32Threads;
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -326,31 +486,98 @@ gemm_f32_kernel(const float* A, const float* B, OutT* C, int M, int N, int K) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = bn + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      C[(size_t)row * N + col] = to_out<OutT>(acc[i][j]);
+      C[(size_t)row * N + col] = from_float<OutT>(acc[i][j]);
     }
   }
 }
 
+// cuTensorMapEncodeTiled is a driver-API function: it is fetched through the
+// runtime's driver entry point, so the library links nothing beyond cudart.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major (outer, inner) 16-bit matrix read in boxes
+// of (box_outer, box_inner), 128-byte swizzle, zeros out of bounds.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr,
+               uint64_t inner, uint64_t outer, uint32_t box_inner,
+               uint32_t box_outer) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, typename OutT>
+cudaError_t launch_wgmma_out(const CUtensorMap& ma, const CUtensorMap& mb,
+                             void* C, int M, int N, int K, cudaStream_t st) {
+  // above 48 KiB of dynamic shared memory a kernel must opt in, once per
+  // instantiation (a refused launch shows in cudaGetLastError below)
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_wgmma_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTcSmemBytes);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const dim3 grid(((N + kTcBN - 1) / kTcBN) * ((M + kTcBM - 1) / kTcBM));
+  gemm_wgmma_kernel<T, OutT><<<grid, kTcThreads, kTcSmemBytes, st>>>(
+      ma, mb, static_cast<OutT*>(C), M, N, K);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_wmma(const void* A, const void* B, void* C, int M, int N,
-                        int K, int out_dtype, dim3 grid, cudaStream_t st) {
+cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N,
+                         int K, int out_dtype, cudaStream_t st) {
+  // TMA's rules: 16-byte aligned bases and rows (K and N multiples of 8)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 ||
+      reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(B) % 16)
+    return cudaErrorInvalidValue;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap ma, mb;
+  if (!encode_2d(&ma, dt, A, K, M, kTcBK, kTcBM) ||
+      !encode_2d(&mb, dt, B, N, K, 64, kTcBK))
+    return cudaErrorNotSupported;
   switch (out_dtype) {
     case kF32:
-      gemm_wmma_kernel<T, float><<<grid, kThreads, 0, st>>>(
-          (const T*)A, (const T*)B, (float*)C, M, N, K);
-      break;
+      return launch_wgmma_out<T, float>(ma, mb, C, M, N, K, st);
     case kBF16:
-      gemm_wmma_kernel<T, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          (const T*)A, (const T*)B, (__nv_bfloat16*)C, M, N, K);
-      break;
+      return launch_wgmma_out<T, __nv_bfloat16>(ma, mb, C, M, N, K, st);
     case kF16:
-      gemm_wmma_kernel<T, __half><<<grid, kThreads, 0, st>>>(
-          (const T*)A, (const T*)B, (__half*)C, M, N, K);
-      break;
+      return launch_wgmma_out<T, __half>(ma, mb, C, M, N, K, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -409,39 +636,43 @@ int ert_fma_chain(const void* x, void* o, long long n, int n_iters, int ilp,
 int ert_gemm(const void* A, const void* B, void* C, int M, int N, int K,
              int in_dtype, int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M % kBM || N % kBN || K % kBK) return cudaErrorInvalidValue;
-  const dim3 grid(N / kBN, M / kBM);
   switch (in_dtype) {
     case kBF16:
-      return launch_wmma<__nv_bfloat16>(A, B, C, M, N, K, out_dtype, grid, st);
+      return launch_wgmma<__nv_bfloat16>(A, B, C, M, N, K, out_dtype, st);
     case kF16:
-      return launch_wmma<__half>(A, B, C, M, N, K, out_dtype, grid, st);
-    case kF32:
+      return launch_wgmma<__half>(A, B, C, M, N, K, out_dtype, st);
+    case kF32: {
+      if (M <= 0 || M % kF32BM || N % kF32BN || K % kF32BK)
+        return cudaErrorInvalidValue;
+      const dim3 grid(N / kF32BN, M / kF32BM);
       switch (out_dtype) {
         case kF32:
-          gemm_f32_kernel<float><<<grid, kThreads, 0, st>>>(
+          gemm_f32_kernel<float><<<grid, kF32Threads, 0, st>>>(
               (const float*)A, (const float*)B, (float*)C, M, N, K);
           break;
         case kBF16:
-          gemm_f32_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          gemm_f32_kernel<__nv_bfloat16><<<grid, kF32Threads, 0, st>>>(
               (const float*)A, (const float*)B, (__nv_bfloat16*)C, M, N, K);
           break;
         case kF16:
-          gemm_f32_kernel<__half><<<grid, kThreads, 0, st>>>(
+          gemm_f32_kernel<__half><<<grid, kF32Threads, 0, st>>>(
               (const float*)A, (const float*)B, (__half*)C, M, N, K);
           break;
         default:
           return cudaErrorInvalidValue;
       }
       return cudaGetLastError();
+    }
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// compiled GEMM tile: 0 -> block_m, 1 -> block_n, 2 -> block_k
+// compiled GEMM tiles: 0, 1, 2 -> block_m, block_n, block_k of the
+// tensor-core kernel (bf16/fp16 inputs); 3, 4, 5 -> those of the fp32 one
 int ert_gemm_tile(int which) {
-  return which == 0 ? kBM : which == 1 ? kBN : kBK;
+  const int tiles[6] = {kTcBM, kTcBN, kTcBK, kF32BM, kF32BN, kF32BK};
+  return which >= 0 && which < 6 ? tiles[which] : 0;
 }
 
 const char* ert_error_string(int err) {

@@ -3,8 +3,9 @@
 
 The backend follows the device: on ``"cuda"`` every measurement times the
 hand-written Hopper kernels (CUDA events around a run of launches, after
-warmup); on ``"cpu"`` it times the plain PyTorch versions on the host,
-which exercises the same measure → characterize → plot loop.
+warmup; the GEMM's launches replayed from a CUDA graph); on ``"cpu"`` it
+times the plain PyTorch versions on the host, which exercises the same
+measure → characterize → plot loop.
 
 Sizes are the port's own (:data:`FULL`).  The reference's sizes measure
 launch latency on an H100, not ceilings (its cache-resident triad moves
@@ -95,6 +96,45 @@ def time_launches(fn: Callable[[], object], device: torch.device, *,
     return run(k) / k
 
 
+def time_graph(fn: Callable[[], object], device: torch.device, *,
+               calls: int | None = None, replays: int = 5,
+               samples: int = 1) -> float:
+    """Device seconds per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed ``replays`` times between two CUDA events, so
+    the host's cost of a call (the wrapper, the launch) is not timed; the
+    least of ``samples`` such means.  ``calls`` defaults to enough for the
+    replays to last about 10 ms (2 to 100).  The graph's outputs stay
+    allocated until it is freed, one set per captured call."""
+    fn()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if calls is None:
+        first = time_launches(fn, device, iters=1, warmup=0, min_total_s=0)
+        calls = max(2, min(100, math.ceil(0.01 / replays
+                                          / max(first, 1e-9))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = math.inf
+    for _ in range(max(samples, 1)):
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out = min(out, start.elapsed_time(end) / 1e3 / (replays * calls))
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
 def _rand(shape, dtype: torch.dtype, device: torch.device,
           seed: int = 0) -> torch.Tensor:
     g = torch.Generator(device=device).manual_seed(seed)
@@ -130,14 +170,35 @@ def measure_bandwidth(dtype: torch.dtype = torch.float32,
     return bandwidth.triad_bytes(n, a.element_size()) * reps / t
 
 
+def time_gemm(fn: Callable[[], object], device: torch.device) -> float:
+    """Seconds per call of a GEMM ``fn``, as every GEMM ceiling is timed
+    (:func:`measure_gemm`, and the ``ert_gemm`` search that the tuned
+    ceiling reads): on the card the least of 3 samples of a replayed CUDA
+    graph (:func:`time_graph`; at the sweep's small sizes a call's host
+    cost is many times the kernel's), on the host :func:`time_launches`."""
+    if device.type == "cuda":
+        return time_graph(fn, device, samples=3)
+    return time_launches(fn, device)
+
+
+def gemm_operands(m: int, n: int, k: int, dtype: torch.dtype,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (M, K) and (K, N) operands every GEMM ceiling is measured on,
+    uniform in [0, 1) from fixed seeds.  The tensor cores' rate under a
+    card's power limit may depend on the data
+    (``tools/ert_gemm_check.py --data``), so the untuned and the tuned
+    ceilings share them."""
+    return _rand((m, k), dtype, device, 0), _rand((k, n), dtype, device, 1)
+
+
 def measure_gemm(dtype: torch.dtype = torch.bfloat16, size: int = 1024,
                  device: str | torch.device = "cuda",
                  config: KernelConfig | None = None) -> float:
-    """GEMM FLOP/s at one square size (paper Fig 2 point)."""
+    """GEMM FLOP/s at one square size (paper Fig 2 point), on
+    :func:`gemm_operands`, timed by :func:`time_gemm`."""
     dev = resolve_device(device)
-    a = _rand((size, size), dtype, dev, 0)
-    b = _rand((size, size), dtype, dev, 1)
-    t = time_launches(lambda: gemm.matmul(a, b, config=config), dev)
+    a, b = gemm_operands(size, size, size, dtype, dev)
+    t = time_gemm(lambda: gemm.matmul(a, b, config=config), dev)
     return gemm.gemm_flops(size, size, size) / t
 
 

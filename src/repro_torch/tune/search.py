@@ -5,12 +5,15 @@ Timing is the ERT driver's (``kernels/ert/ops.py::time_launches``: CUDA
 events around back-to-back calls on the card, at least 10 ms of them, the
 host clock on the host); a candidate's wall is the *minimum* over
 ``iters`` such samples after ``warmup`` calls (noise only ever adds
-time).  The stored record keeps the default config's numbers beside the
+time).  A candidate that carries its own timer is timed with it: the GEMM
+ceiling's, so that the tuned ceiling is timed as the untuned one
+(``ops.time_gemm``).  The stored record keeps the default config's numbers beside the
 winner's, so every consumer can report before / after.
 
 A point already in the :class:`~repro_torch.tune.store.TuneStore` returns
 the stored winner without timing anything (``cached=True``) unless
-``force=True``.
+``force=True`` or the winner was measured with another build of its
+kernel's library (``store.current``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from repro_torch.tune import space as sp
 from repro_torch.tune.store import (TuneRecord, TuneStore, _as_store,
-                                    make_record, shape_key, tune_key)
+                                    current, make_record, shape_key,
+                                    tune_key)
 
 
 @dataclasses.dataclass
@@ -64,10 +68,15 @@ def time_min(fn: Callable[[], object], device: torch.device,
 
 
 def _time_candidate(cand: sp.Candidate, iters: int, warmup: int) -> float:
-    """Default timer: build the candidate's operands, then :func:`time_min`."""
+    """Default timer: build the candidate's operands, then time the call
+    with the candidate's own timer where it has one (the GEMM ceiling's,
+    which the untuned ceiling is measured with), else :func:`time_min`."""
     from repro_torch.core.profiler import args_device
     fn, args = cand.build()
-    return time_min(lambda: fn(*args), args_device(args), iters, warmup)
+    dev = args_device(args)
+    if cand.timer is not None:
+        return cand.timer(lambda: fn(*args), dev)
+    return time_min(lambda: fn(*args), dev, iters, warmup)
 
 
 def search(kernel: str, shape: Sequence[int] | None = None,
@@ -89,7 +98,8 @@ def search(kernel: str, shape: Sequence[int] | None = None,
     key = tune_key(kernel, shape, dtype, machine, backend)
     if not force:
         hit = store.get(key)
-        if hit is not None:
+        # a winner of another build of the kernel is timed again
+        if hit is not None and current(hit.to_dict()):
             return TuneOutcome(hit, [], cached=True)
 
     timer = timer or _time_candidate

@@ -77,6 +77,9 @@ class Candidate:
     build: Callable[[], tuple[Callable, tuple]]    # () -> (fn, args)
     work: float                                    # per-call work units
     metric_name: str
+    #: (call, device) -> seconds per call, in place of the search's own
+    #: timing (``search.time_min``); None for that
+    timer: Callable[[Callable[[], object], torch.device], float] | None = None
 
     @property
     def dict(self) -> dict[str, Any]:
@@ -87,8 +90,9 @@ class Candidate:
 
 
 def _cand(params: dict[str, Any], build, work: float,
-          metric_name: str) -> Candidate:
-    return Candidate(tuple(sorted(params.items())), build, work, metric_name)
+          metric_name: str, timer=None) -> Candidate:
+    return Candidate(tuple(sorted(params.items())), build, work, metric_name,
+                     timer)
 
 
 def default_shape(kernel: str, smoke: bool = False) -> tuple[int, ...]:
@@ -232,19 +236,20 @@ def _fma_cuda(shape, dtype, smoke):
 
 
 def _gemm_cuda(shape, dtype, smoke):
-    """The compiled tile alone (``csrc/ert.cu``'s constants)."""
-    from repro_torch.kernels.ert import gemm
+    """The compiled tile alone (``csrc/ert.cu``'s constants), on the
+    operands and with the timer the untuned ceiling is measured with
+    (``ops.gemm_operands``, ``ops.time_gemm``)."""
+    from repro_torch.kernels.ert import gemm, ops
     m, n, k = shape
     dt = torch_dtype(dtype)
     cfg = default_config("ert_gemm")
 
     def build():
-        dev = _device("cuda")
-        a = _randn((m, k), dt, dev, 0, 0.5)
-        b = _randn((k, n), dt, dev, 1, 0.5)
+        a, b = ops.gemm_operands(m, n, k, dt, _device("cuda"))
         return (lambda a_, b_: gemm.matmul(a_, b_, config=cfg)), (a, b)
 
-    return [_cand(cfg.dict, build, gemm.gemm_flops(m, n, k), "flops_per_s")]
+    return [_cand(cfg.dict, build, gemm.gemm_flops(m, n, k), "flops_per_s",
+                  ops.time_gemm)]
 
 
 def _flash_cuda(shape, dtype, smoke):

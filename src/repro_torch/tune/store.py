@@ -33,6 +33,7 @@ from typing import Any, Iterable, Mapping, Sequence
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.config import KernelConfig, default_config
 
 SCHEMA_VERSION = 1
@@ -78,6 +79,9 @@ class TuneRecord:
     timestamp: float
     git_sha: str
     host: dict[str, str]
+    #: ``build.digest`` of the library that ran the kernel ("" for the
+    #: ``torch`` backend): a record of another build is stale
+    library: str = ""
 
     @property
     def speedup(self) -> float:
@@ -236,7 +240,24 @@ def make_record(kernel: str, shape: Sequence[int], dtype: str, machine: str,
         wall_s=wall_s, metric=metric, metric_name=metric_name,
         default_wall_s=default_wall_s, default_metric=default_metric,
         n_candidates=n_candidates, timestamp=time.time(),
-        git_sha=git_sha(), host=host_fingerprint())
+        git_sha=git_sha(), host=host_fingerprint(),
+        library=library_stamp(kernel, backend))
+
+
+def library_stamp(kernel: str, backend: str) -> str:
+    """The build a record of ``kernel`` on ``backend`` is measured with:
+    the digest of the kernel's library on ``cuda``, ``""`` on the host."""
+    return build.kernel_digest(kernel) if backend == "cuda" else ""
+
+
+def current(rec: Mapping[str, Any]) -> bool:
+    """Whether a stored record (its dict) was measured with this build of
+    its kernel's library.  A record of another build (an edited kernel,
+    other compiled tiles, a store written before records were stamped) is
+    a miss: the launch lookups take the default and a search times
+    again."""
+    return rec.get("library", "") == library_stamp(
+        rec.get("kernel", "?"), rec.get("backend", "cuda"))
 
 
 # --------------------------------------------------------------------------
@@ -357,10 +378,11 @@ def config_source(kernel: str, shape: Sequence[int], dtype: str = "float32",
                   machine: str = "cpu-host", backend: str = "cuda",
                   store: TuneStore | str | None = None
                   ) -> tuple[str, KernelConfig]:
-    """("tuned" | "default", config) for one kernel instance."""
+    """("tuned" | "default", config) for one kernel instance; a stored
+    winner of another build (:func:`current`) is a miss."""
     d = lookup(store, "records",
                tune_key(kernel, shape, dtype, machine, backend))
-    if d is not None:
+    if d is not None and current(d):
         return "tuned", TuneRecord.from_dict(d).config()
     return "default", default_config(kernel)
 

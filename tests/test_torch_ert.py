@@ -80,6 +80,61 @@ def test_matmul_plain_matches_reference(dtype, size):
            atol=1e-4 * np.sqrt(size))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,n,k", [(1000, 1000, 1000), (200, 264, 72),
+                                   (130, 8, 520)])
+def test_matmul_plain_matches_reference_ragged(dtype, m, n, k):
+    # shapes off the kernel's 128 x 256 x 64 tile, as the CUDA kernel takes
+    rng = np.random.default_rng(m * n + k)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    (ta, ja), (tb, jb) = _pair(a, dtype), _pair(b, dtype)
+    rtol = DTYPES[dtype][2]
+    got = ref.matmul_ref(ta, tb)
+    assert got.shape == (m, n) and got.dtype == ta.dtype
+    _close(got, r_ref.matmul_ref(ja, jb), rtol, atol=rtol * np.sqrt(k))
+    _close(ref.matmul_ref(ta, tb, torch.float32),
+           r_ref.matmul_ref(ja, jb, jnp.float32), 1e-5,
+           atol=1e-4 * np.sqrt(k))
+
+
+#: the fp32 kernel's compiled tile (``csrc/ert.cu``, ``ert_gemm_tile(3..5)``)
+F32_TILE = (128, 128, 32)
+
+
+@pytest.mark.parametrize("m,n,k,dtype", [
+    (8192, 8192, 8192, torch.bfloat16), (1000, 1000, 1000, torch.bfloat16),
+    (256, 384, 96, torch.float16), (1, 8, 8, torch.bfloat16),
+    (2048, 2048, 2048, torch.float32), (128, 256, 64, torch.float32)])
+def test_gemm_launch_rules_accept(m, n, k, dtype):
+    gemm.check_launch(m, n, k, dtype, F32_TILE,
+                      (0x7F0000000000, 0x7F0000100000))
+
+
+@pytest.mark.parametrize("m,n,k,dtype,match", [
+    (1000, 1004, 1000, torch.bfloat16, "16-byte rows"),     # N % 8
+    (1000, 1000, 1001, torch.float16, "16-byte rows"),      # K % 8
+    (0, 8, 8, torch.bfloat16, "non-empty"),
+    (1000, 1000, 1000, torch.float32, "fp32 needs"),        # off its tile
+    (128, 256, 48, torch.float32, "fp32 needs")])
+def test_gemm_launch_rules_refuse(m, n, k, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        gemm.check_launch(m, n, k, dtype, F32_TILE)
+
+
+def test_gemm_launch_rules_refuse_a_misaligned_view():
+    # a contiguous view one element into its storage: rows of 16 bytes,
+    # but a base TMA cannot read
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)
+    a, b = flat[1:].view(64, 64), flat[:-1].view(64, 64)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="aligned"):
+        gemm.check_launch(64, 64, 64, a.dtype, F32_TILE,
+                          (a.data_ptr(), b.data_ptr()))
+    gemm.check_launch(64, 64, 64, b.dtype, F32_TILE,
+                      (b.data_ptr(), b.data_ptr()))
+
+
 @pytest.mark.parametrize("n,itemsize,iters,ilp,m,k", [
     (1000, 4, 64, 4, 128, 256), (1 << 26, 2, 1024, 8, 8192, 8192),
     (16385, 4, 1, 1, 512, 96)])
@@ -132,7 +187,7 @@ def test_kernel_names_line_up_with_reference():
     assert p_config.KERNELS == r_config.KERNELS
     assert set(p_config.DEFAULTS) == set(r_config.KERNELS)
     cfg = p_config.resolve("ert_gemm", None, block_m=64)
-    assert cfg.get("block_m") == 64 and cfg.get("block_k") == 32
+    assert cfg.get("block_m") == 64 and cfg.get("block_k") == 64
     assert p_config.resolve("ert_gemm", cfg) == cfg
     assert p_config.resolve("ssd_scan", None).get("chunk") == \
         r_config.DEFAULTS["ssd_scan"].get("chunk") == 128

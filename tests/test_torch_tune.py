@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro.tune import store as r_store
+from repro_torch.kernels import build
 from repro_torch.kernels import config as kc
 from repro_torch.kernels.ert import ops
 from repro_torch.tune import space as sp
@@ -100,6 +101,9 @@ def test_every_space_contains_the_default(backend, smoke):
 
 
 def test_compile_time_tiles_hold_the_compiled_config_alone():
+    # the wgmma GEMM's tile: two consumer warpgroups of 64 x 256, K step 64
+    assert kc.DEFAULTS["ert_gemm"].dict == {"block_m": 128, "block_n": 256,
+                                            "block_k": 64}
     for kernel in ("ert_gemm", "flash_attention"):
         shape = sp.default_shape(kernel)
         (cand,) = sp.candidates(kernel, shape, "bfloat16", "cuda")
@@ -109,6 +113,88 @@ def test_compile_time_tiles_hold_the_compiled_config_alone():
     assert chunks == {64, 128, 256}
     with pytest.raises(KeyError, match="no search space"):
         sp.candidates("fused_norm", (8, 8), backend="torch")
+
+
+#: the tile ert_gemm was compiled for before its wgmma kernel
+OLD_GEMM_TILE = {"block_m": 128, "block_n": 128, "block_k": 32}
+#: the digest of a build that is not this one
+OTHER_BUILD = "0123456789abcdef"
+
+
+def _stale_winner_is_a_miss(tmp_path, params, library):
+    """A workspace tuned against another build of ert.cu: the launch
+    lookup takes the default and the search times again."""
+    path = str(tmp_path / "tune.json")
+    shape, default = (8192, 8192, 8192), kc.DEFAULTS["ert_gemm"]
+    stale = make_record("ert_gemm", shape, "bfloat16", "h100-sxm", "cuda",
+                        params or default.dict, wall_s=5.7e-3, metric=1.9e14,
+                        metric_name="flops_per_s", default_wall_s=5.7e-3,
+                        default_metric=1.9e14, n_candidates=1)
+    raw = stale.to_dict()
+    if library is None:
+        del raw["library"]
+    else:
+        raw["library"] = library
+    TuneStore(path).put_many({stale.key: raw})
+    assert config_source("ert_gemm", shape, "bfloat16", "h100-sxm",
+                         store=path) == ("default", default)
+    assert best_config("ert_gemm", shape, "bfloat16", "h100-sxm",
+                       store=path) == default
+    a = torch.empty(shape[:2], dtype=torch.bfloat16, device="meta")
+    with ts.bind(store=path, machine="h100-sxm"):
+        assert kc.for_launch("ert_gemm", None, a, shape) == default
+    timer = fake_timer()
+    out = search("ert_gemm", shape, "bfloat16", machine="h100-sxm",
+                 store=path, timer=timer)
+    assert not out.cached and timer.calls == [default.dict]
+    fresh = TuneStore(path).get(stale.key)
+    assert fresh.params == default.dict
+    assert fresh.library == build.digest("ert") != library
+    again = search("ert_gemm", shape, "bfloat16", machine="h100-sxm",
+                   store=path, timer=timer)
+    assert again.cached and len(timer.calls) == 1
+    assert config_source("ert_gemm", shape, "bfloat16", "h100-sxm",
+                         store=path)[0] == "tuned"
+
+
+def test_stale_compiled_tile_winner_is_a_miss(tmp_path):
+    # the 128 x 128 x 32 winner of the wmma kernel's build
+    _stale_winner_is_a_miss(tmp_path, OLD_GEMM_TILE, OTHER_BUILD)
+
+
+@pytest.mark.parametrize("params,library", [
+    (None, OTHER_BUILD),               # this tile, another kernel body
+    (OLD_GEMM_TILE, None),             # a store written before the stamp
+], ids=["same-tile-other-build", "unstamped"])
+def test_stale_build_winner_is_a_miss(tmp_path, params, library):
+    _stale_winner_is_a_miss(tmp_path, params, library)
+
+
+def test_records_carry_their_kernels_library_digest(tmp_path, monkeypatch):
+    for kernel in sp.CUDA_KERNELS:
+        rec = _rec(kernel, params={})
+        assert rec.library == build.digest(build.LIBRARY_OF[kernel])
+        assert ts.current(rec.to_dict())
+    host = _rec("ert_gemm", params={}, backend="torch")
+    assert host.library == "" and ts.current(host.to_dict())
+    assert not ts.current({**host.to_dict(), "library": OTHER_BUILD})
+    # the digest follows the source and the flags
+    before = build.digest("ert")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "ert.cu").write_bytes(
+        (build.CSRC / "ert.cu").read_bytes() + b"// edited\n")
+    monkeypatch.setattr(build, "_DIGESTS", {})
+    assert build.digest("ert") == before
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "_DIGESTS", {})
+    edited = build.digest("ert")
+    assert edited != before
+    assert build.library_path("ert").name == f"libert_{edited}.so"
+    monkeypatch.setenv("REPRO_NVCC_FLAGS", "-DERT_GEMM_WATCHDOG")
+    monkeypatch.setattr(build, "_DIGESTS", {})
+    assert build.digest("ert") not in (before, edited)
+    assert build.nvcc_flags()[-1] == "-DERT_GEMM_WATCHDOG"
 
 
 def test_multi_pass_triad_space_holds_resident_grids_only():
