@@ -670,9 +670,10 @@ def flash_checks(dev, sheet) -> list[dict]:
     def randn(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def gqa(b, s, kv, grp, hd, dt):
-        return (randn((b, s, kv, grp, hd), dt), randn((b, s, kv, hd), dt),
-                randn((b, s, kv, hd), dt))
+    def gqa(b, s, kv, grp, hd, dt, sk=None):
+        sk = sk or s
+        return (randn((b, s, kv, grp, hd), dt), randn((b, sk, kv, hd), dt),
+                randn((b, sk, kv, hd), dt))
 
     print("flash_attention: (tolerance, elementwise, "
           "ref.kernel_tolerance: fp32 1e-5 of max|ref| — the same fp32 math "
@@ -682,26 +683,38 @@ def flash_checks(dev, sheet) -> list[dict]:
           "to the input dtype for the tensor-core PV product; per row, so "
           "a late query row's small output is held to its own scale)")
     main = (2, 2048, 2, 16, 128)
-    for shape, dt, causal in ((main, bf16, True),
-                              ((1, 1000, 1, 1, 64), f32, True),
-                              ((1, 1000, 1, 1, 64), bf16, True),
-                              ((1, 1000, 2, 2, 128), f16, True),
-                              ((2, 1000, 2, 3, 64), f32, False),
-                              ((4, 32, 1, 4, 16), bf16, True),
-                              ((4, 32, 1, 4, 16), f32, True),
-                              ((1, 77, 2, 2, 8), bf16, True),
-                              ((1, 130, 1, 4, 24), f16, True),
-                              ((1, 200, 1, 2, 72), bf16, False),
-                              ((1, 129, 2, 1, 136), bf16, True),
-                              ((1, 300, 1, 2, 256), bf16, True),
-                              ((1, 300, 1, 2, 256), f32, True),
-                              ((2, 1, 1, 2, 16), bf16, True)):
-        q, k, v = gqa(*shape, dt)
+    # (q shape (B, S, KV, G, hd), dtype, causal, Sk when not S); each check
+    # prints the kernel that ran it (kernel.route: the library's own choice)
+    for shape, dt, causal, *sk in ((main, bf16, True),
+                                   (main, f16, True),
+                                   (main, bf16, False),
+                                   ((1, 4096, 2, 16, 128), bf16, True),
+                                   ((2, 300, 2, 3, 128), bf16, True, 700),
+                                   ((1, 1000, 1, 1, 64), f32, True),
+                                   ((1, 1000, 1, 1, 64), bf16, True),
+                                   ((1, 1000, 2, 2, 128), f16, True),
+                                   ((2, 1000, 2, 3, 64), f32, False),
+                                   ((4, 32, 1, 4, 16), bf16, True),
+                                   ((4, 32, 1, 4, 16), f32, True),
+                                   ((1, 77, 2, 2, 8), bf16, True),
+                                   ((1, 130, 1, 4, 24), f16, True),
+                                   ((1, 200, 1, 2, 72), bf16, False),
+                                   ((1, 129, 2, 1, 136), bf16, True),
+                                   ((1, 300, 1, 2, 256), bf16, True),
+                                   ((1, 300, 1, 2, 256), f32, True),
+                                   ((2, 1, 1, 2, 16), bf16, True)):
+        q, k, v = gqa(*shape, dt, *sk)
         want = ops._ref_gqa(q, k, v, causal)
-        check_within(f"flash {'x'.join(map(str, shape))} {str(dt)[6:]} "
+        check_within(f"flash[{fk.route(shape[-1], dt)}] "
+                     f"{'x'.join(map(str, shape))}"
+                     f"{f' sk={sk[0]}' if sk else ''} {str(dt)[6:]} "
                      f"causal={causal}", fk.flash_attention_grouped(
                          q, k, v, causal=causal), want,
                      ref.kernel_tolerance(want))
+        del q, k, v, want
+    if fk.route(main[-1], bf16) != "wgmma":
+        raise AssertionError(f"the bf16 main shape ran the "
+                             f"{fk.route(main[-1], bf16)} kernel, not wgmma")
     for dt, causal in ((bf16, False), (bf16, True), (f32, True)):
         q, k, v = randn((6, 100, 64), dt), randn((6, 257, 64), dt), \
             randn((6, 257, 64), dt)
@@ -744,6 +757,7 @@ def flash_checks(dev, sheet) -> list[dict]:
             q.flatten(2, 3).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), is_causal=True, enable_gqa=True)
 
+    flop = fk.flops(b * kv * grp, s, s, hd)
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash.cu",
@@ -756,8 +770,12 @@ def flash_checks(dev, sheet) -> list[dict]:
         "ms": graph_ms(lambda: fk.flash_attention_grouped(*nxt())),
         "plain_ms": graph_ms(lambda: ops._ref_gqa(*nxt(), True), calls=2),
         "library_ms": graph_ms(lambda: sdpa(*nxt())),
-        **bound(fk.hbm_bytes(b * kv * grp, s, s, hd, 2),
-                fk.flops(b * kv * grp, s, s, hd), "bf16", sheet)}
+        **bound(fk.hbm_bytes(b * kv * grp, s, s, hd, 2), flop, "bf16",
+                sheet)}
+    row["extra"] = (f"{fk.route(hd, bf16)} kernel, "
+                    f"{flop / row['ms'] / 1e9:.1f} TFLOP/s, "
+                    f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
+                    f"{row['ms'] / row['library_ms']:.3f}x SDPA")
     del sets, q, k, v
     torch.cuda.empty_cache()
     return [row]
@@ -1625,7 +1643,7 @@ def main() -> int:
         print(f"  {r['name']:<22} {r['shape']}: kernel {r['ms']:.4f} ms"
               f"{eager} | plain {r['plain_ms']:.4f} ms | library {lib_s} | "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | config "
-              f"{r['config']}")
+              f"{r['config']}{' | ' + r['extra'] if 'extra' in r else ''}")
     torch.cuda.empty_cache()
 
     # 4a. main path: machine characterization and the full-depth fwd -------

@@ -4,8 +4,9 @@
 with a plain C interface, which :func:`load` opens with ``ctypes``.  The
 build happens at first use, from the sources in this package only, into
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``).  The library's file name carries a hash of its source,
-so an edited kernel is rebuilt and a stale one is never loaded.
+``.gitignore``).  The library's file name carries a hash of its source
+and the headers it includes, so an edited kernel is rebuilt and a stale
+one is never loaded.
 
 Nothing here runs at import time: the CPU tests import this module on a
 host with no ``nvcc``.
@@ -74,6 +75,8 @@ _SIGNATURES = {
         "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _I, _P),
         "flash_tile": (_I,),
+        # hd, dtype
+        "flash_route": (_I, _I),
         "flash_error_string": (_I,),
     },
     "ssd": {
@@ -114,14 +117,33 @@ def nvcc_flags() -> tuple[str, ...]:
 _DIGESTS: dict[str, str] = {}
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another such header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def digest(name: str) -> str:
-    """16 hex digits of the hash of ``csrc/<name>.cu`` and the flags it is
-    built with: the library's identity (its file name; the stamp of a tune
-    record of its kernels)."""
+    """16 hex digits of the hash of :func:`sources` of ``name`` and the
+    flags it is built with: the library's identity (its file name; the
+    stamp of a tune record of its kernels)."""
     if name not in _DIGESTS:
-        src = (CSRC / f"{name}.cu").read_bytes()
-        _DIGESTS[name] = hashlib.sha256(
-            src + " ".join(nvcc_flags()).encode()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in sources(name):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+        h.update(" ".join(nvcc_flags()).encode())
+        _DIGESTS[name] = h.hexdigest()[:16]
     return _DIGESTS[name]
 
 
@@ -137,7 +159,7 @@ def library_path(name: str) -> Path:
 
 #: per library, a pattern of the entry functions whose own registers and
 #: spills the build report prints beside the summary
-DETAIL = {"ert": "gemm_wgmma"}
+DETAIL = {"ert": "gemm_wgmma", "flash": "flash_fwd_wgmma"}
 
 
 def ptxas_summary(report: str, detail: str | None = None) -> str:

@@ -81,10 +81,12 @@ DEFAULTS: dict[str, KernelConfig] = {
                                       blocks_per_sm=8),
     "fused_adamw": KernelConfig.make("fused_adamw", threads=256,
                                      blocks_per_sm=8),
-    # four warps of 16 query rows; a bf16 block at hd 128 holds 85 KiB of
-    # shared memory (Q and double-buffered K/V tiles), so two share an SM
-    "flash_attention": KernelConfig.make("flash_attention", block_q=64,
-                                         block_k=64, threads=128),
+    # the wgmma kernel's tile (16-bit, hd up to 128): a TMA producer and
+    # two consumer warpgroups of 64 query rows, 128-key tiles; at hd 128 a
+    # block holds 160 KiB of shared memory (Q and 2 stages of K and V), one
+    # an SM (the fp32 kernel has its own 64-row tiles, compiled alone)
+    "flash_attention": KernelConfig.make("flash_attention", block_q=128,
+                                         block_k=128, threads=384),
     # chunk 128 as the reference; one block of 8 warps per (32 columns of
     # P, head, batch) walks the chunks in order with the (32, N) state in
     # shared memory, 64-row tiles of C, B and x: about 110 KB, two blocks

@@ -3,13 +3,15 @@
 
 The reference keeps a (BH, S, hd) head's K/V resident in VMEM and sweeps
 query blocks over a sequential grid with online-softmax accumulators in
-VMEM scratch.  The Hopper kernel (``csrc/flash.cu``) runs one block per
-(query tile, head, batch) in no order, streams K/V tiles through shared
-memory up to the causal diagonal, keeps the running max, sum and
-accumulator in fp32, and runs QKᵀ and PV on the tensor cores
-(``mma.sync``, scores and accumulator in registers) for bf16/fp16; fp32
-takes plain FMAs.  It reads the model layout directly: query head ``h``
-reads KV head ``h // G``, so K/V are never repeated per query head.
+VMEM scratch.  The Hopper kernels (``csrc/flash.cu``) run one block per
+(query tile, head, batch) in no order, stream K/V tiles through shared
+memory up to the causal diagonal and keep the running max, sum and
+accumulator in fp32.  bf16/fp16 take the warp-specialised kernel: a TMA
+producer and two ``wgmma`` consumer warpgroups, QKᵀ and PV on the tensor
+cores with scores, P and accumulator in registers; fp32 takes plain FMAs
+(:func:`route` names the kernel for a head dim and dtype).  Both read the
+model layout directly: query head ``h`` reads KV head ``h // G``, so K/V
+are never repeated per query head.
 
 * :func:`flash_attention` — the reference's entry point on (BH, S, hd):
   the plain version :func:`~.ref.attention_ref` for CPU tensors, the
@@ -59,6 +61,9 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k.dtype}, {v.dtype}")
 
 
+#: the kernels of ``csrc/flash.cu``, by the code ``flash_route`` returns
+ROUTES = ("wgmma", "fp32")
+
 #: (block_q, block_k, threads) compiled into the library, read when it
 #: first loads
 _COMPILED: tuple[int, int, int] | None = None
@@ -87,6 +92,15 @@ def _library():
                                f"{_config_tiles()}")
         _COMPILED = compiled
     return lib
+
+
+def route(hd: int, dtype: torch.dtype) -> str:
+    """The kernel of :data:`ROUTES` that a launch at head dim ``hd`` in
+    ``dtype`` runs (the library's ``flash_route``; loads it)."""
+    code = _library().flash_route(hd, build.dtype_code(dtype, DTYPES))
+    if code < 0:
+        raise ValueError(f"no flash kernel takes hd {hd} in {dtype}")
+    return ROUTES[code]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

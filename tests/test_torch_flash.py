@@ -24,6 +24,7 @@ from repro.kernels.flash_attention import ops as r_ops
 from repro.kernels.flash_attention.ref import attention_ref as r_attention_ref
 from repro.kernels.fused import ops as r_fops
 from repro_torch import kernels
+from repro_torch.kernels import config as kc
 from repro_torch.core.op_analysis import analyze_fn
 from repro_torch.kernels.flash_attention import kernel as p_kernel
 from repro_torch.kernels.flash_attention import ops as p_ops
@@ -168,15 +169,39 @@ def test_meta_tensors_launch_nothing():
     assert kernels.launch_counts()["flash_attention"] == 0
 
 
-def test_wrappers_refuse_what_the_kernel_does_not_take():
-    q = torch.zeros(1, 4, 1, 2, 8)
-    with pytest.raises(ValueError, match="shapes"):
-        p_kernel.flash_attention_grouped(q, torch.zeros(1, 4, 8),
-                                         torch.zeros(1, 4, 8))
-    with pytest.raises(ValueError, match="dtypes"):
-        p_kernel.flash_attention(torch.zeros(2, 4, 8),
-                                 torch.zeros(2, 4, 8, dtype=torch.bfloat16),
-                                 torch.zeros(2, 4, 8))
+def _gqa_zeros(hd, dtype=torch.bfloat16):
+    return (torch.zeros(1, 4, 1, 2, hd, dtype=dtype),
+            torch.zeros(1, 4, 1, hd, dtype=dtype),
+            torch.zeros(1, 4, 1, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("case, match", [
+    ("shapes", "shapes"), ("dtypes", "dtypes"),
+    ("hd_not_a_multiple_of_8", "multiple of 8"),
+    ("hd_below_8", "multiple of 8"), ("hd_above_256", "up to 256"),
+    ("heads_that_do_not_group", "do not group")])
+def test_wrappers_refuse_what_the_kernel_does_not_take(case, match):
+    """Each check the wrapper makes raises before anything is launched
+    (the hd and head checks come before the one for CUDA tensors)."""
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        if case == "shapes":
+            p_kernel.flash_attention_grouped(torch.zeros(1, 4, 1, 2, 8),
+                                             torch.zeros(1, 4, 8),
+                                             torch.zeros(1, 4, 8))
+        elif case == "dtypes":
+            p_kernel.flash_attention(torch.zeros(2, 4, 8),
+                                     torch.zeros(2, 4, 8,
+                                                 dtype=torch.bfloat16),
+                                     torch.zeros(2, 4, 8))
+        elif case == "heads_that_do_not_group":
+            q, k, v = _gqa_zeros(8)
+            p_kernel._launch(q, k, v, 1, 4, 4, 3, 2, 8, True)
+        else:
+            hd = {"hd_not_a_multiple_of_8": 12, "hd_below_8": 0,
+                  "hd_above_256": 264}[case]
+            p_kernel.flash_attention_grouped(*_gqa_zeros(hd))
+    assert kernels.launch_counts()["flash_attention"] == 0
 
 
 def _tiled(q, k, v, *, drop=None, stale_alpha_at=None, stale_v_from=None,
@@ -218,7 +243,7 @@ def _drop_key(s, j):
     return d
 
 
-def _drop_half_tile(s, kt, block_k=64):
+def _drop_half_tile(s, kt, block_k):
     d = torch.zeros(s, dtype=torch.bool)
     d[kt * block_k + block_k // 2:(kt + 1) * block_k] = True
     return d
@@ -234,28 +259,37 @@ def _bf16_late_tiles():
     return q, k, v, attention_ref(q, k, v, causal=True)
 
 
-def test_kernel_tolerance_passes_the_kernels_rounding(_bf16_late_tiles):
+#: the key tiles of the host model: the first kernel's 64 and the
+#: compiled tile of the wgmma kernel (kernels/config.py)
+BLOCK_KS = sorted({64, kc.DEFAULTS["flash_attention"].get("block_k")})
+
+
+@pytest.mark.parametrize("block_k", BLOCK_KS)
+def test_kernel_tolerance_passes_the_kernels_rounding(_bf16_late_tiles,
+                                                      block_k):
     """The kernel's own roundings (P to bf16 for the tensor cores, the
     output once) stay within half the elementwise bound."""
     q, k, v, want = _bf16_late_tiles
-    err = (_tiled(q, k, v).float() - want.float()).abs()
+    err = (_tiled(q, k, v, block_k=block_k).float() - want.float()).abs()
     assert (err / kernel_tolerance(want)).max().item() <= 0.5
 
 
+@pytest.mark.parametrize("block_k", BLOCK_KS)
 @pytest.mark.parametrize("fault", ["one_key", "half_tile", "stale_alpha",
                                    "stale_v"])
-def test_kernel_tolerance_flags_a_wrong_late_tile(_bf16_late_tiles, fault):
-    """A kernel wrong only in a late key tile fails the elementwise
-    bound.  The one-key fault (one of 768 keys lost past row 600) passes
-    a global 4 * 2^-8 * max|ref| bound, which the large outputs of the
-    first rows set."""
+def test_kernel_tolerance_flags_a_wrong_late_tile(_bf16_late_tiles, fault,
+                                                  block_k):
+    """A kernel wrong only in a late key tile (the one that holds key
+    600) fails the elementwise bound.  The one-key fault (one of 768 keys
+    lost past row 600) passes a global 4 * 2^-8 * max|ref| bound, which
+    the large outputs of the first rows set."""
     q, k, v, want = _bf16_late_tiles
-    s = q.shape[1]
-    got = _tiled(q, k, v, **{
+    s, late = q.shape[1], 600 // block_k
+    got = _tiled(q, k, v, block_k=block_k, **{
         "one_key": dict(drop=_drop_key(s, 600)),
-        "half_tile": dict(drop=_drop_half_tile(s, 9)),
-        "stale_alpha": dict(stale_alpha_at=9),
-        "stale_v": dict(stale_v_from=9)}[fault])
+        "half_tile": dict(drop=_drop_half_tile(s, late, block_k)),
+        "stale_alpha": dict(stale_alpha_at=late),
+        "stale_v": dict(stale_v_from=late)}[fault])
     err = (got.float() - want.float()).abs()
     assert (err > kernel_tolerance(want)).any()
     if fault == "one_key":
