@@ -19,7 +19,10 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    (the fused, flash and SSD kernels' times replay a CUDA graph of many
    calls, so no host launch overhead is timed; the fused kernels' eager
    back-to-back time is printed beside it), each row with the launch
-   config it ran.  ``ert_gemm`` is held at 8192³ in bf16, fp16 and
+   config it ran.  The triad is held at 1 ulp at the HBM size of
+   ``characterize``, the same ragged by 3 (the bulk-copy kernel's scalar
+   tail), its L2 size and odd sizes, and timed in turns with
+   ``torch.add``.  ``ert_gemm`` is held at 8192³ in bf16, fp16 and
    bf16→f32, at a shape ragged in M, N and K (1000³) and at the earlier
    odd shapes.  ``fused_layernorm`` is held
    at its dispatch site's shape (4096, 4096) bf16, odd widths up to
@@ -27,7 +30,10 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    spread, with its gradient.  The SSD checks hold the
    ``ssd_scan`` kernel to 1e-4 of each (b, h, chunk) block's own max at
    the main shape (chunk 256 and the reference's 128), the reference's
-   test shapes, a single chunk, no decay and an underflowing decay;
+   test shapes, a single chunk, no decay, an underflowing decay and a
+   ragged P and N (``SSD_SHAPES``), and its row states the GFLOP its tiles execute and
+   its bound on fp32 FMAs beside the one on 3xTF32 tensor cores, which it
+   runs on;
 4. drives five main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
@@ -171,6 +177,7 @@ def kernel_checks(dev, sheet) -> list[dict]:
     print("triad: o = a*s + b (tolerance: 1 ulp of max|ref| in the dtype; "
           "the kernel rounds mul and add separately as the plain version)")
     for dtype, n, reps in ((torch.float32, full.hbm_n, 1),
+                           (torch.float32, full.hbm_n + 3, 1),
                            (torch.float32, full.l2_n, 3),
                            (torch.float32, 1_000_003, 1),
                            (torch.bfloat16, full.hbm_n, 1),
@@ -186,6 +193,12 @@ def kernel_checks(dev, sheet) -> list[dict]:
     err = max_abs_err(bandwidth.triad(a, b), ref.triad_ref(a, b))[0]
     nbytes = bandwidth.triad_bytes(n, 4) * reps
     nflops = bandwidth.triad_flops(n) * reps
+    # the kernel and torch.add stream at the card's limit within a fraction
+    # of a percent: timed in turns (kernel, add, add, kernel), least of each
+    kernel_ms, add_ms = in_turns(
+        lambda: ms(lambda: bandwidth.triad(a, b, reps=reps)),
+        lambda: ms(lambda: [torch.add(b, a, alpha=3.0)
+                            for _ in range(reps)]))
     rows.append({
         "name": "triad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ert.cu",
@@ -193,10 +206,9 @@ def kernel_checks(dev, sheet) -> list[dict]:
         "shape": f"f32 n={n} reps={reps} (HBM triad of characterize)",
         "config": launch_config("triad", a, (n, reps)),
         "max_abs_err": err,
-        "ms": ms(lambda: bandwidth.triad(a, b, reps=reps)),
+        "ms": kernel_ms,
         "plain_ms": ms(lambda: [ref.triad_ref(a, b) for _ in range(reps)]),
-        "library_ms": ms(lambda: [torch.add(b, a, alpha=3.0)
-                                  for _ in range(reps)]),
+        "library_ms": add_ms,
         **bound(nbytes, nflops, "f32", sheet)})
     nl, rl = full.l2_n, full.l2_reps
     al, bl = rand((nl,), torch.float32), rand((nl,), torch.float32)
@@ -280,6 +292,17 @@ def kernel_checks(dev, sheet) -> list[dict]:
         "library_ms": ms(lambda: torch.matmul(a, b)),
         **bound(3.0 * s * s * 2, gemm.gemm_flops(s, s, s), "bf16", sheet)})
     return rows
+
+
+def in_turns(*timers) -> list[float]:
+    """Each timer's least reading over two rounds in turns, forward then
+    backward (a, b, b, a), so that neither profits from the card's state
+    at one end of the comparison."""
+    seen = [[] for _ in timers]
+    order = list(range(len(timers)))
+    for i in order + order[::-1]:
+        seen[i].append(timers[i]())
+    return [min(v) for v in seen]
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -781,11 +804,50 @@ def flash_checks(dev, sheet) -> list[dict]:
     return [row]
 
 
+#: the SSD kernel's checks, ((B, H, S, P, N, chunk), a_kind): the main
+#: path's shape at its chunk (256) and the reference's (128), the
+#: reference's test shapes, a single chunk, no decay and an underflowing
+#: decay (``tools/ssd_check.py`` checks the same)
+SSD_SHAPES = (((2, 64, 2048, 64, 128, 256), "random"),
+              ((2, 64, 2048, 64, 128, 128), "random"),
+              ((2, 3, 256, 16, 8, 64), "random"),
+              ((1, 2, 128, 32, 16, 32), "random"),
+              ((2, 1, 64, 8, 8, 64), "random"),
+              ((2, 4, 256, 64, 128, 256), "random"),
+              ((1, 4, 1024, 64, 128, 256), "zero"),
+              ((1, 4, 1024, 64, 128, 256), "underflow"),
+              # P % 4 != 0 takes the kernels' scalar loads of x and y, and
+              # N % 8 == 4 the zero-padded last k-step of the state products
+              ((1, 2, 192, 30, 20, 96), "random"))
+#: the dense TF32 peak of an H100 SXM (NVIDIA's datasheet), FLOP/s: the
+#: SSD kernel's products run on the tensor cores in TF32 (three a product)
+TF32_PEAK = 494.7e12
+
+
+def ssd_operands(g, dev, b, h, s, p, n, layout="kernel", a_kind="random"):
+    """x, a, B, C as the reference's tests draw them: x, B, C at 0.5,
+    a = -0.1 |N(0, 1)|; ``a_kind`` "zero" (no decay) or "underflow"
+    (a <= -200: every decay but the diagonal's underflows to 0)."""
+    import torch
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    xs, as_ = (((b, h, s, p), (b, h, s)) if layout == "kernel"
+               else ((b, s, h, p), (b, s, h)))
+    a = -randn(as_).abs() * 0.1
+    if a_kind == "zero":
+        a = torch.zeros_like(a)
+    elif a_kind == "underflow":
+        a = a * 100.0 - 200.0
+    return randn(xs, 0.5), a, randn((b, s, n), 0.5), randn((b, s, n), 0.5)
+
+
 def ssd_checks(dev, sheet) -> list[dict]:
     """Phase 3 for the SSD scan: the kernel against its plain version at
-    the main path's shape, the reference's chunk and odd shapes (both
-    layouts), each (b, h, chunk) block held to its own scale; the gradient
-    through the routed op against the plain route; and the times."""
+    :data:`SSD_SHAPES`, each (b, h, chunk) block held to its own scale; the
+    gradient through the routed op against the plain route; and the times
+    beside the bounds on FMAs and on the tensor cores."""
     import torch
     from repro_torch.kernels import config as kc
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -794,37 +856,16 @@ def ssd_checks(dev, sheet) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(3)
 
-    def randn(shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
-
-    def operands(b, h, s, p, n, layout="kernel", a_kind="random"):
-        """x, a, B, C as the reference's tests draw them: x, B, C at 0.5,
-        a = -0.1 |N(0, 1)|; ``a_kind`` "zero" (no decay) or "underflow"
-        (a <= -200: every decay but the diagonal's underflows to 0)."""
-        xs, as_ = (((b, h, s, p), (b, h, s)) if layout == "kernel"
-                   else ((b, s, h, p), (b, s, h)))
-        a = -randn(as_).abs() * 0.1
-        if a_kind == "zero":
-            a = torch.zeros_like(a)
-        elif a_kind == "underflow":
-            a = a * 100.0 - 200.0
-        return randn(xs, 0.5), a, randn((b, s, n), 0.5), randn((b, s, n), 0.5)
+    def operands(*dims, **kw):
+        return ssd_operands(g, dev, *dims, **kw)
 
     print(f"ssd_scan: (tolerance, per (b, h, chunk) block, "
           f"ref.kernel_tolerance: {ref.REL_TOL:g} of the block's own "
-          f"max|ref| — fp32 FMAs in another order, no TF32; per block, so a "
-          f"wrong state carried into a late chunk cannot hide under another "
-          f"block's larger outputs)")
-    main = (2, 64, 2048, 64, 128, 256)
-    for (b, h, s, p, n, q), a_kind in ((main, "random"),
-                                       ((2, 64, 2048, 64, 128, 128), "random"),
-                                       ((2, 3, 256, 16, 8, 64), "random"),
-                                       ((1, 2, 128, 32, 16, 32), "random"),
-                                       ((2, 1, 64, 8, 8, 64), "random"),
-                                       ((2, 4, 256, 64, 128, 256), "random"),
-                                       ((1, 4, 1024, 64, 128, 256), "zero"),
-                                       ((1, 4, 1024, 64, 128, 256),
-                                        "underflow")):
+          f"max|ref| — fp32 sums in another order, each product in 3xTF32; "
+          f"per block, so a wrong state carried into a late chunk cannot "
+          f"hide under another block's larger outputs)")
+    main = SSD_SHAPES[0][0]
+    for (b, h, s, p, n, q), a_kind in SSD_SHAPES:
         x, a, bm, cm = operands(b, h, s, p, n, a_kind=a_kind)
         want = ref.ssd_ref(x, a, bm, cm, chunk=q)
         check_within(f"ssd {b}x{h}x{s}x{p} N={n} Q={q} a={a_kind}",
@@ -834,7 +875,7 @@ def ssd_checks(dev, sheet) -> list[dict]:
           "(tolerance: 1e-5 of each gradient's max — the backward "
           "recomputes the same plain math)")
     xh, a, bm, cm = operands(1, 4, 256, 64, 128, layout="model")
-    gy = randn(xh.shape)
+    gy = torch.randn(xh.shape, generator=g, device=dev)
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in (xh, a, bm, cm)]
@@ -856,6 +897,14 @@ def ssd_checks(dev, sheet) -> list[dict]:
     err = check_within("ssd main shape, model layout, timed operands",
                        sk.ssd_scan_model(xh, a, bm, cm, chunk=q), want, tol)
     del want, tol
+    # the work the scan needs (causal pairs, C·Bᵀ shared by the heads), not
+    # the reference's coarser ``flops`` model; on the tensor cores each
+    # product runs three times (3xTF32), against the dense TF32 peak
+    nbytes = sk.hbm_bytes(b, h, s, p, n)
+    need = sk.needed_flops(b, h, s, p, n, q)
+    fma = bound(nbytes, need, "f32", sheet)
+    tc = bound(nbytes, 3 * need, "tf32", sheet, peak=TF32_PEAK)
+    executed = sk.executed_flops(b, h, s, p, n, q)
     row = {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -869,20 +918,24 @@ def ssd_checks(dev, sheet) -> list[dict]:
         "plain_ms": graph_ms(lambda: ssd_chunked(*nxt(), q), calls=2),
         # no single PyTorch call computes the chunked SSD scan
         "library_ms": None,
-        # the work the scan needs (causal pairs, C·Bᵀ shared by the
-        # heads), not the reference's coarser ``flops`` model
-        **bound(sk.hbm_bytes(b, h, s, p, n),
-                sk.needed_flops(b, h, s, p, n, q), "f32", sheet)}
+        "extra": (f"executed {executed / 1e9:.4f} GFLOP ({3 * executed / 1e9:.4f}"
+                  f" on the tensor cores), needed {need / 1e9:.4f}; bound on "
+                  f"3xTF32 {tc['bound_ms']:.4f} ms ({tc['bound_by']}), on "
+                  f"fp32 FMAs {fma['bound_ms']:.4f} ms ({fma['bound_by']})"),
+        **tc}
     del sets, xh, a, bm, cm
     torch.cuda.empty_cache()
     return [row]
 
 
-def bound(nbytes: float, nflops: float, cls: str, sheet) -> dict:
+def bound(nbytes: float, nflops: float, cls: str, sheet,
+          peak: float | None = None) -> dict:
     """Least time for the work on the datasheet card: the larger of bytes
-    over HBM bandwidth and operations over the class's peak."""
+    over HBM bandwidth and operations over the class's peak (``peak`` in
+    FLOP/s for a class the machine spec does not hold, such as TF32: its
+    ``peak_for`` would fall back to the bf16 peak)."""
     t_bytes = nbytes / sheet.hbm.bytes_per_s
-    t_ops = nflops / sheet.peak_for(cls)
+    t_ops = nflops / (sheet.peak_for(cls) if peak is None else peak)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 

@@ -45,7 +45,8 @@ _I, _F, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "ert": {
         # a, b, o, n, scale, reps, dtype, blocks, threads, stream
-        "ert_triad": (_P, _P, _P, _LL, _F, _I, _I, _I, _I, _P),
+        # a, b, o, n, scale, reps, dtype, blocks, threads, counter, stream
+        "ert_triad": (_P, _P, _P, _LL, _F, _I, _I, _I, _I, _P, _P),
         # x, o, n, n_iters, ilp, a, b, dtype, blocks, threads, stream
         "ert_fma_chain": (_P, _P, _LL, _I, _I, _F, _F, _I, _I, _I, _P),
         # A, B, C, M, N, K, in_dtype, out_dtype, stream
@@ -80,9 +81,10 @@ _SIGNATURES = {
         "flash_error_string": (_I,),
     },
     "ssd": {
-        # x, a, B, C, y, B, S, H, P, N, chunk, layout, stream
-        "ssd_scan_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+        # x, a, B, C, y, cb, states, totals (the scratch), B, S, H, P, N,
+        # chunk, layout, stream
+        "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _P),
         "ssd_tile": (_I,),
         "ssd_error_string": (_I,),
     },
@@ -159,7 +161,7 @@ def library_path(name: str) -> Path:
 
 #: per library, a pattern of the entry functions whose own registers and
 #: spills the build report prints beside the summary
-DETAIL = {"ert": "gemm_wgmma", "flash": "flash_fwd_wgmma"}
+DETAIL = {"ert": "gemm_wgmma", "flash": "flash_fwd_wgmma", "ssd": "ssd_"}
 
 
 def ptxas_summary(report: str, detail: str | None = None) -> str:

@@ -5,7 +5,8 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
 
 * ``threads``       — threads per block (for the row-parallel norms: the
   most a row's block may have; a narrow row takes fewer);
-* ``blocks_per_sm`` — grid size of a grid-stride kernel, per SM (the
+* ``blocks_per_sm`` — grid size of a grid-stride or persistent kernel,
+  per SM (the triad's must fit the SMs at once: two blocks an SM; the
   norms: the most row blocks launched per SM; each block then walks
   rows with a stride of the grid);
 * ``block_m`` / ``block_n`` / ``block_k`` — the tensor-core GEMM's tile,
@@ -15,10 +16,10 @@ launch parameters replace the TPU's ``dimension_semantics`` hints:
   keys per shared-memory tile, likewise compiled into ``csrc/flash.cu``
   (fp32 at hd > 128 takes 32-key tiles to fit shared memory);
 * ``chunk`` — the SSD scan's chunk length (the reference's, an argument
-  of the kernel); ``block_q`` / ``block_p`` — its query and key rows per
-  shared-memory tile and the columns of x and y per block, compiled into
-  ``csrc/ssd.cu`` with ``max_chunk`` and ``max_state``, the largest chunk
-  and state width the kernel takes.
+  of the kernel); ``block_q`` / ``block_p`` / ``threads`` — its query and
+  key rows per tile, the columns of P per block and the threads of each
+  output block, compiled into ``csrc/ssd.cu`` with ``max_chunk`` and
+  ``max_state``, the largest chunk and state width the kernel takes.
 
 The reference's ``block_rows`` / ``block`` (rows or elements per VMEM
 block) have no counterpart: a Hopper block holds one row, or strides
@@ -66,7 +67,9 @@ class KernelConfig:
 # every kernel of ``KERNELS`` (``fused_norm`` is the entry of both rmsnorm
 # kernels and the layernorm, as in the reference)
 DEFAULTS: dict[str, KernelConfig] = {
-    "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=8),
+    # the bulk-copy ring takes 96 KiB of shared memory a block: two blocks
+    # fill an SM, and a larger grid is refused (``csrc/ert.cu``)
+    "triad": KernelConfig.make("triad", threads=256, blocks_per_sm=2),
     "fma_chain": KernelConfig.make("fma_chain", threads=256, blocks_per_sm=8),
     # the tensor-core kernel's tile: two consumer warpgroups of 64 rows x
     # 256 columns, K steps of 64 (the fp32 kernel has its own, compiled
@@ -87,12 +90,11 @@ DEFAULTS: dict[str, KernelConfig] = {
     # an SM (the fp32 kernel has its own 64-row tiles, compiled alone)
     "flash_attention": KernelConfig.make("flash_attention", block_q=128,
                                          block_k=128, threads=384),
-    # chunk 128 as the reference; one block of 8 warps per (32 columns of
-    # P, head, batch) walks the chunks in order with the (32, N) state in
-    # shared memory, 64-row tiles of C, B and x: about 110 KB, two blocks
-    # to an SM
+    # chunk 128 as the reference; 64-row query and key tiles; 64 columns
+    # of P a block, so mamba2's P 64 is one block wide; output blocks of
+    # 8 warps (128 query rows, two to an SM), chunk blocks of 4 (three)
     "ssd_scan": KernelConfig.make("ssd_scan", chunk=128, block_q=64,
-                                  block_p=32, threads=256, max_chunk=256,
+                                  block_p=64, threads=256, max_chunk=256,
                                   max_state=128),
 }
 

@@ -9,15 +9,36 @@
 // ---------------------------------------------------------------------------
 // triad — replaces repro/kernels/ert/bandwidth.py::triad (_triad_kernel,
 //   _triad_kernel_db): o = a*s + b.
-//   Bound: bytes (3*N*itemsize per pass, 2*N FLOPs; AI 1/6 in fp32).
-//   Design: a grid-stride loop over 16-byte vectors (4 x f32 or 8 x bf16)
-//   so each warp moves 512 contiguous bytes per load, and a scalar tail
-//   loop, so any N runs in the kernel.  The TPU kernel pads the last block
-//   instead; padding here would move bytes triad_bytes() does not count.
-//   `reps` repeats the pass inside one launch: an L2-resident array is
-//   streamed many times so the launch lasts long enough to time.  The
-//   product and sum round separately (mul, then add) exactly as the plain
-//   PyTorch version does; the kernel is memory-bound, so this costs nothing.
+//   Bound: bytes (3*N*itemsize per pass, 2*N FLOPs; AI 1/6 in fp32).  The
+//   kernel sets characterize's HBM and L2 ceilings, the denominators of
+//   every memory-bound verdict, so it has to reach what the card can
+//   stream, not a fraction of it.
+//   Design: a streaming kernel for Hopper.  A persistent grid (at most the
+//   blocks the SMs hold at once, so an L2-sized triad with `reps` passes
+//   stays an L2 measurement and an HBM-sized one an HBM one) whose blocks
+//   claim 16 KiB chunks of a and b one at a time from a counter over
+//   reps x chunks (zeroed by the caller, one for each launch, so launches
+//   on different streams share nothing): the grid walks the arrays in
+//   order, pass after pass,
+//   and a block on a slow share of the memory system takes fewer chunks
+//   (with fixed contiguous shares the slowest block set the time, about
+//   3% behind torch.add; tools/ssd_check.py --triad).  One thread per
+//   block moves the data with 1-D bulk copies (cp.async.bulk, through L2
+//   and not L1): each chunk of a and b into a ring of 3 stages in shared
+//   memory, completing the stage's mbarrier; every thread computes its
+//   16-byte vectors in place of a; the stage goes back out with one bulk
+//   store (bulk_group), and is refilled once that store has read it, so
+//   two stages of loads stay in flight while the block computes.  The
+//   ring depth (3) and the stage (16 KiB an operand) are compiled in, and
+//   with them 96 KiB of shared memory a block, so two blocks fit an SM;
+//   threads per block and the grid (SMs x blocks_per_sm) are the run-time
+//   parameters tuning searches, and a grid larger than what the SMs hold
+//   at once is refused, not cut.  The elements past
+//   the last whole chunk take a scalar grid-stride loop, so any N runs.
+//   The TPU kernel pads the last block instead; padding here would move
+//   bytes triad_bytes() does not count.  The product and sum round
+//   separately (mul, then add) exactly as the plain PyTorch version does;
+//   the kernel is memory-bound, so this costs nothing.
 //
 // fma_chain — replaces repro/kernels/ert/flops.py::fma_chain
 //   (_fma_chain_kernel): ILP independent chains of n_iters dependent
@@ -94,34 +115,115 @@ __device__ __forceinline__ __half triad1(__half a, __half s, __half b) {
   return __hadd(__hmul(a, s), b);
 }
 
+// The ring: kTriadStages stages of one kTriadChunk chunk of a and one of
+// b each; 3 x 2 x 16 KiB, so two blocks fit an SM.  Work is claimed a
+// chunk at a time from *next, the launch's own counter over reps x chunks
+// (zero at the launch), so the grid walks the arrays in order (pass after
+// pass) and no block waits on a slow share.
+constexpr int kTriadStages = 3;
+constexpr int kTriadChunk = 16384;         // bytes of each operand a stage
+constexpr int kTriadSmem = kTriadStages * 2 * kTriadChunk + 64;
+
 template <typename T>
 __global__ void triad_kernel(const T* a, const T* b, T* o, int64_t n,
-                             float scale, int reps) {
+                             float scale, int reps,
+                             unsigned long long* next) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int64_t item_of[kTriadStages];   // a stage's item, -1 past the end
+  constexpr int kElems = kTriadChunk / sizeof(T);
   constexpr int kVec = 16 / sizeof(T);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem_raw + kTriadStages * 2 * kTriadChunk);
   const T s = from_float<T>(scale);
-  const int64_t nvec = n / kVec;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const uint4* av = reinterpret_cast<const uint4*>(a);
-  const uint4* bv = reinterpret_cast<const uint4*>(b);
-  uint4* ov = reinterpret_cast<uint4*>(o);
-  // .cg loads and stores keep the data out of L1: a thread revisits the
-  // same elements on every pass, and an SM's share of an L2-sized array
-  // would otherwise be served from its L1
-  for (int r = 0; r < reps; ++r) {
-    for (int64_t i = tid; i < nvec; i += stride) {
-      uint4 va = __ldcg(av + i), vb = __ldcg(bv + i), vo;
+  const int64_t nchunks = n / kElems;
+  const int64_t total = nchunks * reps;
+  const bool issuer = threadIdx.x == 0;
+  if (issuer) {
+    for (int st = 0; st < kTriadStages; ++st) mbar_init(&full[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto stage = [&](int64_t k) {
+    return reinterpret_cast<T*>(smem_raw + (k % kTriadStages) * 2 *
+                                               kTriadChunk);
+  };
+  // the issuer claims the next item into stage k % S: two bulk loads that
+  // complete the stage's mbarrier, or, past the end, a bare arrival
+  auto load = [&](int64_t k) {
+    const int64_t g = (int64_t)atomicAdd(next, 1ull);
+    uint64_t* bar = &full[k % kTriadStages];
+    item_of[k % kTriadStages] = g < total ? g : -1;
+    if (g >= total) {
+      mbar_arrive(bar);
+      return;
+    }
+    const int64_t ch = g % nchunks;
+    mbar_expect_tx(bar, 2 * kTriadChunk);
+    bulk_load(stage(k), a + ch * kElems, kTriadChunk, bar);
+    bulk_load(stage(k) + kElems, b + ch * kElems, kTriadChunk, bar);
+  };
+  if (issuer)
+    for (int64_t k = 0; k < kTriadStages; ++k) load(k);
+  for (int64_t k = 0;; ++k) {
+    mbar_wait(&full[k % kTriadStages], (uint32_t)(k / kTriadStages) & 1);
+    const int64_t g = item_of[k % kTriadStages];
+    if (g < 0) break;                // every later claim is past the end too
+    uint4* sa = reinterpret_cast<uint4*>(stage(k));
+    const uint4* sb = sa + kTriadChunk / 16;
+    for (int v = threadIdx.x; v < kTriadChunk / 16; v += blockDim.x) {
+      uint4 va = sa[v], vb = sb[v], vo;
       const T* ea = reinterpret_cast<const T*>(&va);
       const T* eb = reinterpret_cast<const T*>(&vb);
       T* eo = reinterpret_cast<T*>(&vo);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) eo[j] = triad1(ea[j], s, eb[j]);
-      __stcg(ov + i, vo);
+      sa[v] = vo;                    // o in place of a
     }
-    for (int64_t i = nvec * kVec + tid; i < n; i += stride) {
-      o[i] = triad1(__ldcg(a + i), s, __ldcg(b + i));
+    fence_async_shared();
+    __syncthreads();
+    if (issuer) {
+      bulk_store(o + (g % nchunks) * kElems, stage(k), kTriadChunk);
+      bulk_commit();
+      // the stage of item k - 1 is free once its store has read it
+      if (k >= 1) {
+        bulk_wait_read<1>();
+        load(k - 1 + kTriadStages);
+      }
     }
   }
+  __syncthreads();
+  if (issuer) bulk_wait<0>();
+  // the elements past the last whole chunk, every pass
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int r = 0; r < reps; ++r)
+    for (int64_t e = nchunks * kElems + tid; e < n; e += stride)
+      o[e] = triad1(__ldcg(a + e), s, __ldcg(b + e));
+}
+
+// a grid larger than the blocks the SMs take at once is refused: with
+// reps > 1 a later wave would find its share of the passes in L2
+template <typename T>
+cudaError_t launch_triad(const T* a, const T* b, T* o, int64_t n, float scale,
+                         int reps, int blocks, int threads,
+                         unsigned long long* next, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      triad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTriadSmem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, triad_kernel<T>, threads, kTriadSmem)) != cudaSuccess) {
+    return err;
+  }
+  if (blocks < 1 || blocks > sms * per_sm)
+    return cudaErrorInvalidConfiguration;
+  triad_kernel<T><<<blocks, threads, kTriadSmem, st>>>(a, b, o, n, scale,
+                                                       reps, next);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- fma_chain --
@@ -463,27 +565,27 @@ cudaError_t launch_wgmma(const void* A, const void* B, void* C, int M, int N,
 
 extern "C" {
 
+// `next`: one zeroed unsigned 64-bit counter in device memory, the
+// launch's own
 int ert_triad(const void* a, const void* b, void* o, long long n, float scale,
-              int reps, int dtype, int blocks, int threads, void* stream) {
+              int reps, int dtype, int blocks, int threads, void* next,
+              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* ctr = static_cast<unsigned long long*>(next);
   switch (dtype) {
     case kF32:
-      triad_kernel<float><<<blocks, threads, 0, st>>>(
-          (const float*)a, (const float*)b, (float*)o, n, scale, reps);
-      break;
+      return launch_triad((const float*)a, (const float*)b, (float*)o, n,
+                          scale, reps, blocks, threads, ctr, st);
     case kBF16:
-      triad_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-          (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (__nv_bfloat16*)o,
-          n, scale, reps);
-      break;
+      return launch_triad((const __nv_bfloat16*)a, (const __nv_bfloat16*)b,
+                          (__nv_bfloat16*)o, n, scale, reps, blocks, threads,
+                          ctr, st);
     case kF16:
-      triad_kernel<__half><<<blocks, threads, 0, st>>>(
-          (const __half*)a, (const __half*)b, (__half*)o, n, scale, reps);
-      break;
+      return launch_triad((const __half*)a, (const __half*)b, (__half*)o, n,
+                          scale, reps, blocks, threads, ctr, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 int ert_fma_chain(const void* x, void* o, long long n, int n_iters, int ilp,

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (ert.cu's gemm_wgmma_kernel, flash.cu's flash_fwd_wgmma_kernel):
-// mbarriers, TMA tensor loads, the 128-byte-swizzle wgmma descriptor, the
-// wgmma fence / commit / wait, and tensor maps encoded through the
-// runtime's driver entry point.  Included by each .cu, so every library
-// has its own copy; kernels/build.py hashes it into each library's digest.
+// Hopper (sm_90a) building blocks shared by the asynchronous kernels
+// (ert.cu's gemm_wgmma_kernel and triad_kernel, flash.cu's
+// flash_fwd_wgmma_kernel): mbarriers, TMA tensor loads, 1-D bulk copies,
+// the 128-byte-swizzle wgmma descriptor, the wgmma fence / commit / wait,
+// and tensor maps encoded through the runtime's driver entry point.
+// Included by each .cu, so every library has its own copy;
+// kernels/build.py hashes it into each library's digest.
 
 #pragma once
 
@@ -64,6 +65,48 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// One 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing `bar`'s transaction
+// count.  Bulk copies go through L2, not L1.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One 1-D bulk copy of `bytes` from shared into global memory, tracked by
+// the issuing thread's bulk groups: bulk_commit() closes a group,
+// bulk_wait_read<N>() waits until at most N groups may still read shared
+// memory, bulk_wait<N>() until at most N are incomplete.  Shared memory
+// written by other threads must be fenced first (fence_async_shared(),
+// then a barrier).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's shared-memory writes visible to the async proxy (a
+// bulk store that another thread issues after a barrier)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,

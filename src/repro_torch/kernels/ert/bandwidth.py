@@ -28,7 +28,14 @@ def triad(a: torch.Tensor, b: torch.Tensor, scale: float = 3.0, *,
     an L2-resident triad needs it to last long enough to time).
     ``block`` and ``double_buffer`` are the TPU kernel's pipeline knobs:
     accepted for signature parity with the reference and ignored — the
-    Hopper kernel is a grid-stride loop sized by ``config``.
+    Hopper kernel streams 16 KiB chunks through a ring of bulk copies in
+    shared memory, with ``config``'s threads per block and a persistent
+    grid of SMs × ``blocks_per_sm`` blocks (``csrc/ert.cu``).  The ring
+    takes 96 KiB of shared memory a block, so an SM holds two: a config
+    whose grid the SMs cannot hold at once is refused (RuntimeError).
+    The blocks claim their chunks from a counter that each call zeroes
+    (one memset before the kernel), so calls on different streams share
+    nothing.
     """
     global LAUNCHES
     del block, double_buffer
@@ -48,10 +55,11 @@ def triad(a: torch.Tensor, b: torch.Tensor, scale: float = 3.0, *,
     threads = int(cfg.get("threads"))
     blocks = max(1, min(build.sm_count(a) * int(cfg.get("blocks_per_sm")),
                         -(-work // threads)))
+    counter = torch.zeros(1, dtype=torch.int64, device=a.device)
     lib = build.load("ert")
     err = lib.ert_triad(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                         float(scale), int(reps), code, blocks, threads,
-                        build.stream_of(a))
+                        counter.data_ptr(), build.stream_of(a))
     build.check(lib, err, "triad")
     LAUNCHES += 1
     return out

@@ -2,12 +2,17 @@
 ``repro.kernels.ssd_scan.kernel``).
 
 The reference runs a (B, H, chunks) grid whose chunk axis is sequential,
-with the (P, N) state in VMEM scratch across chunk steps.  The Hopper
-kernel (``csrc/ssd.cu``) runs one block per (32 columns of P, head,
-batch) that walks its chunks in order with its slice of the state in
-shared memory, and cuts each chunk into 64-row tiles of C, B and x (a
-256 × 256 fp32 score tile would not fit shared memory); fp32 FMAs
-throughout, no tensor cores.
+with the (P, N) state in VMEM scratch across chunk steps.  Hopper blocks
+run in no order, so the kernel (``csrc/ssd.cu``) splits the scan into
+passes that each run in parallel: C·Bᵀ once per (batch, chunk), shared by
+the heads; each chunk's own state increment; a short elementwise pass
+over the chunks that turns increments into entering states; and every
+chunk's output at once.  Every product runs on the tensor cores in
+3xTF32 (each operand split into two TF32 halves), which keeps fp32
+accuracy.  One call of :func:`ssd_scan` or :func:`ssd_scan_model` makes
+three CUDA launches (two with a single chunk: there is no pass) and
+counts as one launch in :data:`LAUNCHES`.  The plain version of the decomposition is
+:func:`~.ref.ssd_split`.
 
 * :func:`ssd_scan` — the reference's entry point on the kernel layout
   xdt (B, H, S, P), a (B, H, S), B/C (B, S, N): the plain version
@@ -20,9 +25,11 @@ throughout, no tensor cores.
 The kernel takes fp32 operands, ``S % chunk == 0``, chunks up to 256 and
 N a multiple of 4 up to 128.  Its tiles are compile-time constants: the
 config states them and the library is held against them when it loads.
+The wrapper allocates the passes' scratch (:func:`scratch_floats`).
 ``hbm_bytes`` and ``flops`` are the reference's roofline model of the
 kernel, mirrored as written; ``needed_flops`` counts only the work the
-function needs, for its bound.
+function needs, for its bound, and ``executed_flops`` the work the
+kernel's tiles execute.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import config as kc
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
-#: launches of the CUDA kernel (the plain CPU path does not count)
+#: calls that launched the CUDA kernels, one a scan (the plain CPU path
+#: does not count)
 LAUNCHES = 0
 
 #: the C interface's layout codes
@@ -99,9 +107,14 @@ def _launch(x, a, B_, C_, dims: tuple[int, int, int, int, int],
     build.require_cuda(B_, C_, align=16)    # float4 loads of B and C rows
     lib = _library()
     y = torch.empty_like(x)
+    cb_n, st_n, tot_n = scratch_floats(b, s, h, p, n, chunk)
+    scratch = torch.empty(cb_n + st_n + tot_n, dtype=torch.float32,
+                          device=x.device)
+    cb, states, totals = scratch.split((cb_n, st_n, tot_n))
     err = lib.ssd_scan_fwd(x.data_ptr(), a.data_ptr(), B_.data_ptr(),
-                           C_.data_ptr(), y.data_ptr(), b, s, h, p, n, chunk,
-                           layout, build.stream_of(x))
+                           C_.data_ptr(), y.data_ptr(), cb.data_ptr(),
+                           states.data_ptr(), totals.data_ptr(), b, s, h, p,
+                           n, chunk, layout, build.stream_of(x))
     build.check(lib, err, "ssd_scan")
     LAUNCHES += 1
     return y
@@ -141,6 +154,18 @@ def ssd_scan_model(xh: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
     return _launch(xh, a, B_, C_, dims, chunk, _MODEL_LAYOUT)
 
 
+def scratch_floats(b: int, s: int, h: int, p: int, n: int,
+                   chunk: int) -> tuple[int, int, int]:
+    """Floats of the kernel's three scratch arrays: C·Bᵀ of each chunk
+    (B, chunks, Qp, Qp) with Qp the chunk rounded up to ``block_q``, the
+    states (B, H, chunks, P, N) and the chunk totals (B, H, chunks).  The
+    first two are multiples of 4 floats, so each array starts 16-byte
+    aligned."""
+    bq = int(kc.default_config("ssd_scan").get("block_q"))
+    nc, qp = s // chunk, -(-chunk // bq) * bq
+    return b * nc * qp * qp, b * h * nc * p * n, b * h * nc
+
+
 def hbm_bytes(b: int, h: int, s: int, p: int, n: int,
               itemsize: int = 4) -> float:
     """Analytic traffic: x + y (B,H,S,P) + a + B/C once."""
@@ -174,3 +199,42 @@ def needed_flops(b: int, h: int, s: int, p: int, n: int, chunk: int) -> float:
     shared = b * nc * 2 * pairs * n
     per_head = nc * pairs * (1 + 2 * p) + 2 * (nc - 1) * 2 * chunk * p * n
     return float(shared + b * h * per_head)
+
+
+def executed_flops(b: int, h: int, s: int, p: int, n: int,
+                   chunk: int) -> float:
+    """The multiply-adds (2 FLOPs each) the kernel's tiles execute, padding
+    included, each counted once (the tensor cores run each three times,
+    for the hi/lo split):
+
+    * C·Bᵀ: every causal pair of 64-row tiles of every (batch, chunk),
+      over N rounded up to 8;
+    * the increments (transposed): per (batch, head, chunk but the last,
+      64 columns of P) 32 rows of N per warp that holds any, × P's
+      columns in 8-column tiles × the chunk's rows rounded up to 8;
+    * the outputs: per (batch, head, chunk, 64 columns of P) each query
+      tile's rows that exist, in 16-row warps, × 64 keys of each earlier
+      tile and, on the diagonal, the keys up to the warp's last row, ×
+      P's columns in 8-column tiles; then in every chunk after the first
+      × N rounded up to 8 for C·stateᵀ.
+
+    The exps, the decay and the scalings are left out."""
+    cfg = kc.default_config("ssd_scan")
+    bq, bp = int(cfg.get("block_q")), int(cfg.get("block_p"))
+    nc = s // chunk
+    n8, nq = -(-n // 8) * 8, -(-chunk // bq)
+    slices = [min(bp, p - p0) for p0 in range(0, p, bp)]
+    pairs = nq * (nq + 1) // 2
+    cb = b * nc * pairs * bq * bq * n8
+    inc = sum(b * h * (nc - 1) * 32 * -(-n // 32) * -(-w // 8) * 8
+              * -(-chunk // 8) * 8 for w in slices)
+    out = 0
+    for w in slices:
+        cols = -(-w // 8) * 8
+        for it in range(nq):
+            for r0 in range(it * bq, min(chunk, (it + 1) * bq), 16):
+                keys = it * bq + min(bq, -(-(r0 - it * bq + 16) // 8) * 8,
+                                     -(-(chunk - it * bq) // 8) * 8)
+                out += b * h * nc * 16 * keys * cols
+                out += b * h * (nc - 1) * 16 * n8 * cols
+    return 2.0 * (cb + inc + out)

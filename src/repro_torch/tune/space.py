@@ -67,6 +67,10 @@ THREADS = (128, 256, 512, 1024)
 BLOCKS_PER_SM = (4, 8, 16, 32)
 SMOKE_THREADS = (128, 256)
 SMOKE_BLOCKS_PER_SM = (8, 16)
+#: the triad's: its bulk-copy ring takes 96 KiB of shared memory a block,
+#: so an SM holds two, and the kernel refuses a grid the SMs cannot hold
+#: at once (``csrc/ert.cu``)
+TRIAD_BLOCKS_PER_SM = (1, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,11 +169,16 @@ def fit_block(block: int, dim: int) -> int:
     return max(block, 1)
 
 
-def _launch_grid(kernel: str, smoke: bool) -> list[dict[str, Any]]:
-    """threads × blocks_per_sm, with the default always in."""
+def _launch_grid(kernel: str, smoke: bool,
+                 blocks_per_sm: Sequence[int] | None = None
+                 ) -> list[dict[str, Any]]:
+    """threads × blocks_per_sm (the shared grid unless ``blocks_per_sm``
+    is given), with the default always in."""
     dflt = default_config(kernel)
+    if blocks_per_sm is None:
+        blocks_per_sm = SMOKE_BLOCKS_PER_SM if smoke else BLOCKS_PER_SM
     grid = itertools.product(SMOKE_THREADS if smoke else THREADS,
-                             SMOKE_BLOCKS_PER_SM if smoke else BLOCKS_PER_SM)
+                             blocks_per_sm)
     pairs = dict.fromkeys((*grid, (dflt.get("threads"),
                                    dflt.get("blocks_per_sm"))))
     return [{"threads": t, "blocks_per_sm": b} for t, b in pairs]
@@ -185,20 +194,17 @@ def _triad_dims(shape: Sequence[int]) -> tuple[int, int]:
 # --------------------------------------------------------------------------
 
 def _triad_cuda(shape, dtype, smoke):
-    """With ``reps`` > 1 only grids the SMs hold at once: the blocks of a
-    later wave would run their ``reps`` passes over their own slice one
-    after another, from L2, and an HBM-sized triad would read above the
-    HBM roof."""
+    """Only grids the SMs hold at once (``TRIAD_BLOCKS_PER_SM``; the
+    kernel refuses a larger one): with ``reps`` > 1 the blocks of a later
+    wave would run their passes over their own slice one after another,
+    from L2, and an HBM-sized triad would read above the HBM roof."""
     from repro_torch.kernels.config import KernelConfig
     from repro_torch.kernels.ert import bandwidth
     n, reps = _triad_dims(shape)
     dt = torch_dtype(dtype)
     work = bandwidth.triad_bytes(n, dt.itemsize) * reps
     out = []
-    for params in _launch_grid("triad", smoke):
-        if reps > 1 and (params["threads"] * params["blocks_per_sm"]
-                         > THREADS_PER_SM):
-            continue
+    for params in _launch_grid("triad", smoke, TRIAD_BLOCKS_PER_SM):
 
         def build(params=params):
             dev = _device("cuda")

@@ -247,3 +247,27 @@ def test_full_sizes_give_each_launch_real_work():
     assert flops.fma_flops(full.chain_n, full.chain_iters, 8) / 67e12 > 1e-3
     assert bandwidth.triad_bytes(full.hbm_n, 4) * full.hbm_reps / 3.35e12 > 1e-3
     assert gemm.gemm_flops(*(full.gemm_ceiling,) * 3) / 989e12 > 1e-3
+
+
+def test_the_triad_takes_a_counter_a_launch_and_a_grid_that_fits():
+    """The bulk-copy triad claims its chunks from a counter the wrapper
+    zeroes for each call (no module-global state shared by launches on
+    different streams), and the default grid is one the SMs hold at once:
+    ``ert_triad`` refuses a larger one rather than cutting it."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.tune import space
+    src = (build.CSRC / "ert.cu").read_text()
+    assert "__device__ unsigned long long" not in src
+    assert re.search(r"int ert_triad\([^)]*void\* next,\s*void\* stream\)",
+                     src)
+    assert len(build._SIGNATURES["ert"]["ert_triad"]) == 11
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kTriadStages|kTriadChunk) = (\d+);", src)}
+    ring = consts["kTriadStages"] * 2 * consts["kTriadChunk"] + 64
+    # an H100 SM has 228 KiB of shared memory, 1 KiB of it reserved a block
+    fit = (228 * 1024) // (ring + 1024)
+    assert fit == 2 == p_config.DEFAULTS["triad"].get("blocks_per_sm") == \
+        max(space.TRIAD_BLOCKS_PER_SM)
+    assert "blocks > sms * per_sm" in src

@@ -247,11 +247,20 @@ def test_the_library_interface_is_declared():
     cfg = kc.default_config("ssd_scan")
     assert {k: cfg.get(k) for k in ("block_q", "block_p", "threads",
                                     "max_chunk", "max_state")} == {
-        "block_q": 64, "block_p": 32, "threads": 256, "max_chunk": 256,
+        "block_q": 64, "block_p": 64, "threads": 256, "max_chunk": 256,
         "max_state": 128}
-    for const in ("kBQ = 64", "kTP = 32", "kWarps = 8", "kQMax = 256",
+    for const in ("kBQ = 64", "kBP = 64", "kOutWarps = 8", "kQMax = 256",
                   "kNMax = 128"):
         assert const in src
+    # the three launches (C·Bᵀ and the increments, the pass over the
+    # chunks, the outputs), and the tensor cores at fp32 accuracy (3xTF32)
+    assert "ssd_pass_kernel<<<" in src
+    for kernel in ("ssd_chunk_kernel", "ssd_out_kernel"):
+        assert f"{kernel}<true>" in src and f"{kernel}<false>" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cvt.rna.tf32.f32" in src
+    # the scratch the wrapper allocates: ssd_scan_fwd's three extra pointers
+    assert len(sig["ssd_scan_fwd"]) == 16
 
 
 # --------------------------------------------------------------------------

@@ -201,13 +201,18 @@ def test_records_carry_their_kernels_library_digest(tmp_path, monkeypatch):
 
 def test_multi_pass_triad_space_holds_resident_grids_only():
     # reps passes of a grid that runs in waves would re-read a late
-    # wave's slice from L2 and read above the HBM roof
+    # wave's slice from L2 and read above the HBM roof; the bulk-copy
+    # kernel's 96 KiB ring lets an SM hold two blocks, and it refuses a
+    # larger grid, so no candidate asks for one, with reps or without
     multi = sp.candidates("triad", (1 << 26, 8), "float32", "cuda")
-    assert all(c.dict["threads"] * c.dict["blocks_per_sm"]
-               <= sp.THREADS_PER_SM for c in multi)
     single = sp.candidates("triad", (1 << 26,), "float32", "cuda")
-    assert len(single) == len(sp.THREADS) * len(sp.BLOCKS_PER_SM) > \
-        len(multi)
+    for cands in (multi, single):
+        assert all(c.dict["threads"] * c.dict["blocks_per_sm"]
+                   <= sp.THREADS_PER_SM for c in cands)
+        assert {c.dict["blocks_per_sm"] for c in cands} == \
+            set(sp.TRIAD_BLOCKS_PER_SM) == {1, 2}
+        assert len(cands) == len(sp.THREADS) * len(sp.TRIAD_BLOCKS_PER_SM)
+    assert kc.DEFAULTS["triad"].get("blocks_per_sm") == 2
 
 
 def test_best_config_falls_back_to_defaults_on_a_miss(tmp_path):
