@@ -34,7 +34,7 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    ragged P and N (``SSD_SHAPES``), and its row states the GFLOP its tiles execute and
    its bound on fp32 FMAs beside the one on 3xTF32 tensor cores, which it
    runs on;
-4. drives five main paths, each with every launch count set to 0 just
+4. drives six main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
@@ -77,11 +77,22 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       beside ``"static"``, and a record that reads back with its
       ``kernel_configs`` and ``dispatch_table`` and whose every fused
       launch found a tuned config;
+   f. DeepCAM, the paper's network (:func:`deepcam_path`): stem width 64
+      (41,593,491 params in 370 leaves) on (2, 768, 1152, 16) images,
+      AMP O1, ``static``, both lowerings (``reference``: every norm in
+      fp32; ``fused``: norms folded into the convs): the fwd, bwd and
+      opt phases profiled (conv FLOPs must equal the analytic count over
+      the 67 convs, 3x it less the stem's input gradient, and 0; one
+      ``fused_adamw`` launch per leaf per opt call; ``reference``'s fwd
+      must hold more zero-AI launches and bytes than ``fused``'s; finite
+      losses that agree), 3 steps at ``reference``, then a record that
+      reads back;
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
    on the card against the same functions on the host (the port's CPU
    path, which the tests hold against the JAX reference): glm4-9b at
    einsum and flash attention, mamba2-1.3b at the SSD kernel (the
-   kernels on the card, their plain versions on the host);
+   kernels on the card, their plain versions on the host), DeepCAM in
+   both lowerings (fwd of each, a train step of each);
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Every step runs in one workspace, ``build/chip_workspace``, emptied at
@@ -941,13 +952,15 @@ def bound(nbytes: float, nflops: float, cls: str, sheet,
 
 
 def phase_summary(label: str, ph: str, prof, sheet,
-                  custom: str = "flash_attention") -> tuple[float, float]:
+                  custom: str = "flash_attention",
+                  dense: str = "matmul") -> tuple[float, float]:
     """Print one measured phase of a profile: wall against the datasheet
     bound, peak memory, launches, zero-AI launches, FLOPs and bytes;
-    returns (matmul FLOPs, FLOPs of the ``custom`` kernel's records)."""
+    returns (FLOPs of the ``dense`` category — matmul, or conv —, FLOPs of
+    the ``custom`` kernel's records)."""
     from repro_torch.core.roofline import roofline_terms
     pr, ana = prof.data[ph], prof.analyses[ph]
-    mm = sum(k.total_flops for k in ana.kernels if k.category == "matmul")
+    mm = sum(k.total_flops for k in ana.kernels if k.category == dense)
     fl = sum(k.total_flops for k in ana.kernels if k.opcode == custom)
     z_inv, z_bytes = ana.zero_ai_census()["zero-AI"]
     bound_ms = 1e3 * roofline_terms(ana, sheet).bound_overlap_s
@@ -955,7 +968,7 @@ def phase_summary(label: str, ph: str, prof, sheet,
           f"{pr.measure_iters}) | datasheet bound {bound_ms:.3f} ms | peak "
           f"device memory {pr.peak_device_bytes / 1e9:.2f} GB | launches "
           f"{sum(k.exec_count for k in ana.kernels)}, zero-AI {z_inv} "
-          f"({z_bytes / 1e9:.3f} GB) | matmul FLOPs {mm:.0f} | {custom} "
+          f"({z_bytes / 1e9:.3f} GB) | {dense} FLOPs {mm:.0f} | {custom} "
           f"FLOPs {fl:.0f} | HBM bytes {ana.total_hbm_bytes:.0f}")
     return mm, fl
 
@@ -1561,12 +1574,210 @@ def tuning_path(cfg, sheet, untuned, *, device: str = "cuda",
     return counts
 
 
-def smoke_checks(dev, arch: str, fwd_runs: dict, step_run) -> None:
+#: relative tolerance between the fwd losses of DeepCAM's two lowerings
+#: under O1: ``reference`` runs every norm in fp32, ``fused`` folds it into
+#: the conv and stays in bf16, so they round at other places.  At random
+#: initialisation the logits are small and the loss sits near ln 3, so the
+#: bound is kept tight.  Set from the reading on the host at the smoke size
+#: (width 8, (64, 96), batch 2): 0, both losses 1.0986089
+DEEPCAM_LOSS_RTOL = 1e-4
+
+
+def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
+                 batch: int = 2, smoke: bool = False,
+                 workspace: str | None = None) -> dict:
+    """Main path f: DeepCAM (``cfg``, the registry's ``deepcam``: the
+    paper's network) at full width at the paper's resolution, batch
+    ``batch``, AMP O1, ``fusion="static"``, in both lowerings (``smoke``
+    with the smoke config rehearses it on the host at width 8 and
+    (64, 96)):
+
+    1. each lowering's fwd, bwd and opt phases profiled with
+       ``measure=True``: wall, bound and %-of-roofline against the
+       datasheet and the ``measured`` ceilings, peak memory, launches,
+       zero-AI launches and bytes, conv FLOPs and HBM bytes.  The fwd conv
+       FLOPs must equal the analytic count, the bwd's 3x it less the
+       stem's input gradient, the opt's 0; ``fused_adamw`` must launch
+       once per leaf in each opt call (and the opt walk hold one record
+       per leaf);
+    2. the reference benchmark's facts: bwd FLOPs above fwd FLOPs, the
+       opt phase memory-bound; ``reference``'s fwd holds more zero-AI
+       launches and more HBM bytes than ``fused``'s (paper Table III);
+       the two fwd losses finite and within :data:`DEEPCAM_LOSS_RTOL`;
+    3. 3 steps of ``make_train_step`` at ``reference``, each with a finite
+       loss, then ``Session.record`` and ``Session.report``, which must
+       read the same run back.
+
+    Launch counts are set to 0 just before and read just after; returns
+    them."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.deepcam import IMAGE_HW, SMOKE_HW
+    from repro_torch.core.roofline import roofline_terms
+    from repro_torch.models import api as M
+    from repro_torch.models import deepcam as DC
+    from repro_torch.models.params import count, leaves
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    hw = SMOKE_HW if smoke else IMAGE_HW
+    width = cfg.d_model
+    spec = DC.deepcam_spec(width)
+    n_leaves = len(leaves(spec))
+    want_fwd = DC.conv_flops(width, hw, batch)
+    _, h, w, k, cin, cout, _ = DC.conv_plan(width, hw)[0]
+    stem_dgrad = 2 * batch * h * w * k * k * cin * cout
+    want = {"fwd": want_fwd, "bwd": 3 * want_fwd - stem_dgrad, "opt": 0}
+    iters, warmup = 5, 2
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def empty_cache():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    print(f"== 4f. main path: {cfg.name}, stem width {width} "
+          f"({count(spec)} params in {n_leaves} leaves), images "
+          f"({batch}, {hw[0]}, {hw[1]}, {DC.IN_CHANNELS}), amp O1, fusion "
+          f"static, both lowerings (fwd conv FLOPs must be {want_fwd} over "
+          f"{len(DC.conv_plan(width, hw))} convs, bwd {want['bwd']})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device, workspace=workspace)
+    census, losses = {}, {}
+    for impl in ("reference", "fused"):
+        before = kernels.launch_counts()["fused_adamw"]
+        t0 = time.perf_counter()
+        prof = s.profile("deepcam", smoke=smoke, batch=batch, amp="O1",
+                         fusion="static", impl=impl, measure=True,
+                         iters=iters, warmup=warmup)
+        for ph in ("fwd", "bwd", "opt"):
+            conv, _ = phase_summary(impl[:6], ph, prof, sheet,
+                                    custom="adamw_", dense="conv")
+            ana, wall = prof.analyses[ph], prof.data[ph].wall_s
+            frac = {name: roofline_terms(ana, m).bound_overlap_s / wall
+                    for name, m in (("datasheet", sheet),
+                                    ("measured", measured))}
+            print(f"  {impl[:6]:<6} {ph}: {100 * frac['datasheet']:.2f}% of "
+                  f"the datasheet roofline, {100 * frac['measured']:.2f}% of "
+                  f"the measured ({roofline_terms(ana, measured).dominant}"
+                  "-bound)")
+            if conv != want[ph]:
+                raise AssertionError(f"{impl} {ph}: conv FLOPs {conv} != "
+                                     f"{want[ph]}")
+        fwd, bwd, opt = (prof.analyses[ph] for ph in ("fwd", "bwd", "opt"))
+        census[impl] = fwd
+        losses[impl] = float(prof.data["fwd"].output)
+        conv_share = sum(k.total_flops for k in fwd.kernels
+                         if k.category == "conv") / fwd.total_flops
+        opt_dom = roofline_terms(opt, sheet).dominant
+        print(f"  {impl[:6]:<6} fwd loss {losses[impl]:.7f} | conv FLOP share "
+              f"of fwd {conv_share:.4f} | bwd FLOPs {bwd.total_flops:.0f} vs "
+              f"fwd {fwd.total_flops:.0f} | opt {opt_dom}-bound | profile "
+              f"call {time.perf_counter() - t0:.1f} s")
+        if not math.isfinite(losses[impl]):
+            raise AssertionError(f"{impl} fwd loss is not finite")
+        if not bwd.total_flops > fwd.total_flops or opt_dom != "memory":
+            raise AssertionError(f"{impl}: bwd FLOPs not above fwd, or opt "
+                                 f"{opt_dom}-bound")
+        # one fused AdamW launch per leaf in each of the warmup + iters
+        # opt calls (fwd and bwd launch none); the walk one record per leaf
+        launched = kernels.launch_counts()["fused_adamw"] - before
+        walked = sum(k.exec_count for k in opt.kernels
+                     if k.opcode == "adamw_")
+        print(f"  {impl[:6]:<6} fused_adamw: {launched} launches "
+              f"({warmup + iters} opt calls x {n_leaves} leaves), {walked} "
+              "in the opt walk")
+        if walked != n_leaves or (cuda and launched !=
+                                  (warmup + iters) * n_leaves):
+            raise AssertionError(f"{impl}: fused_adamw launched {launched} "
+                                 f"times, walked {walked}")
+        if impl == "reference":
+            print(prof.render(charts=0, top_kernels=8))
+        del prof, fwd, bwd, opt
+        empty_cache()
+
+    z = {impl: a.zero_ai_census() for impl, a in census.items()}
+    for impl, c in z.items():
+        print(f"  census {impl:<9} fwd: zero-AI {c['zero-AI'][0]} launches, "
+              f"{c['zero-AI'][1]} B | non zero-AI {c['non zero-AI'][0]} "
+              f"launches, {c['non zero-AI'][1]} B | HBM bytes "
+              f"{census[impl].total_hbm_bytes:.0f}")
+    if not (z["reference"]["zero-AI"][0] > z["fused"]["zero-AI"][0]
+            and census["reference"].total_hbm_bytes >
+            census["fused"].total_hbm_bytes):
+        raise AssertionError("reference fwd does not hold more zero-AI "
+                             "launches and HBM bytes than fused")
+    rel = abs(losses["fused"] - losses["reference"]) / abs(
+        losses["reference"])
+    print(f"  fwd loss reference {losses['reference']:.7f} fused "
+          f"{losses['fused']:.7f}: relative difference {rel:.3e} (rtol "
+          f"{DEEPCAM_LOSS_RTOL:g})")
+    if not rel <= DEEPCAM_LOSS_RTOL:
+        raise AssertionError(f"the two lowerings' losses differ by {rel}")
+    del census
+
+    run = RunConfig(amp="O1", fusion="static", impl="reference")
+    model = M.build(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg, ShapeSpec("t", 0, batch, "train"),
+                                    batch, gen, device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  reference train step {i + 1}: loss {loss:.6f} | grad norm "
+              f"{float(metrics['grad_norm']):.6f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"deepcam train step {i + 1}: loss {loss}")
+    if cuda:
+        print(f"  train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, step, batch_t
+    empty_cache()
+
+    rec = s.record("deepcam", smoke=smoke, batch=batch, amp="O1",
+                   fusion="static", impl="reference", iters=3, warmup=1)
+    print(rec.render())
+    rep = Session(machine=sheet, device=device,
+                  workspace=s.workspace).report("deepcam")
+    print(f"  report of {rep.provenance['store']}: run "
+          f"{rep.data.run_id} (record wrote {rec.data.run_id})")
+    if rep.data.run_id != rec.data.run_id or \
+            list(rep.phases) != ["fwd", "bwd", "opt"]:
+        raise AssertionError("report did not read back the recorded run")
+    counts = kernels.launch_counts()
+    print(f"launches on main path f: {json.dumps(counts)}")
+    if cuda and counts["fused_adamw"] <= 0:
+        raise AssertionError("fused_adamw was not launched on main path f")
+    empty_cache()
+    return counts
+
+
+#: the learning rate of ``make_train_step``'s default
+LR = 3e-4
+
+
+def smoke_checks(dev, arch: str, fwd_runs: dict, step_run,
+                 kink_share: float = 0.0) -> None:
     """Step 5 for one registry config at its smoke size (seq 32, batch 4):
     the fwd at each of ``fwd_runs`` and one train step at ``step_run``, on
     the card against the same functions on the host (the port's CPU path,
     which the tests hold against the JAX reference; a routed kernel runs
-    on the card, its plain version on the host)."""
+    on the card, its plain version on the host).  The params after the
+    step agree within 2e-5, but for at most ``kink_share`` of their
+    elements, which must agree within 2·lr: where a relu's input lies
+    within rounding of 0, the card and the host may put it on either
+    side, which moves the gradient of every weight before it, and AdamW's
+    first step (about lr·sign(g)) turns a small change in a near-zero
+    gradient into up to 2·lr."""
     import torch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_smoke
@@ -1604,19 +1815,25 @@ def smoke_checks(dev, arch: str, fwd_runs: dict, step_run) -> None:
     st_d, m_d = step(st_d, batch_d)
     print(f"  {arch} smoke train step ({step_run.amp}, fusion "
           f"{step_run.fusion}, attn {step_run.attn_impl}, ssd "
-          f"{step_run.ssd_impl}): loss card {float(m_d['loss']):.7f} host "
+          f"{step_run.ssd_impl}, impl {step_run.impl}): loss card "
+          f"{float(m_d['loss']):.7f} host "
           f"{float(m_c['loss']):.7f}; grad norm card "
           f"{float(m_d['grad_norm']):.7f} host {float(m_c['grad_norm']):.7f}")
     if not math.isclose(float(m_d["loss"]), float(m_c["loss"]),
                         rel_tol=1e-5):
         raise AssertionError(f"{arch} smoke train loss differs between card "
                              "and host")
-    err = max(max_abs_err(a.cpu(), b)[0] for a, b in zip(
-        tree_flatten(st_d.params)[0], tree_flatten(st_c.params)[0]))
+    diff = torch.cat([(a.cpu().double() - b.double()).abs().ravel()
+                      for a, b in zip(tree_flatten(st_d.params)[0],
+                                      tree_flatten(st_c.params)[0])])
+    err, past = float(diff.max()), int((diff > 2e-5).sum())
+    allowed = int(kink_share * diff.numel())
     print(f"  {arch} smoke params after one step: max_abs_err {err:.3e} "
-          "(atol 2e-5)")
-    if not err <= 2e-5:
-        raise AssertionError(f"{arch} smoke params differ by {err}")
+          f"(atol 2e-5); {past} of {diff.numel()} elements past it "
+          f"(allowed {allowed}, each within 2·lr = {2 * LR:g})")
+    if past > allowed or not err <= max(2e-5, 2 * LR if allowed else 0):
+        raise AssertionError(f"{arch} smoke params differ by {err} "
+                             f"({past} elements past 2e-5)")
 
 
 def main() -> int:
@@ -1795,6 +2012,10 @@ def main() -> int:
     counts_e = tuning_path(cfg, sheet, meas, workspace=workspace)
     torch.cuda.empty_cache()
 
+    # 4f. main path: DeepCAM at the paper's resolution, both lowerings -------
+    deepcam_path(get_config("deepcam"), sheet, meas, workspace=workspace)
+    torch.cuda.empty_cache()
+
     # 5. the smoke fwd and train step on the card against the host -----------
     from repro_torch.configs.base import RunConfig
     print("== 5. smoke fwd and train step: card against host (O0 loss rtol "
@@ -1811,6 +2032,15 @@ def main() -> int:
                  {"ssd kernel (kernel on the card)": RunConfig(
                      amp="O0", ssd_impl="kernel")},
                  RunConfig(amp="O0", fusion="static", ssd_impl="kernel"))
+    # DeepCAM's 60 relus: on the host the fused lowering's fp32 step puts
+    # one relu input on the other side of 0 from its fp64 step, and 12 of
+    # 670,805 params then differ by more than 2e-5 (at most 1.25e-4); an
+    # H100 read 1.07e-4 against the host
+    for impl in ("reference", "fused"):
+        smoke_checks(dev, "deepcam",
+                     {impl: RunConfig(amp="O0", impl=impl)},
+                     RunConfig(amp="O0", fusion="static", impl=impl),
+                     kink_share=1e-4)
 
     # 6. results -------------------------------------------------------------
     out = []

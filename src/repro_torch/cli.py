@@ -9,8 +9,9 @@ subcommands of ``python -m repro``).
 * ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
   phases (kernel table, three-term bound, roofline chart) at ``--fusion``
   ``off`` or ``static``, ``--attn-impl`` ``einsum``, ``chunked`` or
-  ``flash`` and ``--ssd-impl`` ``xla`` or ``kernel``; ``--measure`` also
-  times them on the device;
+  ``flash``, ``--ssd-impl`` ``xla`` or ``kernel`` and (DeepCAM)
+  ``--impl`` ``reference`` or ``fused``; ``--measure`` also times them on
+  the device;
 * ``record``       — measure the phases and append a record to the trace
   store (``--store``, default the workspace's ``trace.jsonl``);
   ``--scale-wall`` multiplies the stored wall times (regression drills);
@@ -32,6 +33,8 @@ Examples::
         --fusion static --phase bwd
     python -m repro_torch profile --config mamba2-1.3b --device cpu \
         --ssd-impl kernel --fusion static --phase bwd
+    python -m repro_torch profile --config deepcam --smoke --device cpu \
+        --impl fused
     python -m repro_torch record --config glm4-9b --full --layers 4 \
         --seq 2048 --batch 2 --fusion static --attn-impl flash
     python -m repro_torch report
@@ -79,8 +82,9 @@ def cmd_profile(args) -> int:
                         phases=tuple(args.phase or ("fwd", "bwd", "opt")),
                         seq=args.seq, batch=args.batch, amp=args.amp,
                         fusion=args.fusion, attn_impl=args.attn_impl,
-                        ssd_impl=args.ssd_impl, smoke=not args.full,
-                        n_layers=args.layers, measure=args.measure,
+                        ssd_impl=args.ssd_impl, impl=args.impl,
+                        smoke=not args.full, n_layers=args.layers,
+                        measure=args.measure,
                         iters=args.iters,
                         warmup=args.warmup)
     except (KeyError, NotImplementedError) as e:
@@ -96,7 +100,8 @@ def cmd_record(args) -> int:
         res = s.record(args.config, seq=args.seq, batch=args.batch,
                        amp=args.amp, fusion=args.fusion,
                        attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
-                       smoke=not args.full, n_layers=args.layers,
+                       impl=args.impl, smoke=not args.full,
+                       n_layers=args.layers,
                        iters=args.iters,
                        warmup=args.warmup, scale_wall=args.scale_wall)
     except (RuntimeError, KeyError, NotImplementedError) as e:
@@ -158,7 +163,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     def workload(p) -> None:
         from repro_torch.configs.base import (ATTN_IMPLS, FUSION_MODES,
-                                              SSD_IMPLS)
+                                              IMPLS, SSD_IMPLS)
         p.add_argument("--config", required=True,
                        help="registry config name (see repro_torch.configs)")
         p.add_argument("--seq", type=int, default=32)
@@ -177,8 +182,16 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--ssd-impl", default="xla", choices=SSD_IMPLS,
                        help="SSD scan lowering (SSM configs); 'kernel' "
                             "runs the ssd_scan kernel")
-        p.add_argument("--full", action="store_true",
-                       help="full config instead of the smoke variant")
+        p.add_argument("--impl", default="reference", choices=IMPLS,
+                       help="DeepCAM lowering: 'reference' runs every norm "
+                            "in fp32, 'fused' folds each norm into its conv "
+                            "('auto' fusion upgrades the default to "
+                            "'fused')")
+        smoke = p.add_mutually_exclusive_group()
+        smoke.add_argument("--full", action="store_true",
+                           help="full config instead of the smoke variant")
+        smoke.add_argument("--smoke", action="store_true",
+                           help="the smoke variant (the default)")
         p.add_argument("--layers", type=int, default=None,
                        help="cut the depth to this many layers (widths "
                             "kept)")

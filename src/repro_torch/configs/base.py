@@ -22,6 +22,8 @@ ATTN_IMPLS = ("einsum", "chunked", "flash")
 SSD_IMPLS = ("xla", "kernel")
 REMAT_MODES = ("none", "dots", "full")
 OPTIMIZERS = ("adamw", "adafactor")
+#: DeepCAM lowerings (the paper's TF-vs-PyTorch comparison)
+IMPLS = ("reference", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +126,8 @@ class RunConfig:
     """Execution policy.  The port runs every ``fusion`` mode (``"auto"`` /
     ``"measured"`` route by the measured dispatch table,
     ``repro_torch.tune.dispatch``), the ``einsum``, ``chunked`` and
-    ``flash`` attention, the ``xla`` and ``kernel`` SSD scans and AdamW;
+    ``flash`` attention, the ``xla`` and ``kernel`` SSD scans, both
+    DeepCAM lowerings (``impl``) and AdamW;
     the other settings raise until their slice lands."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
@@ -144,6 +147,9 @@ class RunConfig:
     microbatches: int = 1
     # optimizer: "adamw" | "adafactor"
     optimizer: str = "adamw"
+    # deepcam lowering: "reference" (every norm round-trips through fp32)
+    # | "fused" (every norm folded into its conv)
+    impl: str = "reference"
 
     def __post_init__(self):
         if self.amp not in AMP_MODES:
@@ -163,6 +169,8 @@ class RunConfig:
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {self.optimizer!r}; "
                              f"valid: {OPTIMIZERS}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; valid: {IMPLS}")
         if self.attn_chunk < 1:
             raise ValueError(f"attn_chunk must be >= 1, got "
                              f"{self.attn_chunk}")

@@ -1,7 +1,9 @@
 """Config registry: name → (full config, smoke config).
 
 The port registers a config once its model family is ported: the dense
-``glm4-9b`` and the SSM ``mamba2-1.3b``.
+``glm4-9b``, the SSM ``mamba2-1.3b`` and the paper's own CNN ``deepcam``
+(which, as in the reference, is not one of the LM ``ARCHS``: it takes
+image shapes, not the LM shape grid).
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "glm4-9b": "glm4_9b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "deepcam": "deepcam",
 }
 
-ARCHS = tuple(_MODULES)
+ARCHS = tuple(k for k in _MODULES if k != "deepcam")
 
 
 def _module(name: str):

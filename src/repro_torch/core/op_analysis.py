@@ -11,10 +11,16 @@ kernel:
 * identical (op, shapes, dtypes) records are merged and ``exec_count``
   counts how often they ran — the counterpart of the reference's
   while-loop trip multiplier, which keeps a 40-layer table short;
-* FLOPs: matmul-family ops by ``torch.utils.flop_counter``'s formulas,
-  elementwise / reduction / transcendental ops by the reference's
-  per-opcode rules (``hlo_analysis._op_flops``), composite aten ops by the
-  sum of the HLO ops they stand for;
+* FLOPs: matmul-family ops and convolutions (forward and backward) by
+  ``torch.utils.flop_counter``'s formulas — 2·B·H_out·W_out·k²·c_in·c_out
+  a conv, the bias add not included; the backward counts only the
+  gradients its ``output_mask`` asks for —, elementwise / reduction /
+  transcendental ops by the reference's per-opcode rules
+  (``hlo_analysis._op_flops``), composite aten ops by the sum of the HLO
+  ops they stand for, and the bilinear upsample by what its kernel
+  computes (:data:`UPSAMPLE_FLOPS`, :data:`UPSAMPLE_BWD_FLOPS`);
+* categories are the reference's labels: ``matmul``, ``conv``,
+  ``elementwise``, ``reduction``, ``custom`` and ``zero-ai``;
 * the ceiling class comes from the operand dtype (:func:`dtype_class`);
 * ``hbm_bytes`` = operand bytes + result bytes.  An unfused aten op is
   its own kernel, so every intermediate crosses device memory and
@@ -83,7 +89,7 @@ class KernelRecord:
     flops_by_class: dict[str, float]  # ceiling class → FLOPs (one execution)
     hbm_bytes: int                    # operand + result bytes (one execution)
     vmem_bytes: int                   # on-chip level traffic (one execution)
-    category: str                     # matmul|elementwise|reduction|zero-ai
+    category: str            # matmul|conv|elementwise|reduction|custom|zero-ai
 
     @property
     def flops(self) -> float:
@@ -180,6 +186,20 @@ _FREE = {
 }
 
 _MATMUL = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
+_CONV = {aten.convolution, aten.convolution_backward}
+#: ops whose FLOPs come from ``torch.utils.flop_counter`` and whose f32
+#: operands take the AMP policy's class (``matmul_class``)
+_DENSE = _MATMUL | _CONV
+
+#: bilinear upsample (``align_corners=False``, no antialias), per output
+#: element: two horizontal lerps and one vertical, each
+#: ``w0·a + w1·b`` (2 multiplies, 1 add); the weights are per row and
+#: column, not per element
+UPSAMPLE_FLOPS = 9
+#: its backward, per element of the incoming gradient (the forward's
+#: output): four taps, each ``h·w·g`` (2 multiplies) added into the input
+#: gradient (1 add)
+UPSAMPLE_BWD_FLOPS = 12
 
 # FLOPs per *output* element (reference: _ELEMENTWISE_1 / _TRANSCENDENTAL
 # count 1 per element; a composite aten op counts the HLO ops it stands for)
@@ -192,6 +212,8 @@ _PER_OUT = {
     aten.sqrt: 1, aten.rsqrt: 1, aten.pow: 1, aten.sigmoid: 1,
     aten.sin: 1, aten.cos: 1, aten.tan: 1, aten.erf: 1,
     aten.silu: 2,           # logistic + multiply (jax.nn.silu)
+    aten.relu: 1,           # max(x, 0) (jax.nn.relu)
+    aten.upsample_bilinear2d: UPSAMPLE_FLOPS,
     # elementwise backward ops, counted as the HLO ops of their formulas
     aten.sigmoid_backward: 3,      # g·(1 - y)·y
     aten.tanh_backward: 3,         # g·(1 - y²)
@@ -206,6 +228,7 @@ _REDUCE = {
     aten._softmax: (5, 0),             # max, sub, exp, sum, div
     aten.logsumexp: (4, 2),            # max, sub, exp, sum; log, add
     aten._softmax_backward_data: (4, 0),   # y·(g - sum(g·y))
+    aten._log_softmax_backward_data: (4, 0),   # g - exp(y)·sum(g)
 }
 
 
@@ -223,9 +246,15 @@ def _shape_str(t: torch.Tensor) -> str:
 
 def _op_flops(packet, args, kwargs, out, inputs: list[torch.Tensor],
               outputs: list[torch.Tensor]) -> float:
-    if packet in _MATMUL:
+    if packet in _DENSE:
         fn = flop_counter.flop_registry[packet]
         return float(fn(*args, **kwargs, out_val=out))
+    if packet is aten.upsample_bilinear2d_backward:
+        return float(UPSAMPLE_BWD_FLOPS * inputs[0].numel())
+    if packet is aten._log_softmax:
+        # max, sub, exp, sum and sub per element; one log per row
+        x = inputs[0]
+        return float(5 * x.numel() + x.numel() // max(x.shape[args[1]], 1))
     n_out = sum(t.numel() for t in outputs)
     if packet in _PER_OUT:
         return float(_PER_OUT[packet] * n_out)
@@ -239,11 +268,13 @@ def _op_flops(packet, args, kwargs, out, inputs: list[torch.Tensor],
 def _categorize(packet, flops: float, port: bool) -> str:
     if packet in _MATMUL:
         return "matmul"
+    if packet in _CONV:
+        return "conv"
     if port:
         return "custom"
     if not flops:
         return "zero-ai"
-    if packet in _REDUCE:
+    if packet in _REDUCE or packet is aten._log_softmax:
         return "reduction"
     return "elementwise"
 
@@ -305,7 +336,7 @@ class _OpRecorder(TorchDispatchMode):
         flops = (_custom_flops(func, args) if port else
                  _op_flops(packet, args, kwargs, out, inputs, outputs))
         cls = _flop_class(packet, inputs, outputs)
-        if cls == "f32" and self.matmul_class and packet in _MATMUL:
+        if cls == "f32" and self.matmul_class and packet in _DENSE:
             cls = self.matmul_class
         nbytes = sum(map(_nbytes, inputs)) + sum(map(_nbytes, outputs))
         if port:
@@ -336,7 +367,7 @@ def analyze_fn(fn: Callable, args: Sequence[Any],
     ``args`` may hold tensors on any device; they are replaced by meta
     tensors of the same shape and dtype, so the walk allocates nothing and
     launches nothing.  ``matmul_class`` is the reference's policy override
-    for f32-typed matmuls (it is a no-op when the operands are bf16).
+    for f32-typed matmuls and convs (a no-op when the operands are bf16).
     """
     rec = _OpRecorder(matmul_class)
     meta_args = to_meta(tuple(args))

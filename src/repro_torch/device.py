@@ -3,6 +3,12 @@
 Entry points default to ``"cuda"``.  Without a CUDA device they raise and
 name the device that was asked for; they run on the host only when the
 caller passes ``device="cpu"``.  There is no silent fallback.
+
+fp32 means fp32 on the card: resolving a CUDA device turns cuDNN's TF32
+off (``torch.backends.cudnn.allow_tf32``, True by default), as PyTorch's
+default already has it for matmuls, so an O0 conv computes what the
+reference's fp32 conv does.  It is a process setting because a conv's
+backward reads the flag when it runs, after the forward has returned.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve_device(device: str | torch.device = DEFAULT_DEVICE
                    ) -> torch.device:
-    """``torch.device`` for ``device``, or raise if it is not usable here."""
+    """``torch.device`` for ``device``, or raise if it is not usable here
+    (a CUDA device also turns cuDNN's TF32 off, see the module doc)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,6 +32,7 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE
                 f"device {str(device)!r} was asked for, but this torch "
                 f"({torch.__version__}) finds no CUDA device; pass "
                 "device='cpu' to run the plain PyTorch versions on the host")
+        torch.backends.cudnn.allow_tf32 = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev

@@ -1,9 +1,10 @@
 """Parameter specification utilities (port of ``repro.models.params``).
 
-A model is described by a nested dict of :class:`P` specs (shape + logical
-axis names + init rule).  Parameters keep the reference's einsum layouts:
-``wq`` (D, H, hd), ``wk``/``wv`` (D, K, hd), ``wo`` (H, hd, D), and
-layer-stacked leaves with a leading ``n_layers`` axis.
+A model is described by a nested tree of :class:`P` specs (shape + logical
+axis names + init rule): dicts, and lists where the reference's tree has
+lists (DeepCAM's ``stages``).  Parameters keep the reference's layouts:
+``wq`` (D, H, hd), ``wk``/``wv`` (D, K, hd), ``wo`` (H, hd, D),
+layer-stacked leaves with a leading ``n_layers`` axis, HWIO conv kernels.
 """
 
 from __future__ import annotations
@@ -29,19 +30,26 @@ class P:
 
 
 def tree_map_specs(fn: Callable[[P], Any], specs: Any) -> Any:
+    """``fn`` over every spec, keeping the tree's structure: a dict's keys
+    in sorted order (``jax.tree.flatten``'s), a list's items in index
+    order."""
     if isinstance(specs, P):
         return fn(specs)
-    return {k: tree_map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [tree_map_specs(fn, v) for v in specs]
+    return {k: tree_map_specs(fn, specs[k]) for k in sorted(specs)}
 
 
 def leaves(specs: Any, prefix: str = "") -> list[tuple[str, P]]:
     """(path, spec) pairs in the order the reference's ``jax.tree.flatten``
-    visits a dict tree (keys sorted)."""
+    visits the tree (dict keys sorted, list items by index; a list item's
+    path segment is its index)."""
     if isinstance(specs, P):
         return [(prefix, specs)]
+    keys = range(len(specs)) if isinstance(specs, list) else sorted(specs)
     out = []
-    for k in sorted(specs):
-        out.extend(leaves(specs[k], f"{prefix}/{k}" if prefix else k))
+    for k in keys:
+        out.extend(leaves(specs[k], f"{prefix}/{k}" if prefix else str(k)))
     return out
 
 
@@ -77,9 +85,10 @@ def init(specs: Any, generator: torch.Generator | None,
          device: str | torch.device = "cpu") -> Any:
     """Tensors for a spec tree, by the reference's rules: zeros, ones, or a
     float32 normal draw times 1/sqrt(fan-in) (0.02 for ``small_normal``),
-    cast to ``dtype``.  Leaves are drawn from ``generator`` in sorted-key
-    order.  On the ``meta`` device nothing is drawn or allocated (the
-    analytical path); ``generator`` may then be None.
+    cast to ``dtype``.  Leaves are drawn from ``generator`` in
+    :func:`leaves` order, and lists stay lists.  On the ``meta`` device
+    nothing is drawn or allocated (the analytical path); ``generator`` may
+    then be None.
     """
     device = torch.device(device)
 
@@ -98,14 +107,8 @@ def init(specs: Any, generator: torch.Generator | None,
                         device=device)
         return w.mul_(scale).to(dtype)      # in place: one full-size buffer
 
-    out: dict = {}
-    for path, p in leaves(specs):
-        node = out
-        *parents, last = path.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[last] = one(p)
-    return out
+    # draws in ``leaves`` order: tree_map_specs visits the same order
+    return tree_map_specs(one, specs)
 
 
 def _port_state_types() -> dict[str, type]:
@@ -129,6 +132,8 @@ def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     """
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax_numpy(v, device) for v in tree]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         name = type(tree).__name__
         types = _port_state_types()

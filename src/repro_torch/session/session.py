@@ -6,11 +6,12 @@ application against it, record measured runs and read them back::
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
-on the host.  ``profile`` and ``record`` build a registry LM's fwd, bwd
-and opt phases (``repro_torch.train.step.make_phases``) at any
+on the host.  ``profile`` and ``record`` build a registry config's fwd,
+bwd and opt phases (``repro_torch.train.step.make_phases``) at any
 ``fusion`` mode, ``attn_impl`` ``"einsum"``, ``"chunked"`` or ``"flash"``
-(dense) and ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM).  Records go to
-the workspace's trace store
+(dense), ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM) and ``impl``
+``"reference"`` or ``"fused"`` (DeepCAM, on its image batch).  Records
+go to the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
 schema.  ``tune`` searches kernel launch configs, and (``dispatch=True``)
 the fused-vs-reference dispatch table, into the workspace's tune store;
@@ -114,14 +115,17 @@ class Session:
                 *, phases: Sequence[str] = TRAIN_PHASES,
                 seq: int = 32, batch: int = 4, amp: str = "O1",
                 fusion: str = "off", attn_impl: str = "einsum",
-                ssd_impl: str = "xla", smoke: bool = True,
-                n_layers: int | None = None, measure: bool = False,
-                iters: int = 5, warmup: int = 2) -> RooflineResult:
+                ssd_impl: str = "xla", impl: str = "reference",
+                smoke: bool = True, n_layers: int | None = None,
+                measure: bool = False, iters: int = 5,
+                warmup: int = 2) -> RooflineResult:
         """Aten-op walk of a registry config's phases — or of *your* torch
         function (pass a callable + ``args``).
 
         ``n_layers`` cuts (or sets) the depth of the config, keeping its
-        widths; ``attn_impl`` and ``ssd_impl`` fill ``RunConfig``'s.
+        widths; ``attn_impl``, ``ssd_impl`` and ``impl`` fill
+        ``RunConfig``'s (``seq`` is not read for DeepCAM, whose images
+        take the config's resolution).
         ``measure=True`` also runs the same callable on the session's
         device (parameters drawn there from seed :data:`SEED`) and
         attributes the measured time over its kernels; without it the walk
@@ -131,11 +135,11 @@ class Session:
             return self._profile(target, args, phases=phases, seq=seq,
                                  batch=batch, amp=amp, fusion=fusion,
                                  attn_impl=attn_impl, ssd_impl=ssd_impl,
-                                 smoke=smoke, n_layers=n_layers,
+                                 impl=impl, smoke=smoke, n_layers=n_layers,
                                  measure=measure, iters=iters, warmup=warmup)
 
     def _profile(self, target, args, *, phases, seq, batch, amp, fusion,
-                 attn_impl, ssd_impl, smoke, n_layers, measure, iters,
+                 attn_impl, ssd_impl, impl, smoke, n_layers, measure, iters,
                  warmup) -> RooflineResult:
         from repro_torch.core.profiler import profile_fn
 
@@ -148,7 +152,7 @@ class Session:
             phase_args, run = build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
                 fusion=fusion, attn_impl=attn_impl, ssd_impl=ssd_impl,
-                smoke=smoke, n_layers=n_layers,
+                impl=impl, smoke=smoke, n_layers=n_layers,
                 device=self.device if measure else torch.device("meta"))
             mm = _matmul_class(run)
 
@@ -176,8 +180,8 @@ class Session:
     def record(self, config: str, *, seq: int = 32, batch: int = 4,
                amp: str = "O1", fusion: str = "off",
                attn_impl: str = "einsum", ssd_impl: str = "xla",
-               smoke: bool = True, n_layers: int | None = None,
-               iters: int = 5, warmup: int = 2,
+               impl: str = "reference", smoke: bool = True,
+               n_layers: int | None = None, iters: int = 5, warmup: int = 2,
                scale_wall: float = 1.0,
                meta: Mapping[str, Any] | None = None) -> RooflineResult:
         """Measure one config's train phases on the session's device and
@@ -199,7 +203,7 @@ class Session:
 
         prof = self.profile(config, seq=seq, batch=batch, amp=amp,
                             fusion=fusion, attn_impl=attn_impl,
-                            ssd_impl=ssd_impl, smoke=smoke,
+                            ssd_impl=ssd_impl, impl=impl, smoke=smoke,
                             n_layers=n_layers, measure=True, iters=iters,
                             warmup=warmup)
         ms = {ph: scale_measurement(measurement_from_profile(
@@ -209,7 +213,8 @@ class Session:
             config, ms, machine=self.machine.name,
             meta={"smoke": smoke, "seq": seq, "batch": batch, "amp": amp,
                   "fusion": fusion, "attn_impl": attn_impl,
-                  "ssd_impl": ssd_impl, "n_layers": n_layers,
+                  "ssd_impl": ssd_impl, "impl": impl,
+                  "n_layers": n_layers,
                   "scale_wall": scale_wall,
                   "device": self._provenance()["device"],
                   "kernel_configs": active_kernel_configs(
@@ -329,12 +334,15 @@ class Session:
 def build_phases(config: str, *, phases: Sequence[str], seq: int,
                  batch: int, amp: str, fusion: str, attn_impl: str,
                  ssd_impl: str, smoke: bool, n_layers: int | None,
-                 device: torch.device):
+                 device: torch.device, impl: str = "reference"):
     """({phase: (fn, args)}, run) for a registry config: real tensors on
-    ``device`` (parameters drawn from seed :data:`SEED`), or meta tensors
-    that allocate nothing.  Gradients and optimizer state are built only
-    when the opt phase is asked for; its gradients are zeros, as the
-    reference's, and it updates the params in place."""
+    ``device`` (parameters and batch drawn from seed :data:`SEED`), or
+    meta tensors that allocate nothing.  Gradients and optimizer state are
+    built only when the opt phase is asked for; its gradients are zeros,
+    as the reference's, and it updates the params in place.  A ``cnn``
+    config (DeepCAM) takes its image batch at the config's resolution and
+    the lowering ``impl`` (``fusion="auto"`` upgrades ``reference`` to
+    ``fused``, :func:`repro_torch.models.deepcam.resolve_impl`)."""
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config, get_smoke
     from repro_torch.models import api as M
@@ -349,7 +357,7 @@ def build_phases(config: str, *, phases: Sequence[str], seq: int,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl,
-                    ssd_impl=ssd_impl)
+                    ssd_impl=ssd_impl, impl=impl)
     model = M.build(cfg)
     concrete = device.type != "meta"
     gen = (torch.Generator(device=device).manual_seed(SEED)
