@@ -24,7 +24,13 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    tail), its L2 size and odd sizes, and timed in turns with
    ``torch.add``.  ``ert_gemm`` is held at 8192³ in bf16, fp16 and
    bf16→f32, at a shape ragged in M, N and K (1000³) and at the earlier
-   odd shapes.  ``fused_layernorm`` is held
+   odd shapes.  The multi-tensor AdamW launch is held on DeepCAM's 370
+   leaves (O1 and O2 moments, in place and not), a 3-element leaf beside
+   views at odd offsets, 1,200 small leaves (split into launches of the
+   table's capacity) and two dtype groups, each with its launch count,
+   and timed on the 370 leaves beside the loop of one-leaf launches and
+   ``torch._fused_adamw_`` (eager and host clock, the card's name and
+   power limit beside it).  ``fused_layernorm`` is held
    at its dispatch site's shape (4096, 4096) bf16, odd widths up to
    16384, mixed dtypes and rows whose mean (1e3) is large against their
    spread, with its gradient.  The SSD checks hold the
@@ -83,7 +89,8 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       fp32; ``fused``: norms folded into the convs): the fwd, bwd and
       opt phases profiled (conv FLOPs must equal the analytic count over
       the 67 convs, 3x it less the stem's input gradient, and 0; one
-      ``fused_adamw`` launch per leaf per opt call; ``reference``'s fwd
+      ``fused_adamw`` launch per opt call over the 370 leaves, and one
+      walk record with their summed bytes and FLOPs; ``reference``'s fwd
       must hold more zero-AI launches and bytes than ``fused``'s; finite
       losses that agree), 3 steps at ``reference``, then a record that
       reads back;
@@ -351,7 +358,7 @@ def fused_checks(dev, sheet) -> list[dict]:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ert import ops as ert_ops
-    from repro_torch.kernels.fused import adamw, norm, ops, swiglu
+    from repro_torch.kernels.fused import norm, ops, swiglu
 
     g = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -481,63 +488,7 @@ def fused_checks(dev, sheet) -> list[dict]:
                 swiglu.flops(4096, 13_696), "f32", sheet)})
     del sets, a, b
 
-    # -- adamw -----------------------------------------------------------------
-    print("fused_adamw: (tolerance: 1 ulp of each output dtype at max|ref| "
-          "— the kernel rounds every operation as the plain version does, "
-          "IEEE division and square root, no contraction)")
-    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
-    bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.95 ** 3], device=dev)
-
-    def leaf(shape, gd, md, pd):
-        return (randn(shape, gd), randn(shape, md, 0.1),
-                randn(shape, md, 0.01).abs(), randn(shape, pd))
-
-    for shape, dts in (((4, 4096, 13_696), (bf16, bf16, bf16)),
-                       ((4, 4096, 13_696), (f32, bf16, bf16)),
-                       ((1,), (f32, f32, f32)), ((4097,), (bf16, f32, f32)),
-                       ((4097,), (f32, bf16, bf16))):
-        gg, m, v, pp = leaf(shape, *dts)
-        want = adamw.adamw_ref(gg, m, v, pp, bc, **hyper)
-        for tag, got in (("", adamw.fused_adamw(gg, m, v, pp, bc, **hyper)),
-                         (" in place", adamw.fused_adamw(
-                             gg, m.clone(), v.clone(), pp.clone(), bc,
-                             inplace=True, **hyper))):
-            for nm, a, w in zip("pmv", got, want):
-                check(f"adamw {nm} {shape} g/m/p "
-                      f"{'/'.join(str(t)[6:] for t in dts)}{tag}", a, w,
-                      ulp_tol(a.dtype, w))
-    del gg, m, v, pp, want, got
-    torch.cuda.empty_cache()
-    n = 4096 * 151_552
-    gg, m, v, pp = leaf((4096, 151_552), f32, f32, f32)
-    err = max(max_abs_err(a, w)[0] for a, w in zip(
-        adamw.fused_adamw(gg, m, v, pp, bc, **hyper),
-        adamw.adamw_ref(gg, m, v, pp, bc, **hyper)))
-    torch.cuda.empty_cache()
-    steps = [torch.tensor(3.0, device=dev)]
-    rows.append({
-        "name": "fused_adamw", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused.cu",
-        "replaces": "src/repro/kernels/fused/adamw.py:47",
-        "shape": "f32 unembed leaf (4096, 151552), in place as the train "
-                 "step runs it",
-        "config": launch_config("fused_adamw", pp, (n,)),
-        "max_abs_err": err,
-        "ms": ms(lambda: adamw.fused_adamw(gg, m, v, pp, bc, inplace=True,
-                                           **hyper), calls=5),
-        "eager_ms": eager_ms(lambda: adamw.fused_adamw(
-            gg, m, v, pp, bc, inplace=True, **hyper)),
-        "plain_ms": ms(lambda: adamw.adamw_ref(gg, m, v, pp, bc, **hyper),
-                       calls=2),
-        # PyTorch's fused AdamW (decoupled decay applied first: the same
-        # bytes, a slightly different formula)
-        "library_ms": ms(lambda: torch._fused_adamw_(
-            [pp], [gg], [m], [v], [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
-            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
-            calls=5),
-        **bound(adamw.hbm_bytes(n), adamw.flops(n), "f32", sheet)})
-    del gg, m, v, pp
-    torch.cuda.empty_cache()
+    rows.append(adamw_checks(dev, sheet, randn))
 
     # -- gradients through the routed ops ----------------------------------------
     print("gradients through the routed ops against the plain route on the "
@@ -567,6 +518,270 @@ def fused_checks(dev, sheet) -> list[dict]:
                                        grads(plain_fn, *inputs, cot=cot))):
             check(f"grad {name} input {i}", a, w, ulp_tol(w.dtype, w))
     return rows
+
+
+def adamw_checks(dev, sheet, randn) -> dict:
+    """Phase 3 for ``fused_adamw``: the one-leaf call against
+    ``adamw_ref`` at the main path's shapes and odd ones, the multi-tensor
+    launch (:func:`adamw_multi_checks`), and the row of the f32 unembed
+    leaf (4096, 151552) in place; ``randn(shape, dtype, scale)`` draws
+    the operands on ``dev``."""
+    import torch
+    from repro_torch.kernels.ert import ops as ert_ops
+    from repro_torch.kernels.fused import adamw
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    ms = graph_ms
+
+    def eager_ms(fn) -> float:
+        return 1e3 * ert_ops.time_launches(fn, dev)
+
+    def ulp_tol(dtype, ref) -> float:
+        ulp = 2.0 ** -7 if dtype == bf16 else 2.0 ** -22
+        return ulp * ref.float().abs().max().item() + 1e-30
+
+    print("fused_adamw: (tolerance: 1 ulp of each output dtype at max|ref| "
+          "— the kernel rounds every operation as the plain version does, "
+          "IEEE division and square root, no contraction)")
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.95 ** 3], device=dev)
+
+    def leaf(shape, gd, md, pd):
+        return (randn(shape, gd), randn(shape, md, 0.1),
+                randn(shape, md, 0.01).abs(), randn(shape, pd))
+
+    for shape, dts in (((4, 4096, 13_696), (bf16, bf16, bf16)),
+                       ((4, 4096, 13_696), (f32, bf16, bf16)),
+                       ((1,), (f32, f32, f32)), ((4097,), (bf16, f32, f32)),
+                       ((4097,), (f32, bf16, bf16))):
+        gg, m, v, pp = leaf(shape, *dts)
+        want = adamw.adamw_ref(gg, m, v, pp, bc, **hyper)
+        for tag, got in (("", adamw.fused_adamw(gg, m, v, pp, bc, **hyper)),
+                         (" in place", adamw.fused_adamw(
+                             gg, m.clone(), v.clone(), pp.clone(), bc,
+                             inplace=True, **hyper))):
+            for nm, a, w in zip("pmv", got, want):
+                check(f"adamw {nm} {shape} g/m/p "
+                      f"{'/'.join(str(t)[6:] for t in dts)}{tag}", a, w,
+                      ulp_tol(a.dtype, w))
+    del gg, m, v, pp, want, got
+    torch.cuda.empty_cache()
+    multi = adamw_multi_checks(dev, sheet)
+    torch.cuda.empty_cache()
+    n = 4096 * 151_552
+    gg, m, v, pp = leaf((4096, 151_552), f32, f32, f32)
+    err = max(max_abs_err(a, w)[0] for a, w in zip(
+        adamw.fused_adamw(gg, m, v, pp, bc, **hyper),
+        adamw.adamw_ref(gg, m, v, pp, bc, **hyper)))
+    torch.cuda.empty_cache()
+    steps = [torch.tensor(3.0, device=dev)]
+    row = {
+        "name": "fused_adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/fused/adamw.py:47",
+        "shape": "f32 unembed leaf (4096, 151552), in place as the train "
+                 "step runs it",
+        "config": launch_config("fused_adamw", pp, (n,)),
+        "max_abs_err": err,
+        "ms": ms(lambda: adamw.fused_adamw(gg, m, v, pp, bc, inplace=True,
+                                           **hyper), calls=5),
+        "eager_ms": eager_ms(lambda: adamw.fused_adamw(
+            gg, m, v, pp, bc, inplace=True, **hyper)),
+        "plain_ms": ms(lambda: adamw.adamw_ref(gg, m, v, pp, bc, **hyper),
+                       calls=2),
+        # PyTorch's fused AdamW (decoupled decay applied first: the same
+        # bytes, a slightly different formula)
+        "library_ms": ms(lambda: torch._fused_adamw_(
+            [pp], [gg], [m], [v], [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
+            calls=5),
+        **bound(adamw.hbm_bytes(n), adamw.flops(n), "f32", sheet),
+        "extra": multi}
+    del gg, m, v, pp
+    torch.cuda.empty_cache()
+    return row
+
+
+
+#: small leaves for the multi-tensor AdamW check: more than one launch's
+#: table holds (``adamw.CAPACITY``), so the split into launches runs
+ADAMW_SPLIT_LEAVES = 1200
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Median milliseconds of ``fn`` on the host clock around a call that
+    ends in ``torch.cuda.synchronize()`` (after 3 warm calls)."""
+    import statistics
+
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seen.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(seen)
+
+
+def adamw_multi_checks(dev, sheet) -> str:
+    """Phase 3 for the multi-tensor AdamW launch: ``fused_adamw_multi``
+    against ``adamw_ref`` leaf by leaf (tolerance: 1 ulp of each output
+    dtype at the leaf's max|ref|, as the one-leaf checks) on DeepCAM's 370
+    leaf shapes (``deepcam_spec(64)``; f32 moments as O1 and bf16 as O2,
+    in place and not; at O2 also the routed call that is not in place,
+    ``ops.adamw_group``), a 3-element leaf beside views at odd element
+    offsets into stacked tensors (the vector path after a scalar head, and
+    the scalar path where the offsets differ; in place, the stacks outside
+    the views must stay as they were), :data:`ADAMW_SPLIT_LEAVES` small
+    leaves (the split into launches of ``adamw.CAPACITY``) and a list of
+    two dtype groups, each with the launches it must take.  Then the
+    370 leaves in place, f32: the one launch, the loop of one-leaf
+    launches (``fused_adamw`` per leaf) and ``torch._fused_adamw_`` over
+    the same lists, each eagerly between CUDA events (in turns) and on
+    the host clock around a synchronized call, the launch and the library
+    call also replayed from a CUDA graph (device time alone), beside the
+    bound.  Returns that timing line."""
+    import torch
+    from repro_torch.device import describe_gpu
+    from repro_torch.kernels.ert import ops as ert_ops
+    from repro_torch.kernels.fused import adamw
+    from repro_torch.kernels.fused import ops as fops
+    from repro_torch.models import deepcam as DC
+    from repro_torch.models.params import leaves
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.95 ** 3], device=dev)
+    shapes = [spec.shape for _, spec in leaves(DC.deepcam_spec(64))]
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def make(shapes, gd, md, pd):
+        return ([randn(s, gd) for s in shapes],
+                [randn(s, md, 0.1) for s in shapes],
+                [randn(s, md, 0.01).abs() for s in shapes],
+                [randn(s, pd) for s in shapes])
+
+    def hold(name, gs, ms, vs, ps, launches, inplace,
+             call=adamw.fused_adamw_multi):
+        """Every leaf of the call against adamw_ref; the launches counted."""
+        want = [adamw.adamw_ref(*leaf, bc, **hyper)
+                for leaf in zip(gs, ms, vs, ps)]
+        before = adamw.LAUNCHES
+        got = call(gs, ms, vs, ps, bc, inplace=inplace, **hyper)
+        took = adamw.LAUNCHES - before
+        if inplace and not all(a is b for a, b in zip(got[0], ps)):
+            raise AssertionError(f"{name}: in place returned new tensors")
+        for k, nm in enumerate("pmv"):
+            ulp = [(2.0 ** -7 if w[k].dtype == bf16 else 2.0 ** -22)
+                   * w[k].float().abs().max() + 1e-30 for w in want]
+            check_within(
+                f"adamw multi {nm} {name}{' in place' if inplace else ''}",
+                torch.cat([t.float().reshape(-1) for t in got[k]]),
+                torch.cat([w[k].float().reshape(-1) for w in want]),
+                torch.cat([u.expand(w[k].numel())
+                           for u, w in zip(ulp, want)]))
+        print(f"  {'':<44} {len(ps)} leaves, {took} launches")
+        if took != launches:
+            raise AssertionError(f"{name}: {took} launches, not {launches}")
+
+    print(f"fused_adamw_multi: (tolerance: 1 ulp of each output dtype at the "
+          f"leaf's max|ref|, as the one-leaf checks; launches per call as "
+          f"the dtype groups and the table's {adamw.CAPACITY} leaves say)")
+    for tag, dts in (("deepcam O1 f32", (f32, f32, f32)),
+                     ("deepcam O2 bf16 moments", (f32, bf16, bf16))):
+        lists = make(shapes, *dts)
+        hold(tag, *lists, 1, False)
+        hold(tag, lists[0], *(list(t.clone() for t in ts)
+                              for ts in lists[1:]), 1, True)
+    # the routed call that is not in place (repro_torch::adamw_multi: the
+    # kernel writes new tensors through its output pointers)
+    hold("deepcam O2 bf16 moments routed", *lists, 1, False,
+         call=fops.adamw_group)
+    del lists
+
+    # views at odd element offsets into one stack per operand, beside a
+    # 3-element leaf: (offset of g, offset of m/v/p, n); g at another
+    # offset than m/v/p takes the scalar path
+    spans = ((4101, 4101, 4097), (6, 6, 10), (16_390, 20_001, 9000),
+             (30_001, 30_001, 1))
+    stacks = [randn(40_000, f32) for _ in range(2)] + [
+        randn(40_000, f32, 0.01).abs(), randn(40_000, f32)]
+
+    def views(st):
+        vw = [[st[0][a:a + n] for a, _, n in spans]]
+        vw += [[t[b:b + n] for _, b, n in spans] for t in st[1:]]
+        return [t + v for t, v in zip(make([(3,)], f32, f32, f32), vw)]
+
+    hold("3-element leaf and odd-offset views", *views(stacks), 1, False)
+    live = [t.clone() for t in stacks]
+    hold("3-element leaf and odd-offset views", *views(live), 1, True)
+    torch.cuda.synchronize()
+    outside = torch.ones(40_000, dtype=torch.bool, device=dev)
+    for _, b, n in spans:
+        outside[b:b + n] = False
+    for k in (1, 2, 3):
+        if not torch.equal(live[k][outside], stacks[k][outside]):
+            raise AssertionError("in place over views wrote outside them")
+
+    sizes = torch.randint(1, 3000, (ADAMW_SPLIT_LEAVES,),
+                          generator=torch.Generator().manual_seed(6))
+    lists = make([(int(n),) for n in sizes], f32, f32, f32)
+    hold(f"{ADAMW_SPLIT_LEAVES} small leaves", *lists,
+         -(-ADAMW_SPLIT_LEAVES // adamw.CAPACITY), False)
+    two = [make(shapes[:6], f32, f32, f32), make(shapes[6:12], f32, bf16,
+                                                  bf16)]
+    mixed = [[t for pair in zip(a, b) for t in pair]
+             for a, b in zip(*two)]
+    hold("two dtype groups, interleaved", *mixed, 2, False)
+    del lists, two, mixed
+
+    # the times, on the 370 leaves in place as the opt phase runs them
+    gs, ms, vs, ps = make(shapes, f32, f32, f32)
+    steps = [torch.tensor(3.0, device=dev) for _ in ps]
+    n = sum(p.numel() for p in ps)
+
+    def launch():
+        adamw.fused_adamw_multi(gs, ms, vs, ps, bc, inplace=True, **hyper)
+
+    def loop():
+        for leaf in zip(gs, ms, vs, ps):
+            adamw.fused_adamw(*leaf, bc, inplace=True, **hyper)
+
+    def library():
+        # PyTorch's multi-tensor fused AdamW (decoupled decay applied
+        # first: the same bytes, a slightly different formula)
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    def events(fn):
+        return lambda: 1e3 * ert_ops.time_launches(fn, dev)
+
+    ev = dict(zip(("launch", "loop", "library"),
+                  in_turns(events(launch), events(loop), events(library))))
+    host = {name: host_ms(fn) for name, fn in (
+        ("launch", launch), ("loop", loop), ("library", library))}
+    graph = {"launch": graph_ms(launch, calls=5),
+             "library": graph_ms(library, calls=5)}
+    bd = bound(sum(adamw.hbm_bytes(p.numel()) for p in ps), adamw.flops(n),
+               "f32", sheet)
+    line = (f"370 DeepCAM leaves ({n} params, f32, in place; "
+            f"{describe_gpu()['smi']}): one launch {ev['launch']:.4f} ms "
+            f"eager (events), {host['launch']:.4f} ms host clock, "
+            f"{graph['launch']:.4f} ms graph | loop of one-leaf launches "
+            f"{ev['loop']:.4f} ms eager, {host['loop']:.4f} ms host | "
+            f"torch._fused_adamw_ {ev['library']:.4f} ms eager, "
+            f"{host['library']:.4f} ms host, {graph['library']:.4f} ms "
+            f"graph | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    print(f"  {line}")
+    del gs, ms, vs, ps
+    return line
 
 
 def layernorm_checks(dev, sheet) -> list[dict]:
@@ -973,6 +1188,28 @@ def phase_summary(label: str, ph: str, prof, sheet,
     return mm, fl
 
 
+def check_adamw_walk(label: str, opt, numels, launched: int, calls: int,
+                     cuda: bool) -> None:
+    """An opt phase at O1 whose leaves all route to the fused AdamW
+    kernel: its walk (``opt``) must hold one ``adamw_multi_`` record whose
+    bytes and FLOPs equal the sums of the one-leaf models
+    (``adamw.hbm_bytes`` and ``adamw.flops`` of each leaf, all f32), and
+    on the card the kernel must have launched once (one dtype group) in
+    each of its ``calls`` opt calls."""
+    from repro_torch.kernels.fused import adamw
+    recs = [k for k in opt.kernels if k.opcode == "adamw_multi_"]
+    want_bytes = sum(adamw.hbm_bytes(n) for n in numels)
+    want_flops = sum(adamw.flops(n) for n in numels)
+    got = [(k.exec_count, k.hbm_bytes, k.flops) for k in recs]
+    print(f"  {label}: fused_adamw {launched} launches ({calls} opt calls, "
+          f"{len(numels)} leaves in one group); walk {got} (exec count, "
+          f"bytes, FLOPs) vs the per-leaf sums {want_bytes:.0f} B, "
+          f"{want_flops:.0f} FLOPs")
+    if got != [(1, want_bytes, want_flops)] or (cuda and launched != calls):
+        raise AssertionError(f"{label}: fused_adamw launched {launched} "
+                             f"times in {calls} opt calls; walk {got}")
+
+
 def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
                seq: int = 2048, batch: int = 2, smoke: bool = False) -> dict:
     """Main path b: the glm4-9b train step at full width, depth cut to 4
@@ -987,6 +1224,7 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.kernels.fused.ops import embed_grad_eligible
     from repro_torch.models import api as M
+    from repro_torch.models.params import leaves
     from repro_torch.models.transformer import matmul_flops
     from repro_torch.session.session import Session
     from repro_torch.train.step import init_state, make_train_step
@@ -1005,8 +1243,10 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
           "amp O1")
     kernels.reset_launch_counts()
     s = Session(machine=sheet, device=device)
+    numels = [math.prod(p.shape) for _, p in leaves(M.build(cfg4).spec)]
     for fusion in ("off", "static"):
         t0 = time.perf_counter()
+        before = kernels.launch_counts()["fused_adamw"]
         prof = s.profile("glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
                          batch=batch, amp="O1", fusion=fusion, measure=True,
                          iters=5, warmup=2)
@@ -1031,6 +1271,9 @@ def train_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
         if not math.isfinite(loss):
             raise AssertionError(f"{fusion} fwd loss is not finite")
         if fusion == "static":
+            check_adamw_walk(
+                "static opt", prof.analyses["opt"], numels,
+                kernels.launch_counts()["fused_adamw"] - before, 5 + 2, cuda)
             print(prof.render(charts=0, top_kernels=8))
         # the opt phase's result holds the params and both moments
         del prof
@@ -1598,8 +1841,9 @@ def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
        zero-AI launches and bytes, conv FLOPs and HBM bytes.  The fwd conv
        FLOPs must equal the analytic count, the bwd's 3x it less the
        stem's input gradient, the opt's 0; ``fused_adamw`` must launch
-       once per leaf in each opt call (and the opt walk hold one record
-       per leaf);
+       once in each opt call (one dtype group), and the opt walk hold one
+       ``adamw_multi_`` record whose bytes and FLOPs are the sums of the
+       370 one-leaf models (:func:`check_adamw_walk`);
     2. the reference benchmark's facts: bwd FLOPs above fwd FLOPs, the
        opt phase memory-bound; ``reference``'s fwd holds more zero-AI
        launches and more HBM bytes than ``fused``'s (paper Table III);
@@ -1625,7 +1869,8 @@ def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
     hw = SMOKE_HW if smoke else IMAGE_HW
     width = cfg.d_model
     spec = DC.deepcam_spec(width)
-    n_leaves = len(leaves(spec))
+    numels = [math.prod(p.shape) for _, p in leaves(spec)]
+    n_leaves = len(numels)
     want_fwd = DC.conv_flops(width, hw, batch)
     _, h, w, k, cin, cout, _ = DC.conv_plan(width, hw)[0]
     stem_dgrad = 2 * batch * h * w * k * k * cin * cout
@@ -1653,7 +1898,7 @@ def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
                          iters=iters, warmup=warmup)
         for ph in ("fwd", "bwd", "opt"):
             conv, _ = phase_summary(impl[:6], ph, prof, sheet,
-                                    custom="adamw_", dense="conv")
+                                    custom="adamw_multi_", dense="conv")
             ana, wall = prof.analyses[ph], prof.data[ph].wall_s
             frac = {name: roofline_terms(ana, m).bound_overlap_s / wall
                     for name, m in (("datasheet", sheet),
@@ -1680,18 +1925,12 @@ def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
         if not bwd.total_flops > fwd.total_flops or opt_dom != "memory":
             raise AssertionError(f"{impl}: bwd FLOPs not above fwd, or opt "
                                  f"{opt_dom}-bound")
-        # one fused AdamW launch per leaf in each of the warmup + iters
-        # opt calls (fwd and bwd launch none); the walk one record per leaf
+        # one fused AdamW launch (the one f32 group) in each of the warmup
+        # + iters opt calls (fwd and bwd launch none); the walk one
+        # adamw_multi_ record with the sums of the per-leaf models
         launched = kernels.launch_counts()["fused_adamw"] - before
-        walked = sum(k.exec_count for k in opt.kernels
-                     if k.opcode == "adamw_")
-        print(f"  {impl[:6]:<6} fused_adamw: {launched} launches "
-              f"({warmup + iters} opt calls x {n_leaves} leaves), {walked} "
-              "in the opt walk")
-        if walked != n_leaves or (cuda and launched !=
-                                  (warmup + iters) * n_leaves):
-            raise AssertionError(f"{impl}: fused_adamw launched {launched} "
-                                 f"times, walked {walked}")
+        check_adamw_walk(f"{impl} opt", opt, numels, launched,
+                         warmup + iters, cuda)
         if impl == "reference":
             print(prof.render(charts=0, top_kernels=8))
         del prof, fwd, bwd, opt

@@ -65,10 +65,10 @@ _SIGNATURES = {
                             _I, _P),
         # g, u, y, n, act, in_dtype, out_dtype, blocks, threads, stream
         "fused_swiglu": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
-        # g, m, v, p, bc, p_out, m_out, v_out, n, lr, b1, b2, 1-b1, 1-b2,
-        # eps, weight_decay, g/m/v/p dtypes, blocks, threads, stream
-        "fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _F,
-                        _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
+        # segment rows, n_segs, bc, lr, b1, b2, 1-b1, 1-b2, eps,
+        # weight_decay, g/m/v/p dtypes, blocks (most), threads, stream
+        "fused_adamw_multi": (_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I,
+                              _I, _I, _I, _I, _I, _P),
         "fused_error_string": (_I,),
     },
     "flash": {

@@ -61,15 +61,36 @@
 //   bf16, two of f32) and a scalar tail, so any rows * d_ff runs.
 //
 // adamw — replaces repro/kernels/fused/adamw.py::fused_adamw
-//   (_adamw_kernel): one AdamW leaf update over the flat view; g, m, v, p
-//   each keep their own dtype (f32 or bf16); fp32 math written out in the
+//   (_adamw_kernel, one pallas_call per leaf, looped over the tree by
+//   repro/train/optim.py::adamw_update inside jit): the AdamW update of
+//   every leaf of one dtype combination in one launch.  g, m, v, p each
+//   keep their own dtype (f32 or bf16); fp32 math written out in the
 //   reference's order; bc = (1 - b1^t, 1 - b2^t) is read from device memory
 //   (a (2,) fp32 tensor), so no host sync is needed per step.
-//   Bound: bytes (g, m, v, p read, p, m, v written: 7 * n * 4 in fp32).
-//   Design: a grid-stride loop over 4-element chunks (a float4, or 8 bytes
-//   of bf16) and a scalar tail.  The outputs may alias the inputs (the
-//   in-place update the train step uses): each element is read and then
-//   written by the same thread.
+//   Bound: bytes (g, m, v, p read, p, m, v written: 7 * n * 4 in fp32,
+//   summed over the leaves).
+//   Design: eager PyTorch pays its host cost per launch, so a launch per
+//   leaf (the TPU kernel's shape) spent 85-128 us a leaf on DeepCAM's 370
+//   leaves against a bound under 1 us.  Here one launch takes up to
+//   kAdamSegs leaves: a table of segments (the seven pointers and the
+//   length of each leaf, 64 B, plus its first chunk and its vector mode)
+//   passed by value as a __grid_constant__ kernel parameter (CUDA 12.1+
+//   takes 32,764 B of parameters), so nothing is copied to the device and
+//   nothing outlives the launch.  Each leaf is cut into chunks of
+//   kAdamChunk elements (a leaf's last chunk is ragged, so no chunk
+//   crosses a leaf); a persistent grid strides over the chunks of all
+//   leaves, and a block finds its chunk's leaf by a binary search over
+//   the chunk prefix sum in the table (uniform in the block, so read
+//   from the constant cache).  A leaf whose seven pointers sit at one
+//   offset from a 4-element vector boundary (16 B of f32, 8 B of bf16) is
+//   read in 4-element vectors after a scalar head of 0-3 elements (in its
+//   first chunk; every later chunk starts on a boundary) and a scalar
+//   tail; any other leaf (a view at unrelated offsets) element by element.
+//   The wrapper (repro_torch/kernels/fused/adamw.py::plan) gives each
+//   leaf's pointers, length and vector mode and splits a longer list into
+//   launches of kAdamSegs; the C entry lays out the chunks.  The outputs may
+//   alias the inputs (the in-place update the train step uses): each
+//   element is read and then written by the same thread.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -397,37 +418,87 @@ __device__ __forceinline__ void adamw1(float g, float m, float v, float p,
   np = __fsub_rn(p, __fmul_rn(k.lr, __fadd_rn(step, __fmul_rn(k.wd, p))));
 }
 
-template <typename G, typename M, typename V, typename P, bool VEC>
-__global__ void adamw_kernel(const G* g, const M* m, const V* v, const P* p,
-                             const float* bc, P* p_out, M* m_out, V* v_out,
-                             int64_t n, AdamHyper k) {
-  const float bc1 = bc[0], bc2 = bc[1];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t done = 0;
-  if (VEC) {
-    const int64_t chunks = n / 4;
-    for (int64_t c = tid; c < chunks; c += stride) {
-      float gv[4], mv[4], vv[4], pv[4];
-      load4(g + 4 * c, gv);
-      load4(m + 4 * c, mv);
-      load4(v + 4 * c, vv);
-      load4(p + 4 * c, pv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        adamw1(gv[j], mv[j], vv[j], pv[j], bc1, bc2, k, pv[j], mv[j], vv[j]);
-      store4(p_out + 4 * c, pv);
-      store4(m_out + 4 * c, mv);
-      store4(v_out + 4 * c, vv);
+// one leaf of a multi-tensor launch: its operands and length (64 B)
+struct AdamSeg {
+  const void *g, *m, *v, *p;
+  void *p_out, *m_out, *v_out;
+  int64_t n;
+};
+
+constexpr int kAdamChunk = 4096;  // elements a block takes at a time
+constexpr int kAdamSegs = 464;    // leaves a launch holds (the table's size)
+constexpr int kAdamFields = 9;    // int64 fields of a segment row (below)
+constexpr unsigned char kAdamVec = 4;  // mode bit: the 4-element vector path
+
+// the kernel's one parameter: the segments of one launch, each leaf's first
+// chunk (a prefix sum; first[n_segs] = the chunks of all leaves) and its
+// mode (bits 0-1: the scalar head; bit 2: kAdamVec)
+struct AdamTable {
+  AdamSeg seg[kAdamSegs];
+  const float* bc;
+  AdamHyper k;
+  int n_segs;
+  unsigned first[kAdamSegs + 1];
+  unsigned char mode[kAdamSegs];
+};
+static_assert(sizeof(AdamTable) <= 32764, "AdamTable exceeds the 32,764 B "
+              "of kernel parameters");
+
+template <typename G, typename M, typename V, typename P>
+__device__ __forceinline__ void adamw_at(const AdamSeg& s, int64_t i,
+                                         float bc1, float bc2,
+                                         const AdamHyper& k) {
+  float np, nm, nv;
+  adamw1(to_f(static_cast<const G*>(s.g)[i]), to_f(static_cast<const M*>(s.m)[i]),
+         to_f(static_cast<const V*>(s.v)[i]), to_f(static_cast<const P*>(s.p)[i]),
+         bc1, bc2, k, np, nm, nv);
+  static_cast<P*>(s.p_out)[i] = from_f<P>(np);
+  static_cast<M*>(s.m_out)[i] = from_f<M>(nm);
+  static_cast<V*>(s.v_out)[i] = from_f<V>(nv);
+}
+
+template <typename G, typename M, typename V, typename P>
+__global__ void adamw_kernel(const __grid_constant__ AdamTable t) {
+  const float bc1 = t.bc[0], bc2 = t.bc[1];
+  const int n_chunks = (int)t.first[t.n_segs];
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    // the leaf of chunk c: the last si with first[si] <= c
+    int si = 0, hi = t.n_segs - 1;
+    while (si < hi) {
+      const int mid = (si + hi + 1) >> 1;
+      if ((int)t.first[mid] <= c) si = mid; else hi = mid - 1;
     }
-    done = chunks * 4;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) {
-    float np, nm, nv;
-    adamw1(to_f(g[i]), to_f(m[i]), to_f(v[i]), to_f(p[i]), bc1, bc2, k, np, nm, nv);
-    p_out[i] = from_f<P>(np);
-    m_out[i] = from_f<M>(nm);
-    v_out[i] = from_f<V>(nv);
+    const AdamSeg& s = t.seg[si];
+    const int64_t j = c - (int)t.first[si];
+    const int64_t head = t.mode[si] & 3;
+    // chunk 0 holds the head; every later one starts on a vector boundary
+    const int64_t lo = j ? head + j * kAdamChunk : 0;
+    const int64_t cap = head + (j + 1) * kAdamChunk;
+    const int64_t end = s.n < cap ? s.n : cap;
+    int64_t vlo = lo, vhi = lo;
+    if (t.mode[si] & kAdamVec) {
+      vlo = j ? lo : (head < end ? head : end);
+      vhi = vlo + (end - vlo) / 4 * 4;
+    }
+    for (int64_t i = vlo + 4 * (int64_t)threadIdx.x; i < vhi;
+         i += 4 * (int64_t)blockDim.x) {
+      float gv[4], mv[4], vv[4], pv[4];
+      load4(static_cast<const G*>(s.g) + i, gv);
+      load4(static_cast<const M*>(s.m) + i, mv);
+      load4(static_cast<const V*>(s.v) + i, vv);
+      load4(static_cast<const P*>(s.p) + i, pv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        adamw1(gv[e], mv[e], vv[e], pv[e], bc1, bc2, t.k, pv[e], mv[e], vv[e]);
+      store4(static_cast<P*>(s.p_out) + i, pv);
+      store4(static_cast<M*>(s.m_out) + i, mv);
+      store4(static_cast<V*>(s.v_out) + i, vv);
+    }
+    // the scalar head [lo, vlo) and tail [vhi, end) (a scalar leaf: all)
+    for (int64_t i = lo + threadIdx.x; i < vlo; i += blockDim.x)
+      adamw_at<G, M, V, P>(s, i, bc1, bc2, t.k);
+    for (int64_t i = vhi + threadIdx.x; i < end; i += blockDim.x)
+      adamw_at<G, M, V, P>(s, i, bc1, bc2, t.k);
   }
 }
 
@@ -522,20 +593,47 @@ int fused_swiglu(const void* g, const void* u, void* y, long long n, int act,
   });
 }
 
-// one AdamW leaf over n elements; p_out/m_out/v_out may equal p/m/v
-int fused_adamw(const void* g, const void* m, const void* v, const void* p,
-                const void* bc, void* p_out, void* m_out, void* v_out,
-                long long n, float lr, float b1, float b2, float omb1,
-                float omb2, float eps, float wd, int g_dtype, int m_dtype,
-                int v_dtype, int p_dtype, int blocks, int threads,
-                void* stream) {
-  if (n <= 0 || threads <= 0 || threads > 1024 || blocks <= 0) {
+// one multi-tensor AdamW launch over n_segs <= kAdamSegs leaves of one
+// dtype combination.  segs: n_segs rows of kAdamFields int64 — the
+// pointers g, m, v, p, p_out, m_out, v_out (outputs may equal inputs), the
+// length n > 0 and the mode (bits 0-1: the scalar head; kAdamVec: read in
+// vectors).  Each leaf's chunks (its first holds the head and kAdamChunk
+// elements more, the last is ragged) are laid out here, so the chunks
+// cover every element of every leaf whatever the caller's constants.
+// blocks: the most the grid may take (held to the chunks).  The table is
+// copied into the launch's parameters: segs may be freed on return.
+int fused_adamw_multi(const long long* segs, int n_segs, const void* bc,
+                      float lr, float b1, float b2, float omb1, float omb2,
+                      float eps, float wd, int g_dtype, int m_dtype,
+                      int v_dtype, int p_dtype, int blocks, int threads,
+                      void* stream) {
+  if (n_segs <= 0 || n_segs > kAdamSegs || bc == nullptr || threads <= 0 ||
+      threads > 1024 || blocks <= 0) {
     return cudaErrorInvalidValue;
   }
-  const bool vec = aligned16(g) && aligned16(m) && aligned16(v) &&
-                   aligned16(p) && aligned16(p_out) && aligned16(m_out) &&
-                   aligned16(v_out);
-  const AdamHyper k{lr, b1, b2, omb1, omb2, eps, wd};
+  AdamTable t;
+  long long n_chunks = 0;
+  for (int i = 0; i < n_segs; ++i) {
+    const long long* r = segs + (int64_t)kAdamFields * i;
+    const long long n = r[7], mode = r[8];
+    if (n <= 0 || (mode & ~(long long)(kAdamVec | 3)) ||
+        (!(mode & kAdamVec) && (mode & 3))) {
+      return cudaErrorInvalidValue;
+    }
+    auto ptr = [](long long a) { return reinterpret_cast<void*>(a); };
+    t.seg[i] = AdamSeg{ptr(r[0]), ptr(r[1]), ptr(r[2]), ptr(r[3]),
+                       ptr(r[4]), ptr(r[5]), ptr(r[6]), (int64_t)n};
+    t.first[i] = (unsigned)n_chunks;
+    t.mode[i] = (unsigned char)mode;
+    const long long body = n - (mode & 3);
+    n_chunks += body > 0 ? (body + kAdamChunk - 1) / kAdamChunk : 1;
+    if (n_chunks > INT32_MAX) return cudaErrorInvalidValue;
+  }
+  t.first[n_segs] = (unsigned)n_chunks;
+  if (blocks > n_chunks) blocks = (int)n_chunks;
+  t.bc = static_cast<const float*>(bc);
+  t.k = AdamHyper{lr, b1, b2, omb1, omb2, eps, wd};
+  t.n_segs = n_segs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_type(g_dtype, [&](auto gt) {
     using G = typename decltype(gt)::type;
@@ -545,16 +643,8 @@ int fused_adamw(const void* g, const void* m, const void* v, const void* p,
         using V = typename decltype(vt)::type;
         return with_type(p_dtype, [&](auto pt) {
           using P = typename decltype(pt)::type;
-          auto go = [&](auto kernel) {
-            kernel<<<blocks, threads, 0, s>>>(
-                static_cast<const G*>(g), static_cast<const M*>(m),
-                static_cast<const V*>(v), static_cast<const P*>(p),
-                static_cast<const float*>(bc), static_cast<P*>(p_out),
-                static_cast<M*>(m_out), static_cast<V*>(v_out), (int64_t)n, k);
-            return (int)cudaGetLastError();
-          };
-          return vec ? go(adamw_kernel<G, M, V, P, true>)
-                     : go(adamw_kernel<G, M, V, P, false>);
+          adamw_kernel<G, M, V, P><<<blocks, threads, 0, s>>>(t);
+          return (int)cudaGetLastError();
         });
       });
     });

@@ -108,6 +108,10 @@ def use_swiglu(run, gate, up, *, act: str = "silu", out_dtype=None) -> bool:
 def use_adamw(run, g, m, v, p) -> bool:
     if not (fusion_enabled(run) and adamw_eligible(g, m, v, p)):
         return False
+    if not fusion_measured(run):
+        # asked once per leaf of the tree (DeepCAM: 370 an opt call):
+        # under static, eligibility is the answer
+        return True
     from repro_torch.tune import dispatch as dsp
     return _dispatch_fused(run, lambda: dsp.adamw_key(p, m), p.device)
 
@@ -381,51 +385,67 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
 
 
 # --------------------------------------------------------------------------
-# AdamW leaf update (no grad path — the optimizer is not differentiated)
+# AdamW (no grad path — the optimizer is not differentiated)
 # --------------------------------------------------------------------------
 
-@torch.library.custom_op("repro_torch::adamw", mutates_args=())
-def _adamw_op(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-              p: torch.Tensor, bc: torch.Tensor, lr: float, b1: float,
-              b2: float, eps: float, weight_decay: float
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return ak.fused_adamw(g, m, v, p, bc, lr=lr, b1=b1, b2=b2, eps=eps,
-                          weight_decay=weight_decay)
+@torch.library.custom_op("repro_torch::adamw_multi_",
+                         mutates_args=("ms", "vs", "ps"))
+def _adamw_multi_op(gs: list[torch.Tensor], ms: list[torch.Tensor],
+                    vs: list[torch.Tensor], ps: list[torch.Tensor],
+                    bc: torch.Tensor, lr: float, b1: float, b2: float,
+                    eps: float, weight_decay: float) -> None:
+    ak.fused_adamw_multi(gs, ms, vs, ps, bc, lr=lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=weight_decay, inplace=True)
 
 
-@_adamw_op.register_fake
-def _(g, m, v, p, bc, lr, b1, b2, eps, weight_decay):
-    return torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
-
-
-@torch.library.custom_op("repro_torch::adamw_", mutates_args=("m", "v", "p"))
-def _adamw_inplace_op(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                      p: torch.Tensor, bc: torch.Tensor, lr: float, b1: float,
-                      b2: float, eps: float, weight_decay: float) -> None:
-    ak.fused_adamw(g, m, v, p, bc, lr=lr, b1=b1, b2=b2, eps=eps,
-                   weight_decay=weight_decay, inplace=True)
-
-
-@_adamw_inplace_op.register_fake
-def _(g, m, v, p, bc, lr, b1, b2, eps, weight_decay):
+@_adamw_multi_op.register_fake
+def _(gs, ms, vs, ps, bc, lr, b1, b2, eps, weight_decay):
     return None
 
 
-def adamw_leaf(g, m, v, p, bc, *, lr: float, b1: float, b2: float,
-               eps: float, weight_decay: float, inplace: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Routed fused AdamW update for one leaf → (p′, m′, v′); ``bc`` is
-    the (2,) fp32 tensor of bias corrections.  ``inplace=True`` writes
-    over p, m, v and returns them.  The kernel reads the leaves flat, and
-    a gradient may come back strided (a tied embedding's is a gather's
-    plus a transpose's), so g is made contiguous first."""
-    g = g.contiguous()
-    hyper = (float(lr), float(b1), float(b2), float(eps),
-             float(weight_decay))
+@torch.library.custom_op("repro_torch::adamw_multi", mutates_args=())
+def _adamw_multi_fn(gs: list[torch.Tensor], ms: list[torch.Tensor],
+                    vs: list[torch.Tensor], ps: list[torch.Tensor],
+                    bc: torch.Tensor, lr: float, b1: float, b2: float,
+                    eps: float, weight_decay: float) -> list[torch.Tensor]:
+    """ps′ + ms′ + vs′ in one list: the kernel writes them through its
+    output pointers."""
+    po, mo, vo = ak.fused_adamw_multi(gs, ms, vs, ps, bc, lr=lr, b1=b1,
+                                      b2=b2, eps=eps,
+                                      weight_decay=weight_decay)
+    return [*po, *mo, *vo]
+
+
+@_adamw_multi_fn.register_fake
+def _(gs, ms, vs, ps, bc, lr, b1, b2, eps, weight_decay):
+    return [torch.empty_like(t) for ts in (ps, ms, vs) for t in ts]
+
+
+def adamw_group(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                vs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
+                bc: torch.Tensor, *, lr: float, b1: float, b2: float,
+                eps: float, weight_decay: float, inplace: bool = False
+                ) -> tuple[list[torch.Tensor], list[torch.Tensor],
+                           list[torch.Tensor]]:
+    """Routed fused AdamW update of a list of leaves → (ps′, ms′, vs′):
+    one ``repro_torch::adamw_multi_`` call (``inplace=True``: written
+    over ps, ms, vs, which it returns) or ``repro_torch::adamw_multi``
+    (new tensors), one kernel launch per dtype group of the leaves;
+    ``bc`` is the (2,) fp32 tensor of bias corrections.  The kernel reads
+    the leaves flat, and a gradient may come back strided (a tied
+    embedding's is a gather's plus a transpose's), so each g is made
+    contiguous first.  Under :func:`tune.dispatch.step_points` it notes
+    the tuned-config lookups the kernel's launches make."""
+    from repro_torch.tune import dispatch as dsp
+    args = ([g.contiguous() for g in gs], list(ms), list(vs), list(ps), bc,
+            float(lr), float(b1), float(b2), float(eps), float(weight_decay))
+    dsp.note_points(lambda: ak.tune_points(*args[:4]))
     if inplace:
-        _adamw_inplace_op(g, m, v, p, bc, *hyper)
-        return p, m, v
-    return _adamw_op(g, m, v, p, bc, *hyper)
+        _adamw_multi_op(*args)
+        return args[3], args[1], args[2]
+    out = _adamw_multi_fn(*args)
+    k = len(args[3])
+    return out[:k], out[k:2 * k], out[2 * k:]
 
 
 # --------------------------------------------------------------------------
@@ -459,8 +479,8 @@ def op_flops(name: str, args: Sequence) -> float:
     if name == "swiglu":
         rows, d = args[0].shape
         return sk.flops(rows, d, args[2])
-    if name in ("adamw", "adamw_"):
-        return ak.flops(args[3].numel())
+    if name in ("adamw_multi_", "adamw_multi"):
+        return ak.flops(sum(p.numel() for p in args[3]))
     if name == "ssd_scan":
         from repro_torch.kernels.ssd_scan import kernel as ssd
         return ssd.flops(*_ssd_dims(args))
@@ -470,12 +490,26 @@ def op_flops(name: str, args: Sequence) -> float:
 def op_bytes(name: str, args: Sequence) -> float | None:
     """Device-memory bytes of one call where the kernel module's model is
     not operands + results: flash attention's ``hbm_bytes``, which counts
-    K/V once per *query* head as the reference's does.  ``None``: the op
-    walk's own rule (for ``ssd_scan`` that rule equals the module's
-    ``hbm_bytes``: B and C are operands once per batch, not per head)."""
+    K/V once per *query* head as the reference's does; and the AdamW
+    group's sum over its leaves of what a one-leaf call moves — g, m, v
+    and p read, p, m and v written, each in its own dtype, and the
+    8-byte ``bc`` once per leaf, as the one ``pallas_call`` per leaf it
+    replaces reads it (``adamw.hbm_bytes(n)`` a leaf in fp32), so the
+    group's record equals the per-leaf records it stands for.  ``None``:
+    the op walk's own rule (for ``ssd_scan`` that rule equals the
+    module's ``hbm_bytes``: B and C are operands once per batch, not per
+    head)."""
     if name == "flash_attention":
         from repro_torch.kernels.flash_attention import kernel as fk
         return fk.hbm_bytes(*_flash_dims(args), args[0].element_size())
+    if name in ("adamw_multi_", "adamw_multi"):
+        gs, ms, vs, ps, bc = args[:5]
+        return float(sum(
+            g.numel() * g.element_size()
+            + 2 * p.numel() * (m.element_size() + v.element_size()
+                               + p.element_size())
+            for g, m, v, p in zip(gs, ms, vs, ps))
+            + len(ps) * bc.numel() * bc.element_size())
     return None
 
 

@@ -3,8 +3,8 @@
 Optimizer state mirrors the parameter tree.  The optimizer step is the
 paper's "optimizer phase" (Fig 7): unfused, a chain of elementwise
 kernels per leaf at zero or low arithmetic intensity; under
-``fusion="static"`` one fused kernel per eligible leaf
-(``repro_torch.kernels.fused.adamw``).
+``fusion="static"`` one fused multi-tensor kernel over every eligible
+leaf (``repro_torch.kernels.fused.adamw``, one launch per dtype group).
 
 :func:`adamw_update` is functional by default, like the reference.  With
 ``inplace=True`` it writes the new parameters and moments over the old
@@ -13,10 +13,10 @@ the train step and the opt phase use that, so a step holds no second
 copy of the weights and both moments.
 
 The reference blocks very large leaves over their leading axis
-(``_blocked``, a ``lax.map``) to shrink XLA's fp32 temporaries.  A loop
-over leaves in PyTorch frees each leaf's temporaries before the next
-leaf, and the fused kernel has none, so that blocking is not ported.
-Adafactor is not ported yet: ``RunConfig`` refuses it.
+(``_blocked``, a ``lax.map``) to shrink XLA's fp32 temporaries.  The
+plain chain here runs leaf by leaf, freeing each leaf's temporaries
+before the next, and the fused kernel has none, so that blocking is not
+ported.  Adafactor is not ported yet: ``RunConfig`` refuses it.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_structure, tree_unflatten
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.kernels.fused.adamw import adamw_ref
@@ -70,50 +70,112 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
                  ) -> tuple[Any, AdamWState]:
     """One AdamW step → (new params, new state).
 
-    ``run`` with fusion enabled sends each eligible leaf through the fused
-    kernel; others keep the plain chain (same math).  ``inplace=True``
-    updates ``params``, ``state.mu`` and ``state.nu`` in place and returns
-    them (the count is always a new tensor).
+    ``run`` with fusion enabled routes each leaf as ``use_adamw`` says
+    (eligibility; under ``auto`` also the dispatch table) and updates the
+    routed leaves together in one ``adamw_group`` call; the others keep
+    the plain chain (same math).  ``inplace=True`` updates ``params``,
+    ``state.mu`` and ``state.nu`` in place and returns those trees (the
+    count is always a new tensor).
     """
     c = state.count + 1
     bc = bias_corrections(c, b1, b2)
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
-    fops = None
+    flat_p, flat_g, flat_m, flat_v = _leaves_like(params, grads, state.mu,
+                                                  state.nu)
+    leaves = list(zip(flat_g, flat_m, flat_v, flat_p))
+    fused = []
     if run is not None:
-        from repro_torch.kernels.fused import ops as _fops
-        if _fops.fusion_enabled(run):
-            fops = _fops
-
-    def leaf(g, m, v, p):
-        if fops is not None and fops.use_adamw(run, g, m, v, p):
-            return fops.adamw_leaf(g, m, v, p, bc, inplace=inplace, **hyper)
-        out = adamw_ref(g, m, v, p, bc, **hyper)
-        if not inplace:
-            return out
-        for dst, src in zip((p, m, v), out):
-            dst.copy_(src)
-        return p, m, v
-
-    flat_p, spec = tree_flatten(params)
-    flat_g, flat_m, flat_v = (_flat_like(t, spec, name) for t, name in (
-        (grads, "grads"), (state.mu, "mu"), (state.nu, "nu")))
+        from repro_torch.kernels.fused import ops as fops
+        if fops.fusion_enabled(run):
+            fused = [i for i, leaf in enumerate(leaves)
+                     if fops.use_adamw(run, *leaf)]
     with torch.no_grad():
-        out = [leaf(g, m, v, p)
-               for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p)]
-    newp = tree_unflatten([o[0] for o in out], spec)
-    newm = tree_unflatten([o[1] for o in out], spec)
-    newv = tree_unflatten([o[2] for o in out], spec)
+        done = {}
+        if fused:
+            outs = fops.adamw_group(
+                *([leaves[i][k] for i in fused] for k in range(4)), bc,
+                inplace=inplace, **hyper)
+            done = dict(zip(fused, zip(*outs)))
+        out = [done[i] if i in done else
+               _plain(*leaf, bc, inplace=inplace, **hyper)
+               for i, leaf in enumerate(leaves)]
+    if inplace:
+        return params, AdamWState(state.mu, state.nu, c)
+    spec = tree_structure(params)
+    newp, newm, newv = (tree_unflatten([o[k] for o in out], spec)
+                        for k in range(3))
     return newp, AdamWState(newm, newv, c)
 
 
-def _flat_like(tree: Any, spec, name: str) -> list[torch.Tensor]:
-    """``tree``'s leaves, which must line up with the params' (same keys
-    in the same order)."""
-    flat, got = tree_flatten(tree)
-    if got != spec:
-        raise ValueError(f"{name} tree does not match the params tree")
-    return flat
+def _plain(g, m, v, p, bc, *, inplace: bool, **hyper):
+    """One leaf through the plain chain → (p′, m′, v′)."""
+    out = adamw_ref(g, m, v, p, bc, **hyper)
+    if not inplace:
+        return out
+    for dst, src in zip((p, m, v), out):
+        dst.copy_(src)
+    return p, m, v
+
+
+#: the trees that line up with the params, as errors name them
+_TREES = ("grads", "mu", "nu")
+
+
+def _leaves_like(params: Any, grads: Any, mu: Any, nu: Any
+                 ) -> list[list[torch.Tensor]]:
+    """[params, grads, mu, nu leaves], the last three trees lining up
+    with the params (the same containers with the same keys), in
+    ``tree_flatten``'s order: dict values in insertion order, list and
+    tuple items in order.  The params trees are dicts and lists of
+    tensors (``models/params.py``); any other node raises.  One walk
+    over the four trees: ``tree_flatten`` builds a spec node per
+    container and costs several times this on hundreds of leaves."""
+    out: list[list[torch.Tensor]] = [[], [], [], []]
+    _walk(out, params, grads, mu, nu)
+    return out
+
+
+def _walk(out, p, g, m, v) -> None:
+    """Append the leaves under p, g, m, v to ``out`` (a module function,
+    not a closure: a recursive closure is a reference cycle that would
+    keep ``out``, and every gradient in it, alive until the collector
+    runs)."""
+    tp = type(p)
+    if tp is dict:
+        keys = p.keys()
+        if not (type(g) is type(m) is type(v) is dict and g.keys() == keys
+                and m.keys() == keys and v.keys() == keys):
+            raise _mismatch(p, g, m, v)
+        for k, x in p.items():
+            _walk(out, x, g[k], m[k], v[k])
+    elif tp is list or tp is tuple:
+        if not (type(g) is type(m) is type(v) is tp
+                and len(g) == len(m) == len(v) == len(p)):
+            raise _mismatch(p, g, m, v)
+        for leaf in zip(p, g, m, v):
+            _walk(out, *leaf)
+    elif isinstance(p, torch.Tensor):
+        if not (isinstance(g, torch.Tensor) and isinstance(m, torch.Tensor)
+                and isinstance(v, torch.Tensor)):
+            raise _mismatch(p, g, m, v)
+        for dst, t in zip(out, (p, g, m, v)):
+            dst.append(t)
+    else:
+        raise ValueError(f"adamw_update takes trees of dicts, lists and "
+                         f"tuples of tensors; the params hold a "
+                         f"{type(p).__name__}")
+
+
+def _mismatch(p, *others) -> ValueError:
+    """The error for a node of grads, mu or nu unlike the params' node
+    ``p``, naming the first such tree."""
+    k = next(k for k, o in enumerate(others)
+             if type(o) is not type(p) or (
+                 isinstance(p, (dict, list, tuple)) and (
+                     len(o) != len(p) or (isinstance(p, dict)
+                                          and o.keys() != p.keys()))))
+    return ValueError(f"{_TREES[k]} tree does not match the params tree")
 
 
 def optimizer_init(params: Any, run: RunConfig) -> AdamWState:

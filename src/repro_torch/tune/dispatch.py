@@ -187,6 +187,10 @@ class _Scope:
     n_static: int = 0
     # sites re-measured under ``force`` in this scope (once each)
     forced: set = dataclasses.field(default_factory=set)
+    # tuned-config lookups noted by a kernel that launches for many sites
+    # at once (:func:`note_points`); a list only where :func:`step_points`
+    # collects them, shared with the scopes nested in its own
+    points: list | None = None
 
     def reset_stats(self) -> None:
         self.sites, self.forced = {}, set()
@@ -217,7 +221,7 @@ def dispatch_scope(store: TuneStore | str | None = None,
         timer=timer if timer is not None else prev.timer,
         iters=iters if iters is not None else prev.iters,
         warmup=warmup if warmup is not None else prev.warmup,
-        force=force or prev.force)
+        force=force or prev.force, points=prev.points)
     inner = _SCOPE
     try:
         with bind(store, machine, device):
@@ -514,7 +518,8 @@ def _adamw_site(key: DispatchKey, dev: torch.device):
     hp = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 
     def fused(g_, m_, v_, p_, bc_):
-        return fops.adamw_leaf(g_, m_, v_, p_, bc_, inplace=True, **hp)
+        return fops.adamw_group([g_], [m_], [v_], [p_], bc_, inplace=True,
+                                **hp)
 
     def ref(g_, m_, v_, p_, bc_):
         for dst, src in zip((p_, m_, v_), adamw_ref(g_, m_, v_, p_, bc_,
@@ -649,12 +654,23 @@ def search_sites(config: str = "glm4-9b", *, seq: int = 16, batch: int = 2,
 def tune_point(key: DispatchKey) -> tuple[str, tuple[int, ...], str] | None:
     """(kernel, shape, dtype) of the tuned-config lookup that a site's
     kernel makes when it launches (``kernels/config.py::for_launch``):
-    the first operand's (rows, d) or leaf size, and its dtype.  ``None``
-    for an op whose kernel reads no winner (``space.STEP_KERNELS``: the
-    flash kernel's tiles are compiled, the embedding has no kernel)."""
-    if key.op not in STEP_KERNELS:
+    the first operand's (rows, d), and its dtype.  ``None`` for an op
+    whose kernel reads no winner (``space.STEP_KERNELS``: the flash
+    kernel's tiles are compiled, the embedding has no kernel), and for an
+    AdamW leaf: the leaves that route to the kernel launch together, with
+    one lookup per dtype group (:func:`note_points`)."""
+    if key.op not in STEP_KERNELS or key.op == "fused_adamw":
         return None
     return key.op, key.shapes[0], key.dtypes[0]
+
+
+def note_points(points: Callable[[], list]) -> None:
+    """Add ``points()``, (kernel, shape, dtype) lookups that one launch
+    makes for many sites (the AdamW group's, at its size class), to
+    what :func:`step_points` collects; nothing (``points`` not called)
+    outside it."""
+    if _SCOPE.points is not None:
+        _SCOPE.points += points()
 
 
 def step_points(config: str = "glm4-9b", *, seq: int = 16, batch: int = 2,
@@ -669,19 +685,22 @@ def step_points(config: str = "glm4-9b", *, seq: int = 16, batch: int = 2,
     ``fusion="auto"``: the phases run on ``meta`` tensors with the miss
     policy ``static``, so a site the store routes to ``reference``
     launches nothing and a site it lacks counts as fused.  Nothing is
-    measured."""
+    measured.  The AdamW leaves that route to the kernel launch together:
+    their points are the ones the step's group calls note."""
     from repro_torch.device import resolve_device
     dev = resolve_device(device)
     with dispatch_scope(store=store, mode="static",
                         machine=machine or machine_for(dev),
                         device=dev) as scope:
         scope.reset_stats()
+        scope.points = noted = []
         _run_step_on_meta(config, seq=seq, batch=batch, amp=amp,
                           smoke=smoke, n_layers=n_layers,
                           attn_impl=attn_impl, ssd_impl=ssd_impl)
         fused = [key for k, key in sorted(scope.sites.items())
                  if best_impl(k) in (None, "fused")]
-    return list(dict.fromkeys(p for p in map(tune_point, fused) if p))
+    points = [p for p in map(tune_point, fused) if p]
+    return list(dict.fromkeys(points + noted))
 
 
 def dispatch_table(store: TuneStore | str | None = None,

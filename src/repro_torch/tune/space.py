@@ -349,7 +349,10 @@ def _fused_swiglu_cuda(shape, dtype, smoke):
 
 
 def _fused_adamw_cuda(shape, dtype, smoke):
-    """In place, as the train step updates a leaf."""
+    """In place, as the train step updates its leaves, through the
+    one-leaf call of the multi-tensor kernel: ``shape`` is the size class
+    (``adamw.lookup_shape``) of the dtype groups whose launches read the
+    winner."""
     from repro_torch.kernels.config import KernelConfig
     from repro_torch.kernels.fused import adamw as ak
     (n,) = shape

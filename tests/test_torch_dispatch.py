@@ -307,22 +307,32 @@ def test_step_points_are_where_the_wrappers_look_up(tmp_path, monkeypatch):
     from repro_torch.kernels.fused import swiglu as sk
     seen = set()
 
-    def shim(mod, name, kernel, point):
+    def shim(mod, name, kernel, points):
         real = getattr(mod, name)
 
         def recording(*args, **kw):
-            t, shape = point(*args)
-            seen.add((kernel, shape, dsp.dtype_name(t.dtype)))
+            for dtype, shape in points(*args):
+                seen.add((kernel, shape, dsp.dtype_name(dtype)))
             return real(*args, **kw)
 
         monkeypatch.setattr(mod, name, recording)
 
+    def adamw_groups(gs, ms, vs, ps, *_):
+        """One lookup per (g, m, v, p) dtype group, at its element
+        count's size class (the power of two at or below it)."""
+        total = {}
+        for leaf in zip(gs, ms, vs, ps):
+            key = tuple(t.dtype for t in leaf)
+            total[key] = total.get(key, 0) + leaf[3].numel()
+        return [(key[3], (1 << (n.bit_length() - 1),))
+                for key, n in total.items()]
+
     for name in ("fused_rmsnorm", "fused_rmsnorm_residual"):
-        shim(nk, name, "fused_norm", lambda x, *_: (x, common.rows_view(x)))
+        shim(nk, name, "fused_norm",
+             lambda x, *_: [(x.dtype, common.rows_view(x))])
     shim(sk, "fused_swiglu", "fused_swiglu",
-         lambda g, *_: (g, tuple(g.shape)))
-    shim(ak, "fused_adamw", "fused_adamw",
-         lambda g, m, v, p, *_: (p, (p.numel(),)))
+         lambda g, *_: [(g.dtype, tuple(g.shape))])
+    shim(ak, "fused_adamw_multi", "fused_adamw", adamw_groups)
     path = str(tmp_path / "t.json")
     _steps(RunConfig(fusion="static"), 1, path)
     points = dsp.step_points("glm4-9b", seq=16, batch=2, store=path,
@@ -346,4 +356,6 @@ def test_step_points_follow_the_table(tmp_path, winner):
     after = dsp.step_points("glm4-9b", seq=16, batch=2, store=path,
                             device="cpu")
     assert after == ([] if winner == "reference" else before)
-    assert len(before) == 8
+    # the norms', the SwiGLU's, and one lookup for the 12 AdamW leaves:
+    # they launch together, one f32 group
+    assert len(before) == 3

@@ -356,14 +356,18 @@ def test_fakes_on_meta_give_shapes_and_allocate_nothing():
     g = ops.swiglu(x, x, act="gelu")
     assert g.shape == x.shape and g.device.type == "meta"
     p = torch.empty(7, 3, dtype=torch.bfloat16, device="meta")
+    q = torch.empty(5, device="meta")
     bc = torch.empty(2, device="meta")
-    outs = ops.adamw_leaf(p.float(), p, p, p, bc, lr=1e-3, b1=0.9, b2=0.95,
-                          eps=1e-8, weight_decay=0.1)
-    assert [o.shape for o in outs] == [p.shape] * 3
-    assert all(o.device.type == "meta" for o in outs)
-    same = ops.adamw_leaf(p.float(), p, p, p, bc, lr=1e-3, b1=0.9, b2=0.95,
-                          eps=1e-8, weight_decay=0.1, inplace=True)
-    assert same[0] is p
+    outs = ops.adamw_group([p.float(), q], [p, q], [p, q], [p, q], bc,
+                           lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
+                           weight_decay=0.1)
+    assert [[o.shape for o in out] for out in outs] == \
+        [[p.shape, q.shape]] * 3
+    assert all(o.device.type == "meta" and o is not p
+               for out in outs for o in out)
+    same = ops.adamw_group([p.float()], [p], [p], [p], bc, lr=1e-3, b1=0.9,
+                           b2=0.95, eps=1e-8, weight_decay=0.1, inplace=True)
+    assert same[0][0] is p
 
 
 def test_wrappers_take_plain_path_on_cpu_without_counting():
@@ -401,11 +405,11 @@ def test_wrappers_refuse_meta_tensors():
 def test_the_library_interface_is_declared():
     sig = build._SIGNATURES["fused"]
     assert set(sig) == {"fused_rmsnorm", "fused_layernorm", "fused_swiglu",
-                        "fused_adamw", "fused_error_string"}
+                        "fused_adamw_multi", "fused_error_string"}
     assert build.library_path("fused").name.startswith("libfused_")
     src = (build.CSRC / "fused.cu").read_text()
     for name in ("fused_rmsnorm", "fused_layernorm", "fused_swiglu",
-                 "fused_adamw", "fused_error_string"):
+                 "fused_adamw_multi", "fused_error_string"):
         assert f" {name}(" in src
     for ref in ("norm.py::fused_rmsnorm", "norm.py::fused_rmsnorm_residual",
                 "norm.py::fused_layernorm", "swiglu.py::fused_swiglu",
@@ -456,11 +460,11 @@ def test_op_walk_counts_each_fused_op_as_one_custom_kernel():
     p = torch.empty(4096, 151_552)
 
     def opt(p):
-        ops.adamw_leaf(p, p, p, p, torch.empty(2), lr=1e-3, b1=0.9, b2=0.95,
-                       eps=1e-8, weight_decay=0.1, inplace=True)
+        ops.adamw_group([p], [p], [p], [p], torch.empty(2), lr=1e-3, b1=0.9,
+                        b2=0.95, eps=1e-8, weight_decay=0.1, inplace=True)
 
     (rec,) = analyze_fn(opt, (p,)).kernels
-    assert rec.opcode == "adamw_" and rec.category == "custom"
+    assert rec.opcode == "adamw_multi_" and rec.category == "custom"
     assert rec.hbm_bytes == adamw.hbm_bytes(n) and rec.flops == 16 * n
 
 
@@ -496,7 +500,7 @@ def test_static_has_fewer_zero_ai_launches(census):
                if k.category == "custom"}
     assert customs == {"rmsnorm", "rmsnorm_residual", "swiglu"}
     assert {k.opcode for k in census["static"]["opt"].kernels
-            if k.category == "custom"} == {"adamw_"}
+            if k.category == "custom"} == {"adamw_multi_"}
     assert not any(k.category == "custom"
                    for a in census["off"].values() for k in a.kernels)
 
@@ -509,6 +513,8 @@ def test_full_width_static_bwd_keeps_the_scatter():
     import dataclasses
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import api as M
+    from repro_torch.models.params import leaves
     from repro_torch.models.transformer import matmul_flops
     cfg4 = dataclasses.replace(get_config("glm4-9b"), n_layers=4)
     assert 2 * 2048 * cfg4.vocab_padded * 4 > ops.ONEHOT_BYTES_MAX
@@ -519,5 +525,12 @@ def test_full_width_static_bwd_keeps_the_scatter():
           for ph, a in res.analyses.items()}
     assert mm == {"fwd": matmul_flops(cfg4, 2, 2048),
                   "bwd": 3 * matmul_flops(cfg4, 2, 2048), "opt": 0}
-    adam = [k for k in res.analyses["opt"].kernels if k.opcode == "adamw_"]
-    assert sum(k.exec_count for k in adam) == 12     # one launch per leaf
+    # the 12 leaves in one multi-tensor call (one launch: one dtype group),
+    # whose record carries the sums of the 12 one-leaf records it replaces
+    adam = [k for k in res.analyses["opt"].kernels
+            if k.opcode == "adamw_multi_"]
+    numels = [int(np.prod(spec.shape))
+              for _, spec in leaves(M.build(cfg4).spec)]
+    assert len(numels) == 12 and sum(k.exec_count for k in adam) == 1
+    assert adam[0].hbm_bytes == sum(adamw.hbm_bytes(n) for n in numels)
+    assert adam[0].flops == sum(adamw.flops(n) for n in numels)

@@ -353,13 +353,13 @@ def test_routed_adamw_hands_the_kernel_a_contiguous_gradient(monkeypatch):
     from repro_torch.kernels.fused import adamw as ak
     from repro_torch.train import optim as p_optim
     seen = []
-    real = ak.fused_adamw
+    real = ak.fused_adamw_multi
 
-    def spy(g, *args, **kw):
-        seen.append(g.is_contiguous())
-        return real(g, *args, **kw)
+    def spy(gs, *args, **kw):
+        seen.extend(g.is_contiguous() for g in gs)
+        return real(gs, *args, **kw)
 
-    monkeypatch.setattr(ak, "fused_adamw", spy)
+    monkeypatch.setattr(ak, "fused_adamw_multi", spy)
     cfg = p_get_smoke(ARCH)
     model = p_api.build(cfg)
     params = p_params.init(model.spec, torch.Generator().manual_seed(0))
