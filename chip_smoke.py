@@ -39,8 +39,14 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    test shapes, a single chunk, no decay, an underflowing decay and a
    ragged P and N (``SSD_SHAPES``), and its row states the GFLOP its tiles execute and
    its bound on fp32 FMAs beside the one on 3xTF32 tensor cores, which it
-   runs on;
-4. drives six main paths, each with every launch count set to 0 just
+   runs on.  The shapes paths g and h give the kernels are held and timed
+   too (rows of step 3's table, not of the JSON line): the norms at
+   widths 2048 (zamba2) and 3072 (minitron), SwiGLU at (4096, 14336)
+   (granite; silu, and the gelu route geglu takes), flash at zamba2's 32
+   heads of 64 on 32 KV heads, granite's 32 on 8 and minitron's 24 on 8,
+   each beside SDPA, the SSD scan at zamba2's N = 64 and chunk 128, and
+   (after path g) the AdamW launch on zamba2's leaves;
+4. drives eight main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
@@ -94,12 +100,36 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       must hold more zero-AI launches and bytes than ``fused``'s; finite
       losses that agree), 3 steps at ``reference``, then a record that
       reads back;
+   g. the zamba2-1.2b hybrid (:func:`hybrid_path`) at full width and
+      depth (38 Mamba-2 layers, the shared block at 6 sites), seq 2048,
+      batch 2, O1, ``static``, SSD kernel, flash: fwd, bwd and opt
+      profiled (fwd matmul FLOPs must equal ``hybrid.matmul_flops`` less
+      the sites' QKᵀ and PV, the ssd_scan records 38x the kernel's model;
+      each fwd pass 38 ssd_scan and 6 flash launches, each opt call one
+      ``fused_adamw`` launch), 3 steps with a finite loss, the peak
+      memory, one AdamW launch over the model's 19 leaves held against
+      the plain chain on every leaf, and the fwd at ``ssd_impl="xla"``
+      whose loss must agree with the kernel route's;
+   h. the dense family (:func:`dense_family_path`): granite-8b at full
+      width cut to 4 layers under remat none, dots and full (equal fwd
+      losses, bwd peak memory strictly none > dots > full, each mode's
+      recompute in the bwd walk's matmul FLOPs exactly, gradients against
+      none's, ``model_flops_ratio``, the bytes one fwd keeps for the bwd
+      with dots - full exactly the products against a weight), one fwd
+      at flash (G = 4);
+      minitron-4b at full width and depth under Adafactor and remat full
+      (phases profiled with the 256,000-column unembedding, 3 steps with
+      a finite loss, its optimizer state beside AdamW's); and
+      mistral-large-123b's fwd walk on meta tensors at full width and
+      depth (matmul FLOPs and ``param_count`` exact);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
    on the card against the same functions on the host (the port's CPU
    path, which the tests hold against the JAX reference): glm4-9b at
    einsum and flash attention, mamba2-1.3b at the SSD kernel (the
    kernels on the card, their plain versions on the host), DeepCAM in
-   both lowerings (fwd of each, a train step of each);
+   both lowerings (fwd of each, a train step of each), zamba2-1.2b at
+   the SSD kernel and flash, minitron-4b under Adafactor and granite-8b
+   under remat dots;
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Every step runs in one workspace, ``build/chip_workspace``, emptied at
@@ -340,6 +370,21 @@ def launch_config(kernel: str, t, shape, **runtime) -> dict:
     return {**kc.for_launch(kernel, None, t, shape).dict, **runtime}
 
 
+def shape_row(name: str, shape: str, err: float, kernel, plain, library,
+              bnd: dict, config: dict, calls: int = 20) -> dict:
+    """A kernel timed at a shape a new path gives it (printed in step 3's
+    table, not in the JSON line, which holds one row a kernel):
+    ``kernel``, ``plain`` and ``library`` (or None) are callables timed
+    through a replayed CUDA graph; ``bnd`` is :func:`bound`'s."""
+    return {"name": name, "shape": shape, "max_abs_err": err,
+            "config": config, "at_shape": True,
+            "ms": graph_ms(kernel, calls=calls),
+            "plain_ms": graph_ms(plain, calls=2),
+            "library_ms": None if library is None else graph_ms(library,
+                                                                calls=calls),
+            **bnd}
+
+
 def rotating(make, k=4):
     """k operand sets, cycled: together larger than the 50 MB L2, so a
     timed launch finds its inputs in HBM as the train step does."""
@@ -457,13 +502,44 @@ def fused_checks(dev, sheet) -> list[dict]:
         **bound(norm.hbm_bytes(4096, 4096, 2, residual=True),
                 norm.flops(4096, 4096, residual=True), "f32", sheet)})
     del sets, x, h, stack
+    # the widths paths g and h give the norms: zamba2-1.2b (2048) and
+    # minitron-4b (3072), 4096 rows (seq 2048 x batch 2)
+    for d, who in ((2048, "zamba2-1.2b, path g"),
+                   (3072, "minitron-4b, path h")):
+        sets, nxt = rotating(lambda: (randn((4096, d), bf16, 3.0),
+                                      randn((4096, d), bf16)))
+        x, h = sets[0]
+        sc = torch.rand((4, d), generator=g, device=dev)[1]
+        want = norm.rmsnorm_ref(x, sc, eps, bf16)
+        err = check(f"rmsnorm bf16 4096x{d} ({who})",
+                    norm.fused_rmsnorm(x, sc), want, norm_tol(bf16, want))
+        rows.append(shape_row(
+            "fused_rmsnorm", f"bf16 (4096, {d}), f32 scale ({who})", err,
+            lambda: norm.fused_rmsnorm(nxt()[0], sc),
+            lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, bf16),
+            lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
+            bound(norm.hbm_bytes(4096, d, 2), norm.flops(4096, d), "f32",
+                  sheet), launch_config("fused_norm", x, (4096, d))))
+        r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, bf16)
+        rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
+        check(f"rmsnorm_residual r bf16 4096x{d}", rr, r_ref, 0.0)
+        err = check(f"rmsnorm_residual y bf16 4096x{d} ({who})", yy, y_ref,
+                    norm_tol(bf16, y_ref))
+        rows.append(shape_row(
+            "fused_rmsnorm_residual", f"bf16 (4096, {d}) x and h ({who})",
+            err, lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
+            lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, bf16), None,
+            bound(norm.hbm_bytes(4096, d, 2, residual=True),
+                  norm.flops(4096, d, residual=True), "f32", sheet),
+            launch_config("fused_norm", x, (4096, d))))
+        del sets, x, h, want, r_ref, y_ref, rr, yy
 
     # -- swiglu ----------------------------------------------------------------
     print("fused_swiglu: (tolerance: 1 ulp of the output dtype at max|ref| "
           "— CUDA's expf/tanhf against ATen's, one rounding at the write)")
     for (r, d), dt, act in itertools.product(
-            ((4096, 13_696), (1, 1), (4097, 4097), (1, 4097)), (bf16, f32),
-            ("silu", "gelu")):
+            ((4096, 13_696), (4096, 14_336), (1, 1), (4097, 4097),
+             (1, 4097)), (bf16, f32), ("silu", "gelu")):
         a, b = randn((r, d), dt, 2.0), randn((r, d), dt)
         want = swiglu.swiglu_ref(a, b, act, dt)
         check(f"swiglu {act} {str(dt)[6:]} {r}x{d}",
@@ -486,6 +562,22 @@ def fused_checks(dev, sheet) -> list[dict]:
         "library_ms": None,
         **bound(swiglu.hbm_bytes(4096, 13_696, 2),
                 swiglu.flops(4096, 13_696), "f32", sheet)})
+    del sets, a, b
+    # granite-8b's MLP (path h): silu, and the gelu route geglu takes
+    sets, nxt = rotating(lambda: (randn((4096, 14_336), bf16, 2.0),
+                                  randn((4096, 14_336), bf16)), k=2)
+    a, b = sets[0]
+    for act in ("silu", "gelu"):
+        err = max_abs_err(swiglu.fused_swiglu(a, b, act=act),
+                          swiglu.swiglu_ref(a, b, act, bf16))[0]
+        rows.append(shape_row(
+            "fused_swiglu", f"bf16 (4096, 14336), {act} (granite-8b, path "
+            f"h{'' if act == 'silu' else '; the geglu route'})", err,
+            lambda: swiglu.fused_swiglu(*nxt(), act=act),
+            lambda: swiglu.swiglu_ref(*nxt(), act, bf16), None,
+            bound(swiglu.hbm_bytes(4096, 14_336, 2),
+                  swiglu.flops(4096, 14_336, act), "f32", sheet),
+            launch_config("fused_swiglu", a, (4096, 14_336), act=act)))
     del sets, a, b
 
     rows.append(adamw_checks(dev, sheet, randn))
@@ -1026,16 +1118,47 @@ def flash_checks(dev, sheet) -> list[dict]:
                     f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
                     f"{row['ms'] / row['library_ms']:.3f}x SDPA")
     del sets, q, k, v
+    rows = [row]
+    # the heads paths g and h give it: zamba2-1.2b's 32 heads of 64 on 32
+    # KV heads (G = 1), granite-8b's 32 on 8 (G = 4), minitron-4b's 24 on
+    # 8 (G = 3); seq 2048, batch 2, causal
+    for shape, who in (((2, 2048, 32, 1, 64), "zamba2-1.2b, path g"),
+                       ((2, 2048, 8, 4, 128), "granite-8b, path h"),
+                       ((2, 2048, 8, 3, 128), "minitron-4b, path h")):
+        b, s_, kv, grp, hd = shape
+        sets, nxt = rotating(lambda: gqa(*shape, bf16), k=2)
+        q, k, v = sets[0]
+        want = ops._ref_gqa(q, k, v, True)
+        err = check_within(f"flash[{fk.route(hd, bf16)}] {who} "
+                           f"{'x'.join(map(str, shape))} bf16 causal",
+                           fk.flash_attention_grouped(q, k, v), want,
+                           ref.kernel_tolerance(want))
+        del want, q, k, v
+        flop = fk.flops(b * kv * grp, s_, s_, hd)
+        r = shape_row(
+            "flash_attention", f"bf16 q {shape}, causal ({who})", err,
+            lambda: fk.flash_attention_grouped(*nxt()),
+            lambda: ops._ref_gqa(*nxt(), True), lambda: sdpa(*nxt()),
+            bound(fk.hbm_bytes(b * kv * grp, s_, s_, hd, 2), flop, "bf16",
+                  sheet), kc.resolve("flash_attention", None).dict)
+        r["extra"] = (f"{fk.route(hd, bf16)} kernel, "
+                      f"{flop / r['ms'] / 1e9:.1f} TFLOP/s, "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+                      f"{r['ms'] / r['library_ms']:.3f}x SDPA")
+        rows.append(r)
+        del sets
     torch.cuda.empty_cache()
-    return [row]
+    return rows
 
 
 #: the SSD kernel's checks, ((B, H, S, P, N, chunk), a_kind): the main
-#: path's shape at its chunk (256) and the reference's (128), the
-#: reference's test shapes, a single chunk, no decay and an underflowing
+#: path's shape at its chunk (256) and the reference's (128), zamba2's,
+#: the reference's test shapes, a single chunk, no decay and an underflowing
 #: decay (``tools/ssd_check.py`` checks the same)
 SSD_SHAPES = (((2, 64, 2048, 64, 128, 256), "random"),
               ((2, 64, 2048, 64, 128, 128), "random"),
+              # zamba2-1.2b's (path g): N = 64, the reference's chunk 128
+              ((2, 64, 2048, 64, 64, 128), "random"),
               ((2, 3, 256, 16, 8, 64), "random"),
               ((1, 2, 128, 32, 16, 32), "random"),
               ((2, 1, 64, 8, 8, 64), "random"),
@@ -1150,8 +1273,33 @@ def ssd_checks(dev, sheet) -> list[dict]:
                   f"fp32 FMAs {fma['bound_ms']:.4f} ms ({fma['bound_by']})"),
         **tc}
     del sets, xh, a, bm, cm
+    rows = [row]
+    # zamba2-1.2b's scan (path g): N = 64, chunk 128
+    b, h, s, p, n, q = SSD_SHAPES[2][0]
+    sets, nxt = rotating(lambda: operands(b, h, s, p, n, layout="model"),
+                         k=2)
+    xh, a, bm, cm = sets[0]
+    want = ssd_chunked(xh, a, bm, cm, q)
+    tol = ref.kernel_tolerance(want.transpose(1, 2), q).transpose(1, 2)
+    err = check_within("ssd zamba2-1.2b shape, model layout, timed operands",
+                       sk.ssd_scan_model(xh, a, bm, cm, chunk=q), want, tol)
+    del want, tol
+    nbytes = sk.hbm_bytes(b, h, s, p, n)
+    need = sk.needed_flops(b, h, s, p, n, q)
+    fma = bound(nbytes, need, "f32", sheet)
+    r = shape_row(
+        "ssd_scan", f"f32 xh ({b}, {s}, {h}, {p}), B/C ({b}, {s}, {n}), "
+        f"chunk {q} (zamba2-1.2b, path g)", err,
+        lambda: sk.ssd_scan_model(*nxt(), chunk=q),
+        lambda: ssd_chunked(*nxt(), q), None,
+        bound(nbytes, 3 * need, "tf32", sheet, peak=TF32_PEAK),
+        kc.resolve("ssd_scan", None, chunk=q).dict)
+    r["extra"] = (f"needed {need / 1e9:.4f} GFLOP; bound on fp32 FMAs "
+                  f"{fma['bound_ms']:.4f} ms ({fma['bound_by']})")
+    rows.append(r)
+    del sets, xh, a, bm, cm
     torch.cuda.empty_cache()
-    return [row]
+    return rows
 
 
 def bound(nbytes: float, nflops: float, cls: str, sheet,
@@ -1644,19 +1792,27 @@ def tuning_path(cfg, sheet, untuned, *, device: str = "cuda",
        ``fused_layernorm`` by — then again: nothing measured;
     4. the train step's phases at ``fusion="auto"`` under
        ``REPRO_DISPATCH=frozen`` (every site must hit) beside
-       ``"static"``: fwd losses within :data:`ROUTE_LOSS_RTOL`;
+       ``"static"``: fwd losses within :data:`ROUTE_LOSS_RTOL`; under
+       ``auto`` the AdamW leaves take the kernel as one dtype group,
+       one launch an opt call (``ops.adamw_routes``);
     5. ``Session.record`` at ``auto``, read back with its
        ``kernel_configs`` and ``dispatch_table``; every launch of a
        fused kernel in it finds a tuned config in the store.
 
     Launch counts are set to 0 just before and read just after; returns
     them."""
+    import dataclasses
+
     import torch
     from repro_torch import kernels
+    from repro_torch.models import api as M
+    from repro_torch.models.params import leaves
     from repro_torch.session.session import Session
     from repro_torch.tune import dispatch as dsp
 
     cuda = torch.device(device).type == "cuda"
+    numels = [math.prod(p.shape) for _, p in leaves(M.build(
+        dataclasses.replace(cfg, n_layers=layers)).spec)]
     print(f"== 4e. main path: tuning and the measured dispatch (workspace "
           f"{workspace})")
     kernels.reset_launch_counts()
@@ -1764,10 +1920,18 @@ def tuning_path(cfg, sheet, untuned, *, device: str = "cuda",
         with dsp.dispatch_scope(mode="frozen") as scope:
             for fusion in ("static", "auto"):
                 scope.reset_stats()
+                before = kernels.launch_counts()["fused_adamw"]
                 prof = s.profile(
                     "glm4-9b", smoke=smoke, n_layers=layers, seq=seq,
                     batch=batch, amp="O1", fusion=fusion,
                     attn_impl="chunked", measure=True, iters=5, warmup=2)
+                if fusion == "auto" and cuda:
+                    # (on the host the plain versions' timings decide the
+                    # table, and may route the group to the chain)
+                    check_adamw_walk(
+                        "auto opt", prof.analyses["opt"], numels,
+                        kernels.launch_counts()["fused_adamw"] - before,
+                        5 + 2, cuda)
                 losses[fusion] = float(prof.data["fwd"].output)
                 walls[fusion] = {ph: prof.data[ph].wall_s * 1e3
                                  for ph in ("fwd", "bwd", "opt")}
@@ -2000,6 +2164,520 @@ def deepcam_path(cfg, sheet, measured, *, device: str = "cuda",
     return counts
 
 
+def adamw_leaves_row(params, sheet, label: str) -> dict:
+    """``fused_adamw`` on one model's f32 leaves, as the opt phase
+    launches it (their shapes, one multi-tensor launch per dtype group):
+    first one call that is not in place, every leaf's p, m and v held
+    against ``adamw_ref`` (1 ulp of f32 at the leaf's max|ref|, as
+    :func:`adamw_multi_checks`); then the call in place timed in a
+    replayed CUDA graph beside ``torch._fused_adamw_`` on the same leaves,
+    and the loop of plain chains timed eagerly (its temporaries, a leaf at
+    a time, would stay allocated in a graph): a row at a new shape
+    (gradients and moments drawn here, so the row needs three more copies
+    of the leaves, and the check three more)."""
+    import torch
+    from repro_torch.kernels.ert import ops as ert_ops
+    from repro_torch.kernels.fused import adamw
+    from torch.utils._pytree import tree_flatten
+
+    ps = [p for p in tree_flatten(params)[0]]
+    dev = ps[0].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gs = [torch.randn(p.shape, generator=gen, device=dev) for p in ps]
+    ms = [torch.randn(p.shape, generator=gen, device=dev) * 0.1 for p in ps]
+    vs = [torch.rand(p.shape, generator=gen, device=dev) * 0.01 for p in ps]
+    bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.95 ** 3], device=dev)
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    before = adamw.LAUNCHES
+    got = adamw.fused_adamw_multi(gs, ms, vs, ps, bc, **hyper)
+    took = adamw.LAUNCHES - before
+    err = worst = 0.0
+    for i, leaf in enumerate(zip(gs, ms, vs, ps)):
+        for out, want in zip((t[i] for t in got),
+                             adamw.adamw_ref(*leaf, bc, **hyper)):
+            d = (out - want).abs().max().item()
+            ulp = 2.0 ** -22 * want.abs().max().item() + 1e-30
+            err, worst = max(err, d), max(worst, d / ulp)
+    del got
+    ok = worst <= 1.0 and math.isfinite(err) and took == 1
+    print(f"  fused_adamw_multi {label}: {len(ps)} f32 leaves in {took} "
+          f"launch(es), p, m and v of every leaf against adamw_ref: "
+          f"max_abs_err {err:.3e}  max err/tol {worst:.3f} (tolerance 1 ulp "
+          f"of f32 at the leaf's max|ref|)  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"fused_adamw_multi on the {label} leaves: "
+                             f"{took} launches (one expected), an error "
+                             f"reaches {worst} of its bound")
+    steps = [torch.tensor(3.0, device=dev) for _ in ps]
+    n = sum(p.numel() for p in ps)
+    row = {"name": "fused_adamw", "at_shape": True, "max_abs_err": err,
+           "shape": f"{len(ps)} f32 leaves, {n} params, in place ({label})",
+           "config": launch_config("fused_adamw", ps[0],
+                                   adamw.lookup_shape(n)),
+           "ms": graph_ms(lambda: adamw.fused_adamw_multi(
+               gs, ms, vs, ps, bc, inplace=True, **hyper), calls=2),
+           "plain_ms": 1e3 * ert_ops.time_launches(lambda: [
+               adamw.adamw_ref(g, m, v, p, bc, **hyper) for g, m, v, p in
+               zip(gs, ms, vs, ps)], dev, iters=2, warmup=1),
+           "library_ms": graph_ms(lambda: torch._fused_adamw_(
+               ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+               weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False),
+               calls=2),
+           **bound(sum(adamw.hbm_bytes(p.numel()) for p in ps),
+                   sum(adamw.flops(p.numel()) for p in ps), "f32", sheet)}
+    del gs, ms, vs
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_path(cfg, sheet, *, device: str = "cuda", layers: int | None = None,
+                seq: int = 2048, batch: int = 2, smoke: bool = False,
+                arch: str = "zamba2-1.2b") -> tuple[dict, list[dict]]:
+    """Main path g: zamba2-1.2b (38 Mamba-2 layers, one shared attention
+    and MLP block at 6 sites) at full width and depth, seq 2048, batch 2,
+    AMP O1, ``fusion="static"``, ``ssd_impl="kernel"``,
+    ``attn_impl="flash"`` (``cfg`` is the registry config ``arch``; the
+    keywords exist to rehearse the path on the host at the smoke size):
+
+    1. the fwd, bwd and opt phases profiled with ``measure=True``: fwd
+       matmul FLOPs equal ``hybrid.matmul_flops`` less the sites' QKᵀ and
+       PV, the ssd_scan records carry layers × the kernel's FLOPs and the
+       flash records one a site; each fwd pass launches ssd_scan once a
+       layer and flash once a site, each opt call ``fused_adamw`` once;
+    2. 3 steps of ``make_train_step``, each with a finite loss, the peak
+       memory, then ``fused_adamw`` timed on the model's leaves;
+    3. the fwd at ``ssd_impl="xla"``: its loss within
+       :data:`SSD_ROUTE_LOSS_RTOL` of the kernel route's.
+
+    Launch counts are set to 0 just before and read just after; returns
+    them and the AdamW row."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import api as M
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.params import leaves
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    layers = cfg.n_layers if layers is None else layers
+    cfg_g = dataclasses.replace(cfg, n_layers=layers)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, seq)
+    n_sites = HY.n_shared_sites(cfg_g)
+    qk_pv = TR.attention_flops(cfg_g, batch, seq)["qk_pv"]
+    want_mm = HY.matmul_flops(cfg_g, batch, seq) - n_sites * qk_pv
+    want_ssd = layers * sk.flops(batch, H, seq, P, N, q)
+    want_flash = n_sites * fk.flops(batch * cfg.n_heads, seq, seq,
+                                    cfg.head_dim)
+    iters, warmup = 5, 2
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    numels = [math.prod(p.shape) for _, p in leaves(M.build(cfg_g).spec)]
+    n_params = sum(numels)
+    print(f"== 4g. main path: {cfg.name} hybrid at full width (d_model "
+          f"{cfg.d_model}, {H} SSM heads x {P}, state {N}, chunk "
+          f"{cfg.ssm_chunk}; shared block {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, act {cfg.act}; vocab "
+          f"{cfg.vocab_size}), {layers} layers and {n_sites} sites "
+          f"({n_params} params in the spec tree; params, grads and both "
+          f"AdamW moments in fp32 take {16 * n_params / 1e9:.1f} GB), seq "
+          f"{seq} batch {batch} amp O1 fusion static ssd kernel attn flash "
+          f"(fwd matmul FLOPs must be {want_mm}, ssd_scan {want_ssd:.0f}, "
+          f"flash {want_flash:.0f})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    kw = dict(smoke=smoke, n_layers=layers, seq=seq, batch=batch, amp="O1",
+              fusion="static", attn_impl="flash")
+    t0 = time.perf_counter()
+    prof = s.profile(arch, ssd_impl="kernel", measure=True, iters=iters,
+                     warmup=warmup, **kw)
+    got = kernels.launch_counts()
+    for ph in ("fwd", "bwd", "opt"):
+        mm, fl = phase_summary("kernel", ph, prof, sheet, custom="ssd_scan")
+        if ph == "fwd":
+            fa = sum(k.total_flops for k in prof.analyses[ph].kernels
+                     if k.opcode == "flash_attention")
+            if mm != want_mm or fl != want_ssd or fa != want_flash:
+                raise AssertionError(
+                    f"hybrid fwd: matmul FLOPs {mm} != {want_mm}, ssd_scan "
+                    f"{fl} != {want_ssd} or flash {fa} != {want_flash}")
+    passes = 2 * (warmup + iters)       # the fwd and bwd phases' fwd passes
+    want_launch = {"ssd_scan": passes * layers,
+                   "flash_attention": passes * n_sites}
+    print(f"  launches in the profile: ssd_scan {got['ssd_scan']}, flash "
+          f"{got['flash_attention']}, fused_adamw {got['fused_adamw']} "
+          f"(expected {want_launch} over {passes} fwd passes, and one "
+          f"fused_adamw a opt call); profile call "
+          f"{time.perf_counter() - t0:.1f} s")
+    if cuda and any(got[k] != v for k, v in want_launch.items()):
+        raise AssertionError(f"hybrid launches {got} != {want_launch}")
+    check_adamw_walk("hybrid opt", prof.analyses["opt"], numels,
+                     got["fused_adamw"], warmup + iters, cuda)
+    losses = {"kernel": float(prof.data["fwd"].output)}
+    print(prof.render(charts=0, top_kernels=8))
+    del prof
+    if cuda:
+        torch.cuda.empty_cache()
+
+    run = RunConfig(amp="O1", fusion="static", ssd_impl="kernel",
+                    attn_impl="flash")
+    model = M.build(cfg_g)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg_g, ShapeSpec("t", seq, batch,
+                                                     "train"), batch, gen,
+                                    device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  hybrid train step {i + 1}: loss {loss:.6f} | grad norm "
+              f"{float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"hybrid train step {i + 1}: loss {loss}")
+    if cuda:
+        print(f"  train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del step, batch_t
+    counts = kernels.launch_counts()
+    row = (adamw_leaves_row(state.params, sheet, f"{cfg.name}, path g")
+           if cuda else None)
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    prof = s.profile(arch, ssd_impl="xla", phases=("fwd",), measure=True,
+                     iters=1, warmup=1, **kw)
+    losses["xla"] = float(prof.data["fwd"].output)
+    phase_summary("xla", "fwd", prof, sheet, custom="ssd_scan")
+    del prof
+    if cuda:
+        torch.cuda.empty_cache()
+    rel = abs(losses["kernel"] - losses["xla"]) / abs(losses["xla"])
+    print(f"  fwd loss xla {losses['xla']:.6f} kernel {losses['kernel']:.6f}"
+          f": relative difference {rel:.3e} (rtol {SSD_ROUTE_LOSS_RTOL:g})")
+    if not (math.isfinite(rel) and rel <= SSD_ROUTE_LOSS_RTOL):
+        raise AssertionError(f"the hybrid's SSD routes' losses differ by "
+                             f"{rel}")
+    print(f"launches on main path g: {json.dumps(counts)}")
+    for name in ("ssd_scan", "flash_attention", "fused_rmsnorm",
+                 "fused_rmsnorm_residual", "fused_adamw"):
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path g")
+    return counts, [row] if row else []
+
+
+#: the parameters of mistral-large-123b (the reference's ``param_count``;
+#: this script imports nothing of the reference)
+MISTRAL_PARAMS = 122_610_069_504
+
+#: how far path h's gradients under remat "dots" and "full" may lie from
+#: remat "none"'s, relative to each leaf's largest |gradient|: the
+#: recompute runs the same kernels on the same inputs, so the readings
+#: are expected to be 0; a bound above it would take a kernel choice that
+#: depends on free memory (cuBLAS's workspace)
+REMAT_GRAD_TOL = 1e-3
+
+
+def remat_held_check(model, params, batch_t, cfg, tokens: int) -> None:
+    """What each remat mode keeps for the backward, read on the card: the
+    device bytes that one fwd with gradients leaves allocated (after the
+    bwd runs above, so the cuBLAS workspace is there already).  ``dots``
+    must keep exactly the products against a weight (q, k, v, o and the
+    MLP's, in the compute dtype, a layer each) above ``full``, and the
+    modes must read ``none > dots > full``."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from torch.utils._pytree import tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    mlp = (2 if cfg.act in ("swiglu", "geglu") else 1) * cfg.d_ff \
+        + cfg.d_model
+    attn = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.d_model
+    want = cfg.n_layers * tokens * (attn + mlp) * 2       # bf16 at O1
+    held = {}
+    for mode in ("none", "dots", "full"):
+        run = RunConfig(amp="O1", fusion="static", remat=mode)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss = model.loss_fn(leaves, batch_t, run)[0]
+        torch.cuda.synchronize()
+        held[mode] = torch.cuda.memory_allocated() - base
+        del loss
+    print(f"  bytes one fwd keeps for the bwd: none {held['none']}, dots "
+          f"{held['dots']}, full {held['full']}; dots - full "
+          f"{held['dots'] - held['full']} (the products against a weight: "
+          f"{want} B, {cfg.n_layers} layers x {tokens} tokens x "
+          f"{attn + mlp} columns x 2 B)")
+    if not (held["none"] > held["dots"] > held["full"]
+            and held["dots"] - held["full"] == want):
+        raise AssertionError(f"remat keeps {held}; dots - full is not the "
+                             f"{want} B of the products against a weight")
+
+
+def dense_family_path(granite, minitron, mistral, sheet, *,
+                      device: str = "cuda", layers: int = 4,
+                      minitron_layers: int | None = None, seq: int = 2048,
+                      batch: int = 2, smoke: bool = False) -> dict:
+    """Main path h: the rest of the dense family and its memory features,
+    AMP O1, ``fusion="static"`` (the configs are the registry's; the
+    keywords exist to rehearse the path on the host at the smoke size):
+
+    1. granite-8b at full width, depth cut to ``layers``, einsum
+       attention: the fwd and bwd phases under remat ``none``, ``dots``
+       and ``full`` — the fwd losses equal, the bwd's peak memory strictly
+       ``none > dots > full``, the bwd walk's matmul FLOPs 3x the fwd's
+       plus each mode's recompute (``dots``: the batched QKᵀ and PV;
+       ``full``: each block's products but its last), the gradients of
+       ``dots`` and ``full`` within :data:`REMAT_GRAD_TOL` of ``none``'s,
+       ``model_flops_ratio`` printed for each, on the card
+       :func:`remat_held_check`; then one fwd at ``attn_impl="flash"``
+       (one launch a layer, G = 4);
+    2. minitron-4b at full width and depth (``minitron_layers`` cuts it),
+       ``optimizer="adafactor"``, ``remat="full"``: the fwd, bwd and opt
+       phases profiled (matmul FLOPs with two MLP products and the
+       256,000-column unembedding; the bwd's recompute), 3 steps with a
+       finite loss, the peak memory and Adafactor's state beside AdamW's;
+    3. mistral-large-123b's fwd walk at full width and depth on meta
+       tensors (nothing allocated): matmul FLOPs equal
+       ``transformer.matmul_flops`` and ``param_count``
+       :data:`MISTRAL_PARAMS`.
+
+    Launch counts are set to 0 just before and read just after; returns
+    them."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.core.roofline import model_flops_ratio
+    from repro_torch.kernels.fused.ops import embed_grad_eligible
+    from repro_torch.models import api as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.params import init
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_phases, \
+        make_train_step
+    from torch.utils._pytree import tree_flatten
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def empty_cache():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def recompute(cfg, mode):
+        """The matmul FLOPs the bwd phase adds under remat ``mode``."""
+        att = TR.attention_flops(cfg, batch, seq)
+        block = att["proj"] + att["qk_pv"] + TR.mlp_flops(cfg, batch, seq)
+        down = 2 * batch * seq * cfg.d_ff * cfg.d_model
+        return cfg.n_layers * {"none": 0, "dots": att["qk_pv"],
+                               "full": block - down}[mode]
+
+    def onehot(cfg):
+        # the one-hot embedding gradient is one more bwd matmul where it
+        # is eligible (neither granite's nor minitron's table at full width)
+        return (2 * batch * seq * cfg.vocab_padded * cfg.d_model
+                if embed_grad_eligible(torch.empty(batch, seq,
+                                                   device="meta"),
+                                       cfg.vocab_padded) else 0)
+
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    g4 = dataclasses.replace(granite, n_layers=layers)
+    fwd_mm = TR.matmul_flops(g4, batch, seq)
+    model_flops = 6 * g4.param_count() * batch * seq
+    print(f"== 4h. main path: the dense family. granite-8b at full width "
+          f"(d_model {g4.d_model}, {g4.n_heads}/{g4.n_kv_heads} heads x "
+          f"{g4.head_dim}, d_ff {g4.d_ff}, vocab {g4.vocab_size}), {layers} "
+          f"of {granite.n_layers} layers ({g4.param_count() / 1e9:.3f} B "
+          f"params), seq {seq} batch {batch} amp O1 fusion static, einsum "
+          f"attention, remat none / dots / full (fwd matmul FLOPs must be "
+          f"{fwd_mm}; MODEL_FLOPS 6·N·T = {model_flops})")
+    peaks, losses = {}, {}
+    for mode in ("none", "dots", "full"):
+        t0 = time.perf_counter()
+        prof = s.profile("granite-8b", phases=("fwd", "bwd"), remat=mode,
+                         smoke=smoke, n_layers=layers, seq=seq, batch=batch,
+                         amp="O1", fusion="static", measure=True, iters=3,
+                         warmup=1)
+        want = {"fwd": fwd_mm,
+                "bwd": 3 * fwd_mm + onehot(g4) + recompute(g4, mode)}
+        for ph in ("fwd", "bwd"):
+            mm, _ = phase_summary(mode, ph, prof, sheet)
+            if mm != want[ph]:
+                raise AssertionError(f"granite remat={mode} {ph}: matmul "
+                                     f"FLOPs {mm} != {want[ph]}")
+        ana = prof.analyses["bwd"]
+        peaks[mode] = prof.data["bwd"].peak_device_bytes
+        losses[mode] = float(prof.data["fwd"].output)
+        print(f"  remat {mode:<4}: fwd loss {losses[mode]:.7f} | bwd peak "
+              f"device memory {peaks[mode] / 1e9:.3f} GB | bwd walk "
+              f"{ana.total_flops:.0f} FLOPs, recompute "
+              f"{recompute(g4, mode)} matmul FLOPs | model_flops_ratio "
+              f"{model_flops_ratio(model_flops, ana, 1):.4f} | profile "
+              f"call {time.perf_counter() - t0:.1f} s")
+        del prof, ana
+        empty_cache()
+    if not all(math.isfinite(v) for v in losses.values()) or \
+            max(losses.values()) - min(losses.values()) > \
+            1e-6 * abs(losses["none"]):
+        raise AssertionError(f"granite fwd losses differ by remat: {losses}")
+    if cuda and not peaks["none"] > peaks["dots"] > peaks["full"]:
+        raise AssertionError(f"bwd peak memory is not none > dots > full: "
+                             f"{peaks}")
+
+    model = M.build(g4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init(model.spec, gen, torch.float32, device)
+    batch_t = M.synthetic_batch(g4, ShapeSpec("t", seq, batch, "train"),
+                                batch, gen, device)
+
+    def grads(mode):
+        run = RunConfig(amp="O1", fusion="static", remat=mode)
+        return tree_flatten(make_phases(model, run)["bwd"](params,
+                                                           batch_t))[0]
+
+    base = grads("none")
+    for mode in ("dots", "full"):
+        worst = 0.0
+        for a, b in zip(grads(mode), base):
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+        print(f"  remat {mode} gradients against none's: largest "
+              f"|difference| / the leaf's max|g| {worst:.3e} (tolerance "
+              f"{REMAT_GRAD_TOL:g})")
+        if not worst <= REMAT_GRAD_TOL:
+            raise AssertionError(f"remat {mode} gradients differ by {worst}")
+        empty_cache()
+    del base
+    if cuda:
+        remat_held_check(model, params, batch_t, g4, batch * seq)
+    before = kernels.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        loss = float(model.loss_fn(params, batch_t, RunConfig(
+            amp="O1", fusion="static", attn_impl="flash"))[0])
+    launched = kernels.launch_counts()["flash_attention"] - before
+    print(f"  flash fwd: loss {loss:.7f} (einsum {losses['none']:.7f}), "
+          f"flash launches {launched} (one a layer, G = "
+          f"{g4.n_heads // g4.n_kv_heads})")
+    if not math.isfinite(loss) or (cuda and launched != layers):
+        raise AssertionError(f"granite flash fwd: loss {loss}, {launched} "
+                             "launches")
+    del params, batch_t, model
+    empty_cache()
+
+    # minitron-4b, full depth, Adafactor and remat full
+    mlayers = minitron.n_layers if minitron_layers is None else \
+        minitron_layers
+    mc = dataclasses.replace(minitron, n_layers=mlayers)
+    m_fwd = TR.matmul_flops(mc, batch, seq)
+    unembed = 2 * batch * seq * mc.d_model * mc.vocab_padded
+    print(f"  minitron-4b at full width (d_model {mc.d_model}, "
+          f"{mc.n_heads}/{mc.n_kv_heads} heads, d_ff {mc.d_ff}, act "
+          f"{mc.act}, vocab {mc.vocab_size}), {mlayers} of "
+          f"{minitron.n_layers} layers ({mc.param_count() / 1e9:.3f} B "
+          f"params: f32 params and grads take "
+          f"{8 * mc.param_count() / 1e9:.1f} GB; AdamW's moments would add "
+          f"{8 * mc.param_count() / 1e9:.1f}), optimizer adafactor, remat "
+          f"full (fwd matmul FLOPs must be {m_fwd}, the unembedding "
+          f"{unembed} of them)")
+    kw = dict(smoke=smoke, n_layers=mlayers, seq=seq, batch=batch,
+              amp="O1", fusion="static", remat="full",
+              optimizer="adafactor", measure=True, iters=3, warmup=1)
+    want = {"fwd": m_fwd, "bwd": 3 * m_fwd + onehot(mc)
+            + recompute(mc, "full"), "opt": 0}
+    for phases in (("fwd", "bwd"), ("opt",)):
+        t0 = time.perf_counter()
+        prof = s.profile("minitron-4b", phases=phases, **kw)
+        for ph in phases:
+            mm, _ = phase_summary("minitron", ph, prof, sheet)
+            if mm != want[ph]:
+                raise AssertionError(f"minitron {ph}: matmul FLOPs {mm} != "
+                                     f"{want[ph]}")
+            if ph == "fwd" and not any(
+                    k.total_flops == unembed and k.category == "matmul"
+                    for k in prof.analyses[ph].kernels):
+                raise AssertionError("minitron fwd: no unembedding record")
+        print(f"  minitron {'/'.join(phases)} profile call "
+              f"{time.perf_counter() - t0:.1f} s")
+        del prof
+        empty_cache()
+    run = RunConfig(amp="O1", fusion="static", remat="full",
+                    optimizer="adafactor")
+    model = M.build(mc)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    opt_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(
+        (state.opt.vr, state.opt.vc, state.opt.v))[0])
+    share = opt_bytes / (8 * mc.param_count())
+    print(f"  Adafactor state {opt_bytes} B against AdamW's 8·N = "
+          f"{8 * mc.param_count()} B ({share:.2e} of it)")
+    step = make_train_step(model, run)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(mc, ShapeSpec("t", seq, batch, "train"),
+                                    batch, gen, device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        print(f"  minitron adafactor train step {i + 1}: loss {loss:.6f} | "
+              f"grad norm {float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"minitron step {i + 1}: loss {loss}")
+    if cuda:
+        print(f"  minitron train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, step, model, batch_t
+    empty_cache()
+
+    # mistral-large-123b: the op walk on meta tensors, full width and depth
+    t0 = time.perf_counter()
+    prof = Session(machine=sheet, device=device).profile(
+        "mistral-large-123b", phases=("fwd",), smoke=smoke, seq=seq,
+        batch=batch, amp="O1")
+    mm = sum(k.total_flops for k in prof.analyses["fwd"].kernels
+             if k.category == "matmul")
+    want_mm = TR.matmul_flops(mistral, batch, seq)
+    print(f"  mistral-large-123b fwd walk on meta tensors ({mistral.n_layers}"
+          f" layers, d_model {mistral.d_model}): matmul FLOPs {mm:.0f} "
+          f"(analytic {want_mm}); param_count {mistral.param_count()} "
+          f"(the reference's {MISTRAL_PARAMS}); walk "
+          f"{time.perf_counter() - t0:.1f} s")
+    if mm != want_mm or (not smoke and mistral.param_count() !=
+                         MISTRAL_PARAMS):
+        raise AssertionError(f"mistral-large-123b: matmul FLOPs {mm} != "
+                             f"{want_mm} or param_count "
+                             f"{mistral.param_count()}")
+    del prof
+    counts = kernels.launch_counts()
+    print(f"launches on main path h: {json.dumps(counts)}")
+    for name in ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
+                 "flash_attention"):
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path h")
+    return counts
+
+
 #: the learning rate of ``make_train_step``'s default
 LR = 3e-4
 
@@ -2054,7 +2732,8 @@ def smoke_checks(dev, arch: str, fwd_runs: dict, step_run,
     st_d, m_d = step(st_d, batch_d)
     print(f"  {arch} smoke train step ({step_run.amp}, fusion "
           f"{step_run.fusion}, attn {step_run.attn_impl}, ssd "
-          f"{step_run.ssd_impl}, impl {step_run.impl}): loss card "
+          f"{step_run.ssd_impl}, impl {step_run.impl}, remat "
+          f"{step_run.remat}, {step_run.optimizer}): loss card "
           f"{float(m_d['loss']):.7f} host "
           f"{float(m_c['loss']):.7f}; grad norm card "
           f"{float(m_d['grad_norm']):.7f} host {float(m_c['grad_norm']):.7f}")
@@ -2255,6 +2934,23 @@ def main() -> int:
     deepcam_path(get_config("deepcam"), sheet, meas, workspace=workspace)
     torch.cuda.empty_cache()
 
+    # 4g. main path: the zamba2-1.2b hybrid at full width and depth ---------
+    counts_g, rows_g = hybrid_path(get_config("zamba2-1.2b"), sheet)
+    rows += rows_g
+    torch.cuda.empty_cache()
+
+    # 4h. main path: granite remat, minitron Adafactor, mistral's walk ------
+    counts_h = dense_family_path(get_config("granite-8b"),
+                                 get_config("minitron-4b"),
+                                 get_config("mistral-large-123b"), sheet)
+    torch.cuda.empty_cache()
+    for r in rows_g:
+        print(f"  {r['name']:<22} {r['shape']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
+              f"plain {r['plain_ms']:.4f} ms | library "
+              f"{r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) | config {r['config']}")
+
     # 5. the smoke fwd and train step on the card against the host -----------
     from repro_torch.configs.base import RunConfig
     print("== 5. smoke fwd and train step: card against host (O0 loss rtol "
@@ -2280,10 +2976,21 @@ def main() -> int:
                      {impl: RunConfig(amp="O0", impl=impl)},
                      RunConfig(amp="O0", fusion="static", impl=impl),
                      kink_share=1e-4)
+    smoke_checks(dev, "zamba2-1.2b",
+                 {"ssd kernel + flash (kernels on the card)": RunConfig(
+                     amp="O0", ssd_impl="kernel", attn_impl="flash")},
+                 RunConfig(amp="O0", fusion="static", ssd_impl="kernel",
+                           attn_impl="flash"))
+    smoke_checks(dev, "minitron-4b", {"einsum": RunConfig(amp="O0")},
+                 RunConfig(amp="O0", fusion="static", optimizer="adafactor"))
+    smoke_checks(dev, "granite-8b", {"einsum": RunConfig(amp="O0")},
+                 RunConfig(amp="O0", fusion="static", remat="dots"))
 
     # 6. results -------------------------------------------------------------
     out = []
     for r in rows:
+        if r.get("at_shape"):
+            continue             # a new path's shape: step 3's table only
         launches = (counts if r["name"] in ERT_KERNELS else
                     counts_c if r["name"] in FLASH_KERNELS else
                     counts_d if r["name"] in SSD_KERNELS else

@@ -9,9 +9,10 @@ subcommands of ``python -m repro``).
 * ``profile``      — aten-op walk of a registry config's fwd / bwd / opt
   phases (kernel table, three-term bound, roofline chart) at ``--fusion``
   ``off`` or ``static``, ``--attn-impl`` ``einsum``, ``chunked`` or
-  ``flash``, ``--ssd-impl`` ``xla`` or ``kernel`` and (DeepCAM)
-  ``--impl`` ``reference`` or ``fused``; ``--measure`` also times them on
-  the device;
+  ``flash``, ``--ssd-impl`` ``xla`` or ``kernel``, ``--remat`` ``none``,
+  ``dots`` or ``full``, ``--optimizer`` ``adamw`` or ``adafactor`` and
+  (DeepCAM) ``--impl`` ``reference`` or ``fused``; ``--measure`` also
+  times them on the device;
 * ``record``       — measure the phases and append a record to the trace
   store (``--store``, default the workspace's ``trace.jsonl``);
   ``--scale-wall`` multiplies the stored wall times (regression drills);
@@ -33,6 +34,10 @@ Examples::
         --fusion static --phase bwd
     python -m repro_torch profile --config mamba2-1.3b --device cpu \
         --ssd-impl kernel --fusion static --phase bwd
+    python -m repro_torch profile --config zamba2-1.2b --device cpu \
+        --ssd-impl kernel --fusion static --phase bwd
+    python -m repro_torch profile --config minitron-4b --device cpu \
+        --remat full --optimizer adafactor
     python -m repro_torch profile --config deepcam --smoke --device cpu \
         --impl fused
     python -m repro_torch record --config glm4-9b --full --layers 4 \
@@ -83,6 +88,7 @@ def cmd_profile(args) -> int:
                         seq=args.seq, batch=args.batch, amp=args.amp,
                         fusion=args.fusion, attn_impl=args.attn_impl,
                         ssd_impl=args.ssd_impl, impl=args.impl,
+                        remat=args.remat, optimizer=args.optimizer,
                         smoke=not args.full, n_layers=args.layers,
                         measure=args.measure,
                         iters=args.iters,
@@ -100,7 +106,8 @@ def cmd_record(args) -> int:
         res = s.record(args.config, seq=args.seq, batch=args.batch,
                        amp=args.amp, fusion=args.fusion,
                        attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
-                       impl=args.impl, smoke=not args.full,
+                       impl=args.impl, remat=args.remat,
+                       optimizer=args.optimizer, smoke=not args.full,
                        n_layers=args.layers,
                        iters=args.iters,
                        warmup=args.warmup, scale_wall=args.scale_wall)
@@ -163,7 +170,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     def workload(p) -> None:
         from repro_torch.configs.base import (ATTN_IMPLS, FUSION_MODES,
-                                              IMPLS, SSD_IMPLS)
+                                              IMPLS, OPTIMIZERS, REMAT_MODES,
+                                              SSD_IMPLS)
         p.add_argument("--config", required=True,
                        help="registry config name (see repro_torch.configs)")
         p.add_argument("--seq", type=int, default=32)
@@ -187,6 +195,11 @@ def build_parser() -> argparse.ArgumentParser:
                             "in fp32, 'fused' folds each norm into its conv "
                             "('auto' fusion upgrades the default to "
                             "'fused')")
+        p.add_argument("--remat", default="none", choices=REMAT_MODES,
+                       help="per-block activation checkpointing: 'dots' "
+                            "keeps the products against a weight, 'full' "
+                            "only each block's input")
+        p.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
         smoke = p.add_mutually_exclusive_group()
         smoke.add_argument("--full", action="store_true",
                            help="full config instead of the smoke variant")

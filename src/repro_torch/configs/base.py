@@ -92,33 +92,41 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense or SSM model (embedding
-        included), as the reference writes it.
+        """Analytic parameter count of a dense, SSM or hybrid model
+        (embedding included), as the reference writes it.
 
-        The ``ssm`` branch is the reference's count, mirrored and not
-        corrected: it takes the embedding at ``vocab_size`` (not the padded
-        table) and leaves out ``dt_bias`` and ``conv_b``, so for
-        ``mamba2-1.3b`` it reads 1,343,528,960, 261,120 below the
-        1,343,790,080 leaves of the spec tree."""
-        if self.family not in ("dense", "ssm"):
+        The ``ssm`` and ``hybrid`` branches are the reference's counts,
+        mirrored and not corrected: they take the embedding at
+        ``vocab_size`` (not the padded table) and leave out ``dt_bias`` and
+        ``conv_b``, so for ``mamba2-1.3b`` the count reads 1,343,528,960,
+        261,120 below the 1,343,790,080 leaves of the spec tree.  The
+        hybrid's also counts one pair of site norms (2·D) where the spec
+        tree holds a pair for each site: for ``zamba2-1.2b`` it reads
+        1,087,997,696, 183,424 below the 1,088,181,120 spec leaves
+        (162,944 of ``dt_bias`` and ``conv_b``, 20,480 of site norms; 800
+        below at the smoke size: 177,664 against 178,464)."""
+        if self.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"param_count for family {self.family!r} comes with its "
                 "model family (ROADMAP queue 1)")
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         total = V * D * (1 if self.tie_embeddings else 2)
-        if self.family == "ssm":
-            di, G, N = self.d_inner, self.ssm_n_groups, self.ssm_state
-            H = self.ssm_heads
-            ssm = (D * (2 * di + 2 * G * N + H)           # in_proj
-                   + self.ssm_conv_width * (di + 2 * G * N)   # conv_w
-                   + di * D                               # out_proj
-                   + 2 * H + di)                          # A_log, D, norm
-            return total + L * (ssm + D) + D
         attn = (D * self.n_heads * self.head_dim
                 + 2 * D * self.n_kv_heads * self.head_dim
                 + self.n_heads * self.head_dim * D)
         mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
-        return total + L * (attn + mlp + 2 * D) + D
+        if self.family == "dense":
+            return total + L * (attn + mlp + 2 * D) + D
+        di, G, N = self.d_inner, self.ssm_n_groups, self.ssm_state
+        H = self.ssm_heads
+        ssm = (D * (2 * di + 2 * G * N + H)               # in_proj
+               + self.ssm_conv_width * (di + 2 * G * N)   # conv_w
+               + di * D                                   # out_proj
+               + 2 * H + di)                              # A_log, D, norm
+        total += L * (ssm + D)
+        if self.family == "hybrid":
+            total += attn + mlp + 2 * D                   # the shared block
+        return total + D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,12 +134,14 @@ class RunConfig:
     """Execution policy.  The port runs every ``fusion`` mode (``"auto"`` /
     ``"measured"`` route by the measured dispatch table,
     ``repro_torch.tune.dispatch``), the ``einsum``, ``chunked`` and
-    ``flash`` attention, the ``xla`` and ``kernel`` SSD scans, both
-    DeepCAM lowerings (``impl``) and AdamW;
-    the other settings raise until their slice lands."""
+    ``flash`` attention, the ``xla`` and ``kernel`` SSD scans, every
+    ``remat`` mode, both DeepCAM lowerings (``impl``), AdamW and
+    Adafactor."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
+    # per-block activation checkpointing: "none" | "dots" (keep the
+    # products against a weight, recompute the rest) | "full"
     remat: str = "none"
     # attention lowering: "einsum" | "chunked" (query chunks of attn_chunk,
     # recomputed in the backward) | "flash" (the hand-written kernel)
@@ -177,14 +187,6 @@ class RunConfig:
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")
-        if self.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer={self.optimizer!r}: the port has AdamW only "
-                "(ROADMAP queue 1)")
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r} applies to the backward pass "
-                "(ROADMAP queue 1 item 6)")
 
     @property
     def param_dtype(self) -> torch.dtype:

@@ -1,9 +1,10 @@
 """Config registry: name → (full config, smoke config).
 
 The port registers a config once its model family is ported: the dense
-``glm4-9b``, the SSM ``mamba2-1.3b`` and the paper's own CNN ``deepcam``
-(which, as in the reference, is not one of the LM ``ARCHS``: it takes
-image shapes, not the LM shape grid).
+``glm4-9b``, ``granite-8b``, ``minitron-4b`` and ``mistral-large-123b``,
+the SSM ``mamba2-1.3b``, the hybrid ``zamba2-1.2b`` and the paper's own
+CNN ``deepcam`` (which, as in the reference, is not one of the LM
+``ARCHS``: it takes image shapes, not the LM shape grid).
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "minitron-4b": "minitron_4b",
+    "mistral-large-123b": "mistral_large_123b",
+    "granite-8b": "granite_8b",
     "glm4-9b": "glm4_9b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "mamba2-1.3b": "mamba2_1p3b",
     "deepcam": "deepcam",
 }

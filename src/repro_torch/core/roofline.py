@@ -117,3 +117,12 @@ def roofline_terms(analysis: ModuleAnalysis, machine: MachineSpec) -> RooflineTe
         collective_ici_s=ici_s, collective_dcn_s=dcn_s,
         flops_by_class=flops_by_class, hbm_bytes=hbm,
         ici_wire_bytes=ici_bytes, dcn_wire_bytes=dcn_bytes)
+
+
+def model_flops_ratio(model_flops_global: float, analysis: ModuleAnalysis,
+                      n_devices: int) -> float:
+    """MODEL_FLOPS / walked FLOPs: the share of the executed compute that
+    is 'useful' (the reference's, over the op walk in place of the HLO).
+    ``remat`` lowers it by the recompute the backward adds."""
+    walked = analysis.total_flops * n_devices
+    return model_flops_global / walked if walked else 0.0

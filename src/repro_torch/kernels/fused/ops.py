@@ -106,14 +106,41 @@ def use_swiglu(run, gate, up, *, act: str = "silu", out_dtype=None) -> bool:
 
 
 def use_adamw(run, g, m, v, p) -> bool:
-    if not (fusion_enabled(run) and adamw_eligible(g, m, v, p)):
-        return False
-    if not fusion_measured(run):
-        # asked once per leaf of the tree (DeepCAM: 370 an opt call):
-        # under static, eligibility is the answer
-        return True
+    """Eligibility of one leaf (asked once per leaf of the tree, DeepCAM:
+    370 an opt call): under ``static`` the answer; under the measured
+    modes the verdict is its dtype group's (:func:`adamw_routes`)."""
+    return fusion_enabled(run) and adamw_eligible(g, m, v, p)
+
+
+def adamw_routes(run, leaves: Sequence[tuple]) -> list[int]:
+    """Indices of the (g, m, v, p) ``leaves`` that take the kernel.
+
+    Under ``static`` every eligible leaf.  Under the measured modes each
+    eligible leaf's site is still asked as the reference asks it (its
+    key; measured, or refused, on a miss as ``REPRO_DISPATCH`` says), but
+    the verdict is its dtype group's, the one launch the kernel makes:
+    the group's leaves take the kernel together when the sum of their
+    measured fused walls is at most the sum of their plain-chain walls
+    (a site with no record, the ``static`` miss policy, counts as
+    neither).  Each leaf's site times a launch of its own, where in the
+    group it costs one table row: routed alone, a small leaf at a near
+    tie could leave the group for a chain of about ten launches."""
+    elig = [i for i, leaf in enumerate(leaves) if use_adamw(run, *leaf)]
+    if not (elig and fusion_measured(run)):
+        return elig
     from repro_torch.tune import dispatch as dsp
-    return _dispatch_fused(run, lambda: dsp.adamw_key(p, m), p.device)
+    out = []
+    for idx in ak.groups(*([leaves[i][k] for i in elig]
+                           for k in range(4))).values():
+        fused = ref = 0.0
+        for j in idx:
+            _, m, _, p = leaves[elig[j]]
+            walls = dsp.site_walls(dsp.adamw_key(p, m), device=p.device)
+            if walls is not None:
+                fused, ref = fused + walls[0], ref + walls[1]
+        if fused <= ref:
+            out += [elig[j] for j in idx]
+    return sorted(out)
 
 
 def use_embed(run, table, tokens, compute_dtype) -> bool:

@@ -1,5 +1,5 @@
-"""Model facade (port of ``repro.models.api``) for the dense, SSM and CNN
-(DeepCAM) families.
+"""Model facade (port of ``repro.models.api``) for the dense, SSM, hybrid
+and CNN (DeepCAM) families.
 
 ``build(cfg)`` returns a :class:`Model` whose ``loss_fn`` / ``forward_fn``
 close over the config; ``batch_schema`` and ``synthetic_batch`` give the
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.models import deepcam as DC
+from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as TR
 
@@ -59,16 +60,20 @@ def build(cfg: ModelConfig) -> Model:
         return _build_lm(cfg, TR)
     if cfg.family == "ssm":
         return _build_lm(cfg, SM)
+    if cfg.family == "hybrid":
+        return _build_lm(cfg, HY)
     if cfg.family == "cnn":
         return _build_deepcam(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port has the dense and SSM LMs and "
-        "DeepCAM (ROADMAP queue 1)")
+        f"family {cfg.family!r}: the port has the dense, SSM and hybrid LMs "
+        "and DeepCAM (ROADMAP queue 1)")
 
 
 def _build_lm(cfg: ModelConfig, module) -> Model:
-    """The reference's ``_build_dense`` / ``_build_ssm``: a token LM whose
-    ``module`` has ``lm_spec`` and ``forward``."""
+    """The reference's ``_build_dense`` / ``_build_ssm`` /
+    ``_build_hybrid`` without their decode members (they come with
+    serving): a token LM whose ``module`` has ``lm_spec`` and
+    ``forward``."""
 
     def loss_fn(params, batch, run):
         logits = module.forward(params, batch["tokens"], cfg, run)
@@ -106,7 +111,8 @@ def batch_schema(cfg: ModelConfig, shape: ShapeSpec,
     or DeepCAM's images (B, H, W, 16) f32 and labels (B, H, W) int32 at
     the paper's resolution (``IMAGE_HW``) for a stem width of 64 or more,
     ``SMOKE_HW`` below (``shape.seq_len`` is not read).  Prefill and
-    decode cells come with serving (ROADMAP queue 1 item 12)."""
+    decode cells come with serving (ROADMAP queue 1, decode and
+    serving)."""
     B = per_device_batch if per_device_batch is not None else shape.global_batch
     if cfg.family == "cnn":
         from repro_torch.configs.deepcam import IMAGE_HW, SMOKE_HW
@@ -115,7 +121,7 @@ def batch_schema(cfg: ModelConfig, shape: ShapeSpec,
                 "labels": ((B, *hw), torch.int32)}
     if shape.kind != "train":
         raise NotImplementedError(f"{shape.kind} cells come with serving "
-                                  "(ROADMAP queue 1 item 12)")
+                                  "(ROADMAP queue 1, decode and serving)")
     S = shape.seq_len
     return {"tokens": ((B, S), torch.int32),
             "targets": ((B, S), torch.int32)}

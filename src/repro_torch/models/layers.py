@@ -1,5 +1,6 @@
 """Core transformer layers (port of ``repro.models.layers``): norms, RoPE,
-GQA attention, the SwiGLU MLP, embedding and unembedding.
+GQA attention, the MLP (gated: swiglu, geglu; ungated: gelu, relu2),
+embedding and unembedding, and the per-block ``remat``.
 
 Plain functions on tensors: ``*_spec(cfg)`` returns a :class:`P` tree and
 ``*_apply(params, x, ...)`` is the forward.  Matmuls run in
@@ -20,16 +21,82 @@ the shape is eligible), anything else the einsum path.
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+import threading
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.kernels.fused.swiglu import gelu_tanh
 from repro_torch.models.params import P
 
 Params = Any
+
+
+# --------------------------------------------------------------------------
+# Products against a weight, and remat
+# --------------------------------------------------------------------------
+
+_WEIGHT = threading.local()
+
+
+def wdot(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` where ``w`` is a 2-D or 3-D weight:
+    the products with no batch dims of the reference's
+    ``checkpoint_dots_with_no_batch_dims``.  ``torch.einsum`` lowers
+    these and the batched QKᵀ / PV / SSD products alike to ``bmm``, so
+    the product is told apart by its operand: this call marks it (on the
+    calling thread, which is the autograd thread during a recompute) for
+    the ``remat="dots"`` policy."""
+    if w.dim() not in (2, 3):
+        raise ValueError(f"wdot takes a 2-D or 3-D weight, got "
+                         f"{tuple(w.shape)}")
+    _WEIGHT.on = True
+    try:
+        return torch.einsum(eq, x, w)
+    finally:
+        _WEIGHT.on = False
+
+
+_PRODUCTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                       torch.ops.aten.addmm.default,
+                       torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the products against a weight (:func:`wdot`), recompute every
+    other op: the batched QKᵀ and PV, softmax, norms, acts, RoPE, the SSD
+    scan's einsums and every ``repro_torch::`` custom op's output."""
+    if op in _PRODUCTS and getattr(_WEIGHT, "on", False):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)
+
+
+def remat_apply(fn: Callable, run: RunConfig, *args) -> Any:
+    """``fn(*args)`` under ``run.remat`` (the reference's ``_remat`` around
+    a scanned layer body): ``"full"`` keeps only the inputs for the
+    backward and recomputes the rest; ``"dots"`` also keeps the outputs
+    of the products against a weight — the q/k/v/o projections, the MLP
+    products, the SSM's in_proj and out_proj — and recomputes the rest;
+    ``"none"`` keeps whatever autograd saves.  Non-reentrant
+    ``torch.utils.checkpoint``: its recompute stops once the tensors the
+    backward needs are back, so a block's last product (whose output no
+    backward reads) is not recomputed under ``"full"``, as XLA drops it
+    from the reference's rematerialised program."""
+    if run.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if run.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_DOTS_CONTEXTS)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------
@@ -182,9 +249,9 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xc = x.to(cd)
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", xc, p["wv"].to(cd))
+    q = wdot("bsd,dhk->bshk", xc, p["wq"].to(cd))
+    k = wdot("bsd,dhk->bshk", xc, p["wk"].to(cd))
+    v = wdot("bsd,dhk->bshk", xc, p["wv"].to(cd))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     qg = q.reshape(B, S, K, G, hd)
@@ -207,7 +274,7 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         out = _sdpa(qg, k, v, positions, positions, causal=True,
                     stat_dtype=sd)
     out = out.reshape(B, S, H, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd))
     return y.to(x.dtype)
 
 
@@ -215,29 +282,53 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 # MLP
 # --------------------------------------------------------------------------
 
-def mlp_spec(cfg: ModelConfig) -> Params:
-    D, Fd = cfg.d_model, cfg.d_ff
-    return {"w_gate": P((D, Fd), ("embed", "ffn")),
-            "w_up": P((D, Fd), ("embed", "ffn")),
+#: the MLP activations: gated (``w_gate`` and ``w_up``) and ungated
+#: (``w_up`` alone)
+GATED_ACTS = ("swiglu", "geglu")
+UNGATED_ACTS = ("gelu", "relu2")
+
+
+def mlp_spec(cfg: ModelConfig, d_ff: int | None = None) -> Params:
+    D = cfg.d_model
+    Fd = d_ff if d_ff is not None else cfg.d_ff
+    if cfg.act in GATED_ACTS:
+        return {"w_gate": P((D, Fd), ("embed", "ffn")),
+                "w_up": P((D, Fd), ("embed", "ffn")),
+                "w_down": P((Fd, D), ("ffn", "embed"))}
+    return {"w_up": P((D, Fd), ("embed", "ffn")),
             "w_down": P((Fd, D), ("ffn", "embed"))}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
               run: RunConfig) -> torch.Tensor:
-    """SwiGLU MLP: silu(x·W_gate) * (x·W_up) · W_down."""
-    if cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"act={cfg.act!r}: this slice ports the silu-SwiGLU MLP only")
+    """The MLP by ``cfg.act``:
+
+    * ``swiglu``: silu(x·W_gate) · (x·W_up) · W_down;
+    * ``geglu``: the same with the tanh-approximate gelu — the one act
+      that takes ``fused_swiglu``'s gelu route;
+    * ``gelu``: gelu(x·W_up) · W_down, ungated and tanh-approximate
+      (``jax.nn.gelu``'s default, not ``F.gelu``'s);
+    * ``relu2``: relu(x·W_up)² · W_down, ungated.
+
+    The ungated acts have no kernel (nor does the reference)."""
     cd = run.compute_dtype
     xc = x.to(cd)
-    g = torch.einsum("bsd,df->bsf", xc, p["w_gate"].to(cd))
-    u = torch.einsum("bsd,df->bsf", xc, p["w_up"].to(cd))
-    fops = _fused(run)
-    if fops is not None and fops.use_swiglu(run, g, u, act="silu"):
-        h = fops.swiglu(g, u, act="silu")
+    if cfg.act in GATED_ACTS:
+        g = wdot("bsd,df->bsf", xc, p["w_gate"].to(cd))
+        u = wdot("bsd,df->bsf", xc, p["w_up"].to(cd))
+        act = "silu" if cfg.act == "swiglu" else "gelu"
+        fops = _fused(run)
+        if fops is not None and fops.use_swiglu(run, g, u, act=act):
+            h = fops.swiglu(g, u, act=act)
+        else:
+            h = (F.silu(g) if act == "silu" else gelu_tanh(g)) * u
+    elif cfg.act in UNGATED_ACTS:
+        h = wdot("bsd,df->bsf", xc, p["w_up"].to(cd))
+        h = gelu_tanh(h) if cfg.act == "gelu" else torch.square(F.relu(h))
     else:
-        h = F.silu(g) * u
-    y = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cd))
+        raise ValueError(f"unknown act {cfg.act!r}; known: "
+                         f"{GATED_ACTS + UNGATED_ACTS}")
+    y = wdot("bsf,fd->bsd", h, p["w_down"].to(cd))
     return y.to(x.dtype)
 
 

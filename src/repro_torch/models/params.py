@@ -113,10 +113,10 @@ def init(specs: Any, generator: torch.Generator | None,
 
 def _port_state_types() -> dict[str, type]:
     from repro_torch.distributed.amp import DynLossScale
-    from repro_torch.train.optim import AdamWState
+    from repro_torch.train.optim import AdafactorState, AdamWState
     from repro_torch.train.step import TrainState
     return {"TrainState": TrainState, "AdamWState": AdamWState,
-            "DynLossScale": DynLossScale}
+            "AdafactorState": AdafactorState, "DynLossScale": DynLossScale}
 
 
 def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
@@ -124,7 +124,8 @@ def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     numpy arrays, as tensors.
 
     A train state is the reference's ``TrainState`` / ``AdamWState`` /
-    ``DynLossScale`` named tuples (params, AdamW ``mu`` / ``nu`` /
+    ``AdafactorState`` / ``DynLossScale`` named tuples (params, AdamW
+    ``mu`` / ``nu`` / ``count`` or Adafactor ``vr`` / ``vc`` / ``v`` /
     ``count``, loss ``scale`` / ``good_steps``, ``step``) after
     ``jax.tree.map(np.asarray, ...)``; each becomes the port's type of the
     same name.  ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16``;

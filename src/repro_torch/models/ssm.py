@@ -15,8 +15,11 @@ the hand-written ``ssd_scan`` kernel on fp32 operands
 (:mod:`repro_torch.kernels.ssd_scan`), as the reference's Pallas route.
 The layer scan is a Python loop over the stacked parameters; the
 reference's sharding constraints are single-device no-ops and are left
-out.  The decode path (``SSMState``, ``init_state``, ``decode_step``)
-comes with serving.
+out.  ``run.remat`` checkpoints each layer body as the reference does
+(``layers.remat_apply``; under ``"dots"`` the backward keeps in_proj's
+and out_proj's outputs and recomputes the conv, the scan — its einsums,
+or the ``ssd_scan`` op — and the gated norm).  The decode path
+(``SSMState``, ``init_state``, ``decode_step``) comes with serving.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from repro_torch.models.params import P, stack_layers, unstack_layers
 Params = Any
 
 _DECODE = ("the SSM decode path (SSMState, init_state, decode_step) comes "
-           "with serving (ROADMAP queue 1 item 12)")
+           "with serving (ROADMAP queue 1, decode and serving)")
 
 
 def ssm_spec(cfg: ModelConfig) -> Params:
@@ -156,7 +159,7 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_heads
     Pd = cfg.ssm_head_dim
     cd = run.compute_dtype
-    z = torch.einsum("bsd,de->bse", x.to(cd), p["in_proj"].to(cd))
+    z = L.wdot("bsd,de->bse", x.to(cd), p["in_proj"].to(cd))
     zg, xi, Bc, Cc, dt_raw = _split_proj(z, cfg)
 
     conv_in = torch.cat([xi, Bc, Cc], dim=-1)            # (B, S, di+2GN)
@@ -183,7 +186,7 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     y = y + xh * p["D_skip"].to(cd)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = L.rmsnorm_apply(p["norm"], y * F.silu(zg), cfg.norm_eps, run)
-    out = torch.einsum("bse,ed->bsd", y.to(cd), p["out_proj"].to(cd))
+    out = L.wdot("bse,ed->bsd", y.to(cd), p["out_proj"].to(cd))
     return out.to(x.dtype), None
 
 
@@ -201,16 +204,31 @@ def lm_spec(cfg: ModelConfig) -> Params:
     }
 
 
+def layer_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Matmul FLOPs of one layer outside the scan: in_proj and
+    out_proj."""
+    T, D = batch * seq, cfg.d_model
+    di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_heads
+    return (2 * T * D * (2 * di + 2 * G * N + H)   # in_proj
+            + 2 * T * di * D)                      # out_proj
+
+
 def matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
     """Analytic FLOPs of the matmuls of :func:`forward` outside the scan:
     per layer in_proj and out_proj, plus the unembedding.  (At
     ``ssd_impl="kernel"`` the scan is one kernel record; at ``"xla"`` its
     einsums add their own products.)"""
-    T, D = batch * seq, cfg.d_model
-    di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_heads
-    per_layer = (2 * T * D * (2 * di + 2 * G * N + H)   # in_proj
-                 + 2 * T * di * D)                      # out_proj
-    return cfg.n_layers * per_layer + 2 * T * D * cfg.vocab_padded
+    return (cfg.n_layers * layer_flops(cfg, batch, seq)
+            + 2 * batch * seq * cfg.d_model * cfg.vocab_padded)
+
+
+def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                run: RunConfig) -> torch.Tensor:
+    """One pre-norm Mamba-2 layer with its residual (the reference's scan
+    body)."""
+    y, _ = ssm_apply(lp["ssm"], L.rmsnorm_apply(lp["ln"], x, cfg.norm_eps,
+                                                run), cfg, run)
+    return x + y
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -219,9 +237,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     the reference's auxiliary loss is 0 for this family."""
     x = L.embed_apply(params["embed"], tokens, run)
     for lp in unstack_layers(params["blocks"]):
-        y, _ = ssm_apply(lp["ssm"], L.rmsnorm_apply(lp["ln"], x, cfg.norm_eps,
-                                                    run), cfg, run)
-        x = x + y
+        x = L.remat_apply(layer_apply, run, lp, x, cfg, run)
     x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
     return L.unembed_apply(params["embed"], x, run)
 

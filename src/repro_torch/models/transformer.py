@@ -4,6 +4,21 @@ The reference scans the layer stack with ``jax.lax.scan``; here the scan
 is a Python loop over the leading ``n_layers`` axis of the stacked
 parameters (``params.unstack_layers``: each layer's leaves are views into
 the stack).
+
+``run.remat`` checkpoints each block (``layers.remat_apply``), as the
+reference wraps its scan body.  What the backward keeps of a block:
+
+* ``"none"``: whatever autograd saves — the inputs of every product and
+  norm, the fp32 scores and the softmax output of the einsum route;
+* ``"dots"``: the block's input and the outputs of its seven products
+  against a weight (q, k, v, the o projection, gate, up, down; up and
+  down only for an ungated act) — the reference's
+  ``checkpoint_dots_with_no_batch_dims``.  The backward recomputes the
+  rest: the norms, RoPE, the batched QKᵀ and PV, the softmax, the act
+  and every ``repro_torch::`` custom op (fused norms, SwiGLU, flash);
+* ``"full"``: the block's input alone; the backward recomputes the
+  block's forward up to its last product, whose output no backward
+  reads.
 """
 
 from __future__ import annotations
@@ -51,16 +66,29 @@ def lm_spec(cfg: ModelConfig) -> Params:
     }
 
 
-def matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
-    """Analytic FLOPs of every matmul in :func:`forward`: per layer wq, wk,
-    wv, wo, QKᵀ, PV and the three MLP products, plus the unembedding."""
+def attention_flops(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Matmul FLOPs of one attention block: ``"proj"`` (wq, wk, wv, wo)
+    and ``"qk_pv"`` (the batched QKᵀ and PV)."""
     T, D, H, K, hd = batch * seq, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim
-    per_layer = (2 * 2 * T * D * H * hd             # wq, wo
-                 + 2 * 2 * T * D * K * hd           # wk, wv
-                 + 2 * 2 * batch * H * seq * seq * hd   # QKᵀ, PV
-                 + 3 * 2 * T * D * cfg.d_ff)        # gate, up, down
-    return cfg.n_layers * per_layer + 2 * T * D * cfg.vocab_padded
+    return {"proj": 2 * 2 * T * D * H * hd + 2 * 2 * T * D * K * hd,
+            "qk_pv": 2 * 2 * batch * H * seq * seq * hd}
+
+
+def mlp_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Matmul FLOPs of one MLP: three products gated, two ungated (the
+    reference's ``param_count`` multiplier)."""
+    n = 3 if cfg.act in L.GATED_ACTS else 2
+    return n * 2 * batch * seq * cfg.d_model * cfg.d_ff
+
+
+def matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Analytic FLOPs of every matmul in :func:`forward`: per layer wq, wk,
+    wv, wo, QKᵀ, PV and the MLP's products, plus the unembedding."""
+    a = attention_flops(cfg, batch, seq)
+    per_layer = a["proj"] + a["qk_pv"] + mlp_flops(cfg, batch, seq)
+    return (cfg.n_layers * per_layer
+            + 2 * batch * seq * cfg.d_model * cfg.vocab_padded)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -69,6 +97,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = L.embed_apply(params["embed"], tokens, run)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in unstack_layers(params["blocks"]):
-        x = block_apply(lp, x, cfg, run, positions)
+        x = L.remat_apply(block_apply, run, lp, x, cfg, run, positions)
     x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
     return L.unembed_apply(params["embed"], x, run)

@@ -116,6 +116,7 @@ class Session:
                 seq: int = 32, batch: int = 4, amp: str = "O1",
                 fusion: str = "off", attn_impl: str = "einsum",
                 ssd_impl: str = "xla", impl: str = "reference",
+                remat: str = "none", optimizer: str = "adamw",
                 smoke: bool = True, n_layers: int | None = None,
                 measure: bool = False, iters: int = 5,
                 warmup: int = 2) -> RooflineResult:
@@ -123,8 +124,9 @@ class Session:
         function (pass a callable + ``args``).
 
         ``n_layers`` cuts (or sets) the depth of the config, keeping its
-        widths; ``attn_impl``, ``ssd_impl`` and ``impl`` fill
-        ``RunConfig``'s (``seq`` is not read for DeepCAM, whose images
+        widths; ``attn_impl``, ``ssd_impl``, ``impl``, ``remat`` and
+        ``optimizer`` fill ``RunConfig``'s (``seq`` is not read for
+        DeepCAM, whose images
         take the config's resolution).
         ``measure=True`` also runs the same callable on the session's
         device (parameters drawn there from seed :data:`SEED`) and
@@ -135,12 +137,13 @@ class Session:
             return self._profile(target, args, phases=phases, seq=seq,
                                  batch=batch, amp=amp, fusion=fusion,
                                  attn_impl=attn_impl, ssd_impl=ssd_impl,
-                                 impl=impl, smoke=smoke, n_layers=n_layers,
+                                 impl=impl, remat=remat, optimizer=optimizer,
+                                 smoke=smoke, n_layers=n_layers,
                                  measure=measure, iters=iters, warmup=warmup)
 
     def _profile(self, target, args, *, phases, seq, batch, amp, fusion,
-                 attn_impl, ssd_impl, impl, smoke, n_layers, measure, iters,
-                 warmup) -> RooflineResult:
+                 attn_impl, ssd_impl, impl, remat, optimizer, smoke,
+                 n_layers, measure, iters, warmup) -> RooflineResult:
         from repro_torch.core.profiler import profile_fn
 
         if callable(target):
@@ -152,7 +155,8 @@ class Session:
             phase_args, run = build_phases(
                 target, phases=phases, seq=seq, batch=batch, amp=amp,
                 fusion=fusion, attn_impl=attn_impl, ssd_impl=ssd_impl,
-                impl=impl, smoke=smoke, n_layers=n_layers,
+                impl=impl, remat=remat, optimizer=optimizer, smoke=smoke,
+                n_layers=n_layers,
                 device=self.device if measure else torch.device("meta"))
             mm = _matmul_class(run)
 
@@ -180,7 +184,8 @@ class Session:
     def record(self, config: str, *, seq: int = 32, batch: int = 4,
                amp: str = "O1", fusion: str = "off",
                attn_impl: str = "einsum", ssd_impl: str = "xla",
-               impl: str = "reference", smoke: bool = True,
+               impl: str = "reference", remat: str = "none",
+               optimizer: str = "adamw", smoke: bool = True,
                n_layers: int | None = None, iters: int = 5, warmup: int = 2,
                scale_wall: float = 1.0,
                meta: Mapping[str, Any] | None = None) -> RooflineResult:
@@ -203,7 +208,8 @@ class Session:
 
         prof = self.profile(config, seq=seq, batch=batch, amp=amp,
                             fusion=fusion, attn_impl=attn_impl,
-                            ssd_impl=ssd_impl, impl=impl, smoke=smoke,
+                            ssd_impl=ssd_impl, impl=impl, remat=remat,
+                            optimizer=optimizer, smoke=smoke,
                             n_layers=n_layers, measure=True, iters=iters,
                             warmup=warmup)
         ms = {ph: scale_measurement(measurement_from_profile(
@@ -213,8 +219,8 @@ class Session:
             config, ms, machine=self.machine.name,
             meta={"smoke": smoke, "seq": seq, "batch": batch, "amp": amp,
                   "fusion": fusion, "attn_impl": attn_impl,
-                  "ssd_impl": ssd_impl, "impl": impl,
-                  "n_layers": n_layers,
+                  "ssd_impl": ssd_impl, "impl": impl, "remat": remat,
+                  "optimizer": optimizer, "n_layers": n_layers,
                   "scale_wall": scale_wall,
                   "device": self._provenance()["device"],
                   "kernel_configs": active_kernel_configs(
@@ -334,12 +340,14 @@ class Session:
 def build_phases(config: str, *, phases: Sequence[str], seq: int,
                  batch: int, amp: str, fusion: str, attn_impl: str,
                  ssd_impl: str, smoke: bool, n_layers: int | None,
-                 device: torch.device, impl: str = "reference"):
+                 device: torch.device, impl: str = "reference",
+                 remat: str = "none", optimizer: str = "adamw"):
     """({phase: (fn, args)}, run) for a registry config: real tensors on
     ``device`` (parameters and batch drawn from seed :data:`SEED`), or
-    meta tensors that allocate nothing.  Gradients and optimizer state are
-    built only when the opt phase is asked for; its gradients are zeros,
-    as the reference's, and it updates the params in place.  A ``cnn``
+    meta tensors that allocate nothing.  Gradients and the state of
+    ``optimizer`` are built only when the opt phase is asked for; its
+    gradients are zeros, as the reference's, and it updates the params in
+    place.  A ``cnn``
     config (DeepCAM) takes its image batch at the config's resolution and
     the lowering ``impl`` (``fusion="auto"`` upgrades ``reference`` to
     ``fused``, :func:`repro_torch.models.deepcam.resolve_impl`)."""
@@ -357,7 +365,8 @@ def build_phases(config: str, *, phases: Sequence[str], seq: int,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     run = RunConfig(amp=amp, fusion=fusion, attn_impl=attn_impl,
-                    ssd_impl=ssd_impl, impl=impl)
+                    ssd_impl=ssd_impl, impl=impl, remat=remat,
+                    optimizer=optimizer)
     model = M.build(cfg)
     concrete = device.type != "meta"
     gen = (torch.Generator(device=device).manual_seed(SEED)

@@ -302,6 +302,18 @@ def decide(key: DispatchKey, *, device: torch.device | None = None,
     return rec.impl
 
 
+def site_walls(key: DispatchKey, *, device: torch.device | None = None
+               ) -> tuple[float, float] | None:
+    """(fused, reference) walls of one eligible site: :func:`decide` first
+    (it records the site and, on a miss, measures or raises as the policy
+    says), then the stored record; None where the policy left none
+    (``static``)."""
+    decide(key, device=device)
+    d = lookup(active_store(), "dispatch", key.key)
+    return None if d is None else (float(d.get("fused_wall_s", 0.0)),
+                                   float(d.get("ref_wall_s", 0.0)))
+
+
 # --------------------------------------------------------------------------
 # Measurement: fused vs reference
 # --------------------------------------------------------------------------

@@ -79,7 +79,11 @@ def _leaves(tree, prefix=""):
 
 
 def _to_torch(tree, dtype):
-    return jax.tree.map(lambda x: torch.from_numpy(x).to(dtype), tree)
+    # a copy: jnp.asarray may wrap a numpy array without copying it and
+    # read it after returning (asynchronous dispatch), so an update in
+    # place must not write into the arrays the reference was given
+    return jax.tree.map(lambda x: torch.from_numpy(x.copy()).to(dtype),
+                        tree)
 
 
 def _to_jax(tree, dtype):
@@ -97,9 +101,10 @@ def test_group_route_matches_reference(tmp_path, monkeypatch, fusion,
                                        inplace, dtype):
     """One update of a tree with odd sizes, an empty leaf and a gradient
     of another shape (broadcast against its leaf: ineligible, the plain
-    chain in both packages).  Under ``auto`` the table sends the 21-element
-    leaf to the plain chain too; every other leaf goes to the one group
-    call, in leaf order."""
+    chain in both packages).  Under ``auto`` the table's site of the
+    21-element leaf prefers the plain chain, but the verdict is the dtype
+    group's (the summed walls favour the kernel): every eligible leaf goes
+    to the one group call, in leaf order."""
     rng = np.random.default_rng(11)
     p_np, g_np = _tree_np(rng), _tree_np(rng)
     m_np, v_np = _tree_np(rng, 0.1), _tree_np(rng, 0.01, positive=True)
@@ -136,9 +141,7 @@ def test_group_route_matches_reference(tmp_path, monkeypatch, fusion,
         new_p, new_s = p_optim.adamw_update(
             grads, state, params, lr=HYPER["lr"],
             run=RunConfig(fusion=fusion), inplace=inplace)
-    routed = [(4097,), (5, 2, 3)] if fusion == "auto" else [
-        (3, 7), (4097,), (5, 2, 3)]
-    assert seen == [routed]
+    assert seen == [[(3, 7), (4097,), (5, 2, 3)]]
     assert (new_p["b"] is params["b"]) == inplace
     assert (new_s.mu["c"]["d"] is state.mu["c"]["d"]) == inplace
     assert int(new_s.count) == 5
@@ -152,6 +155,75 @@ def test_group_route_matches_reference(tmp_path, monkeypatch, fusion,
                 _f32(g_leaf), w, rtol=0,
                 atol=tol * float(np.abs(w).max(initial=0.0)),
                 err_msg=f"{name} {path}")
+
+
+@pytest.mark.parametrize("case", ["near_tie", "group_loses", "two_groups"])
+def test_auto_routes_each_dtype_group_whole(tmp_path, monkeypatch, case):
+    """Under ``auto`` the AdamW verdict is the dtype group's, by the sums
+    of its leaves' measured walls (the sites keep the reference's keys):
+
+    * ``near_tie``: the 16,384-element leaf's site reads the plain chain
+      1% faster (PR 20's run 9), the others the kernel 2x faster — the
+      leaf stays in the group's one launch;
+    * ``group_loses``: every site reads the chain faster — no launch;
+    * ``two_groups``: an f32 group whose sites read the kernel faster and
+      a bf16 group whose sites read the chain faster — one launch, of the
+      f32 leaves.
+
+    The update equals ``fusion="off"``'s within 1 ulp of the leaf dtype."""
+    sizes = {"a": (4, 4000), "b": (16384,), "c": (3, 7), "d": (2, 2, 5)}
+    dtypes = {k: torch.float32 for k in sizes}
+    if case == "two_groups":
+        dtypes.update(c=torch.bfloat16, d=torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    mk = lambda s, dt, scale=1.0: (torch.randn(s, generator=gen) * scale
+                                   ).to(dt)
+    p0 = {k: mk(s, dtypes[k]) for k, s in sizes.items()}
+    g0 = {k: mk(s, dtypes[k]) for k, s in sizes.items()}
+    m0 = {k: mk(s, dtypes[k], 0.1) for k, s in sizes.items()}
+    v0 = {k: mk(s, dtypes[k], 0.01).abs() for k, s in sizes.items()}
+
+    def timer(impl, fn, args, iters, warmup):
+        n, dt = args[3].numel(), args[3].dtype
+        chain_wins = (case == "group_loses"
+                      or (case == "two_groups" and dt == torch.bfloat16))
+        if case == "near_tie" and n == 16384:
+            return {"fused": 1.01e-3, "reference": 1e-3}[impl]
+        if chain_wins:
+            return {"fused": 2e-3, "reference": 1e-3}[impl]
+        return {"fused": 1e-3, "reference": 2e-3}[impl]
+
+    seen = []
+    real = adamw.fused_adamw_multi
+
+    def spy(gs, ms, vs, ps, *args, **kw):
+        seen.append(sorted(tuple(p.shape) for p in ps))
+        return real(gs, ms, vs, ps, *args, **kw)
+
+    monkeypatch.setattr(adamw, "fused_adamw_multi", spy)
+    clone = lambda t: {k: x.clone() for k, x in t.items()}
+    state = p_optim.AdamWState(clone(m0), clone(v0),
+                               torch.tensor(2, dtype=torch.int32))
+    with dsp.dispatch_scope(store=str(tmp_path / "t.json"), mode="measure",
+                            device="cpu", timer=timer):
+        new_p, new_s = p_optim.adamw_update(
+            g0, state, clone(p0), run=RunConfig(fusion="auto"))
+    want = {"near_tie": [sorted(sizes.values())], "group_loses": [],
+            "two_groups": [sorted([sizes["a"], sizes["b"]])]}[case]
+    assert seen == want
+    # every site keeps the reference's key, one record a leaf
+    assert len(dsp.dispatch_table(str(tmp_path / "t.json"))) == len(sizes)
+    off_p, off_s = p_optim.adamw_update(
+        g0, p_optim.AdamWState(clone(m0), clone(v0),
+                               torch.tensor(2, dtype=torch.int32)),
+        clone(p0), run=RunConfig(fusion="off"))
+    for got, ref in ((new_p, off_p), (new_s.mu, off_s.mu),
+                     (new_s.nu, off_s.nu)):
+        for k in sizes:
+            ulp = 2.0 ** -22 if dtypes[k] == torch.float32 else 2.0 ** -7
+            tol = ulp * float(ref[k].float().abs().max())
+            assert float((got[k].float() - ref[k].float()).abs().max()) \
+                <= tol, (case, k)
 
 
 def test_update_without_fusion_calls_no_group(monkeypatch):

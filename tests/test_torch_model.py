@@ -196,16 +196,17 @@ def test_config_copies_match_reference():
     assert dataclasses.asdict(full_p) == dataclasses.asdict(full_r)
     assert full_p.param_count() == full_r.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        p_get_config("zamba2-1.2b")
+        p_get_config("granite-moe-1b-a400m")
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"optimizer": "adafactor"}, NotImplementedError),
+    # Adafactor and remat are ported: accepted, as the reference's
+    ({"optimizer": "adafactor"}, None),
     # the measured dispatch table is ported: both names are accepted
     ({"fusion": "auto"}, None),
     ({"fusion": "measured"}, None),
-    ({"remat": "dots"}, NotImplementedError),
-    ({"remat": "full"}, NotImplementedError),
+    ({"remat": "dots"}, None),
+    ({"remat": "full"}, None),
     ({"fusion": "bogus"}, ValueError),
     ({"amp": "O3"}, ValueError),
     ({"attn_impl": "bogus"}, ValueError),
@@ -213,8 +214,9 @@ def test_config_copies_match_reference():
 ])
 def test_run_config_refuses_what_this_slice_lacks(kw, exc):
     if exc is None:
-        run = p_base.RunConfig(**kw)
-        assert run.fusion == kw["fusion"] == r_base.RunConfig(**kw).fusion
+        run, ref = p_base.RunConfig(**kw), r_base.RunConfig(**kw)
+        for name, value in kw.items():
+            assert getattr(run, name) == value == getattr(ref, name)
         return
     with pytest.raises(exc):
         p_base.RunConfig(**kw)

@@ -252,13 +252,13 @@ def test_decode_raises_until_serving(smoke):
     _, p_cfg, params_np, tokens, _ = smoke
     tp = from_jax_numpy(params_np)
     run = p_base.RunConfig(amp="O0")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="comes with serving"):
         p_ssm.ssm_apply(p_params.unstack_layers(tp["blocks"])[0]["ssm"],
                         torch.zeros(1, 1, p_cfg.d_model), p_cfg, run,
                         state=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="comes with serving"):
         p_ssm.init_state(p_cfg, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="comes with serving"):
         p_ssm.decode_step(tp, torch.from_numpy(tokens[:, :1]), None, p_cfg,
                           run)
 

@@ -90,9 +90,12 @@ def _reference(amp: str, mb: int):
 
 
 def _compare(p_state, p_metrics, r_state, r_metrics, amp: str,
-             steps: int, mom_tol_of=None) -> None:
+             steps: int, mom_tol_of=None, kink_share: float = 0.0) -> None:
     """``mom_tol_of(leaf path, tolerance)`` may state a moment tolerance
-    per leaf (its caller says why); by default every leaf takes TOL's."""
+    per leaf (its caller says why); by default every leaf takes TOL's.
+    ``kink_share`` (default 0: none) lets at most that share of a leaf's
+    elements pass the params tolerance, each within 2·lr a step: its
+    caller says why."""
     rtol, mom_tol, patol = TOL[amp]
     np.testing.assert_allclose(float(p_metrics["loss"]),
                                float(r_metrics["loss"]), rtol=rtol)
@@ -109,7 +112,12 @@ def _compare(p_state, p_metrics, r_state, r_metrics, amp: str,
     assert len(p_params) == len(r_params)
     for p, r in zip(p_params, r_params):
         assert str(p.dtype).removeprefix("torch.") == r.dtype.name
-        np.testing.assert_allclose(_f32(p), _f32(r), atol=atol, rtol=0)
+        if kink_share:
+            d = np.abs(_f32(p) - _f32(r))
+            assert (d > atol).sum() <= kink_share * d.size, (d > atol).sum()
+            assert d.max(initial=0.0) <= 2 * LR * steps, d.max()
+        else:
+            np.testing.assert_allclose(_f32(p), _f32(r), atol=atol, rtol=0)
     for name in ("mu", "nu"):
         for p, (path, r) in zip(
                 tree_flatten(getattr(p_state.opt, name))[0],
@@ -199,7 +207,11 @@ def test_adamw_update_matches_reference(fusion, inplace, dtype):
         jax.tree.map(lambda x: jnp.asarray(x, jdt), p_np), run=None)
 
     tdt = getattr(torch, dtype)
-    conv = lambda t: {k: torch.from_numpy(v).to(tdt) for k, v in t.items()}
+    # copies: jnp.asarray may wrap a numpy array without copying it and
+    # read it after returning (asynchronous dispatch), so an update in
+    # place must not write into the arrays the reference was given
+    conv = lambda t: {k: torch.from_numpy(v.copy()).to(tdt)
+                      for k, v in t.items()}
     params, mu, nu = conv(p_np), conv(m_np), conv(v_np)
     grads = {k: torch.from_numpy(v) for k, v in g_np.items()}
     state = p_optim.AdamWState(mu, nu, torch.tensor(2, dtype=torch.int32))

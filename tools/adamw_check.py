@@ -75,7 +75,8 @@ def profile(device: str = "cuda", width: int = 64, calls: int = 20) -> None:
                                            "_leaves_like")
                       if hasattr(optim, n)],
              "bias": [(optim, "bias_corrections")],
-             "routing": [(fops, "use_adamw")],
+             "routing": [(fops, "adamw_routes" if hasattr(
+                 fops, "adamw_routes") else "use_adamw")],
              "op": [(fops, "adamw_group" if multi else "adamw_leaf")],
              "wrapper": [(ak, "fused_adamw_multi" if multi
                           else "fused_adamw")],
@@ -127,7 +128,7 @@ def profile(device: str = "cuda", width: int = 64, calls: int = 20) -> None:
     parts = {
         "tree walk of adamw_update": med(lambda c: c["walk"]),
         "bias corrections": med(lambda c: c["bias"]),
-        "routing (use_adamw per leaf)": med(lambda c: c["routing"]),
+        "routing (adamw_routes)": med(lambda c: c["routing"]),
         "custom_op dispatch (the routed call less the wrapper)": med(
             lambda c: c["op"] - c["wrapper"]),
         "tune lookup (for_launch)": med(lambda c: c["lookup"]),
