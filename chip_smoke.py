@@ -45,8 +45,12 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    (granite; silu, and the gelu route geglu takes), flash at zamba2's 32
    heads of 64 on 32 KV heads, granite's 32 on 8 and minitron's 24 on 8,
    each beside SDPA, the SSD scan at zamba2's N = 64 and chunk 128, and
-   (after path g) the AdamW launch on zamba2's leaves;
-4. drives eight main paths, each with every launch count set to 0 just
+   (after path g) the AdamW launch on zamba2's leaves; and the shapes
+   path i gives them: flash on a 256-token prefill chunk (1, 256, 2 KV
+   heads x 16, 128), the norms at (8, 4096) (a decode tick over 8 slots)
+   and (256, 4096), SwiGLU at (8, 13696) and (256, 13696), each beside
+   its library call where there is one (``F.rms_norm``, SDPA);
+4. drives ten main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
@@ -122,6 +126,25 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       a finite loss, its optimizer state beside AdamW's); and
       mistral-large-123b's fwd walk on meta tensors at full width and
       depth (matmul FLOPs and ``param_count`` exact);
+   i. serving (:func:`serve_path`): ``Session.serve`` of glm4-9b at full
+      width and depth (40 layers, fp32 weights) under :data:`SERVE_ARGS`
+      — 16 Poisson requests, prompts of 64-1024 tokens, 16-64 new tokens,
+      8 slots, a paged KV pool of 2048 tokens a slot, 256-token prefill
+      chunks, O1, ``static`` —: every request finished by ``length``, the
+      allocator clean, flash and the three fused kernels launched exactly
+      as often as the walk of each executable times its calls, the
+      ``serve/glm4-9b`` record read back by ``Session.report``, TTFT,
+      tokens/s and each phase's FLOPs, bytes and share of its bound
+      printed; request 0 served again alone, its first-token logits and
+      the next 4 tokens' against ``forward_fn`` over the prompt and the
+      generated prefix, and its first-token logits under ``static``
+      against an engine at ``off``;
+   j. decode (:func:`decode_path`): mamba2-1.3b (48 layers) and
+      zamba2-1.2b (38 layers, 6 sites) at full width, O0, ``static``: a
+      64-token prompt one token at a time through ``decode_fn`` from a
+      zero state, each step's logits against ``forward_fn``, and one
+      decode step timed at batch 2 and 8 beside its bound (path j runs
+      before path i, whose last step runs under ``torch.profiler``);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
    on the card against the same functions on the host (the port's CPU
    path, which the tests hold against the JAX reference): glm4-9b at
@@ -2678,6 +2701,549 @@ def dense_family_path(granite, minitron, mistral, sheet, *,
     return counts
 
 
+def serving_checks(dev, sheet) -> list[dict]:
+    """Phase 3 at the shapes path i gives the kernels (rows of step 3's
+    table, not of the JSON line): glm4-9b's prefill chunk of 256 tokens
+    and its decode tick over 8 slots — flash on the chunk (1, 256, 2 KV
+    heads x 16, 128), causal; the norms at (8, 4096) and (256, 4096); the
+    SwiGLU at (8, 13696) and (256, 13696).  Each is held against its plain
+    version at its existing tolerance and timed through a replayed CUDA
+    graph beside its bound and the library call (``F.rms_norm``, SDPA).
+    Flash's bound counts each input read once: q and o for the 32 query
+    heads, k and v for the 2 KV heads.  Then the fp32 norms path j's
+    decode step gives them, at batch 2 and 8: (B, 2048), the layer and
+    final norms of mamba2-1.3b and zamba2-1.2b and zamba2's residual
+    seam, and (B, 4096), mamba2's gated norm over d_inner."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import config as kc
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.fused import norm, swiglu
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32, eps = torch.bfloat16, torch.float32, 1e-5
+
+    def randn(shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    def ulp(ref) -> float:
+        # one bf16 rounding at the largest |ref| (fused_checks' bound)
+        return 2.0 ** -7 * ref.float().abs().max().item() + 1e-30
+
+    print("serving shapes (path i: glm4-9b, a 256-token prefill chunk and a "
+          "decode tick over 8 slots; tolerances as above: the norms and "
+          "SwiGLU 1 bf16 ulp at max|ref|, flash ref.kernel_tolerance)")
+    rows = []
+    shape = (1, 256, 2, 16, 128)
+    b, s, kv, grp, hd = shape
+    sets, nxt = rotating(lambda: (randn(shape), randn((b, s, kv, hd)),
+                                  randn((b, s, kv, hd))), k=4)
+    q, k, v = sets[0]
+    want = fops._ref_gqa(q, k, v, True)
+    err = check_within(f"flash[{fk.route(hd, bf16)}] prefill chunk "
+                       f"{'x'.join(map(str, shape))} bf16 causal",
+                       fk.flash_attention_grouped(q, k, v), want,
+                       fref.kernel_tolerance(want))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.flatten(2, 3).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    flop = fk.flops(b * kv * grp, s, s, hd)
+    r = shape_row(
+        "flash_attention", f"bf16 q {shape}, causal (the prefill chunk, "
+        "path i)", err, lambda: fk.flash_attention_grouped(*nxt()),
+        lambda: fops._ref_gqa(*nxt(), True), lambda: sdpa(*nxt()),
+        bound(2 * 2 * b * s * (kv * grp + kv) * hd, flop, "bf16", sheet),
+        kc.resolve("flash_attention", None).dict)
+    r["extra"] = (f"{fk.route(hd, bf16)} kernel, "
+                  f"{r['ms'] / r['library_ms']:.3f}x SDPA")
+    rows.append(r)
+    del sets, q, k, v, want
+    for rows_n, who in ((8, "decode tick"), (256, "prefill chunk")):
+        d = 4096
+        sets, nxt = rotating(lambda: (randn((rows_n, d), 3.0),
+                                      randn((rows_n, d))))
+        x, h = sets[0]
+        sc = torch.rand((4, d), generator=g, device=dev)[1]
+        want = norm.rmsnorm_ref(x, sc, eps, bf16)
+        err = check(f"rmsnorm bf16 {rows_n}x{d} ({who})",
+                    norm.fused_rmsnorm(x, sc), want, ulp(want))
+        rows.append(shape_row(
+            "fused_rmsnorm", f"bf16 ({rows_n}, {d}), f32 scale ({who}, "
+            "path i)", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
+            lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, bf16),
+            lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
+            bound(norm.hbm_bytes(rows_n, d, 2), norm.flops(rows_n, d),
+                  "f32", sheet),
+            launch_config("fused_norm", x, (rows_n, d))))
+        r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, bf16)
+        rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
+        check(f"rmsnorm_residual r bf16 {rows_n}x{d}", rr, r_ref, 0.0)
+        err = check(f"rmsnorm_residual y bf16 {rows_n}x{d} ({who})", yy,
+                    y_ref, ulp(y_ref))
+        rows.append(shape_row(
+            "fused_rmsnorm_residual", f"bf16 ({rows_n}, {d}) x and h "
+            f"({who}, path i)", err,
+            lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
+            lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, bf16), None,
+            bound(norm.hbm_bytes(rows_n, d, 2, residual=True),
+                  norm.flops(rows_n, d, residual=True), "f32", sheet),
+            launch_config("fused_norm", x, (rows_n, d))))
+        del sets, x, h
+        f = 13_696
+        sets, nxt = rotating(lambda: (randn((rows_n, f), 2.0),
+                                      randn((rows_n, f))))
+        a, bb = sets[0]
+        want = swiglu.swiglu_ref(a, bb, "silu", bf16)
+        err = check(f"swiglu silu bf16 {rows_n}x{f} ({who})",
+                    swiglu.fused_swiglu(a, bb), want, ulp(want))
+        rows.append(shape_row(
+            "fused_swiglu", f"bf16 ({rows_n}, {f}), silu ({who}, path i)",
+            err, lambda: swiglu.fused_swiglu(*nxt()),
+            lambda: swiglu.swiglu_ref(*nxt(), "silu", bf16), None,
+            bound(swiglu.hbm_bytes(rows_n, f, 2), swiglu.flops(rows_n, f),
+                  "f32", sheet),
+            launch_config("fused_swiglu", a, (rows_n, f))))
+        del sets, a, bb
+    print("decode shapes (path j: mamba2-1.3b and zamba2-1.2b at O0; "
+          "tolerance as fused_checks' fp32: 8 f32 ulps at max|ref|, r = x "
+          "+ h exactly)")
+
+    def f32_tol(ref) -> float:
+        return 8 * 2.0 ** -22 * ref.abs().max().item() + 1e-30
+
+    for rows_n, d in itertools.product((2, 8), (2048, 4096)):
+        who = ("layer and final norms, zamba2's residual seam" if d == 2048
+               else "mamba2's gated norm")
+        sets, nxt = rotating(lambda: (randn((rows_n, d), 3.0, f32),
+                                      randn((rows_n, d), 1.0, f32)))
+        x, h = sets[0]
+        sc = torch.rand((4, d), generator=g, device=dev)[1]
+        want = norm.rmsnorm_ref(x, sc, eps, f32)
+        err = check(f"rmsnorm f32 {rows_n}x{d} ({who})",
+                    norm.fused_rmsnorm(x, sc), want, f32_tol(want))
+        rows.append(shape_row(
+            "fused_rmsnorm", f"f32 ({rows_n}, {d}), f32 scale ({who}, "
+            "path j)", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
+            lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, f32),
+            lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
+            bound(norm.hbm_bytes(rows_n, d, 4), norm.flops(rows_n, d),
+                  "f32", sheet),
+            launch_config("fused_norm", x, (rows_n, d))))
+        r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, f32)
+        rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
+        check(f"rmsnorm_residual r f32 {rows_n}x{d}", rr, r_ref, 0.0)
+        err = check(f"rmsnorm_residual y f32 {rows_n}x{d} ({who})", yy,
+                    y_ref, f32_tol(y_ref))
+        rows.append(shape_row(
+            "fused_rmsnorm_residual", f"f32 ({rows_n}, {d}) x and h "
+            f"({who}, path j)", err,
+            lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
+            lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, f32), None,
+            bound(norm.hbm_bytes(rows_n, d, 4, residual=True),
+                  norm.flops(rows_n, d, residual=True), "f32", sheet),
+            launch_config("fused_norm", x, (rows_n, d))))
+        del sets, x, h
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: path i's call: glm4-9b at full width and depth served by the
+#: continuous-batching engine (the session's arguments)
+SERVE_ARGS = dict(smoke=False, amp="O1", fusion="static", trace="poisson",
+                  n_requests=16, rate=1.0, seed=0, n_slots=8, max_len=2048,
+                  prefill_chunk=256, page_size=16, prompt_len=(64, 1024),
+                  max_new=(16, 64))
+#: the kernels on the serving path, by their op in the walk
+SERVE_KERNELS = {"flash_attention": "flash_attention",
+                 "fused_rmsnorm": "rmsnorm",
+                 "fused_rmsnorm_residual": "rmsnorm_residual",
+                 "fused_swiglu": "swiglu"}
+#: path i's logits against ``forward_fn``'s, both O1 (bf16 logits from
+#: two lowerings of the same function: chunked prefill with flash and
+#: paged attention against one causal einsum pass), and ``static``'s
+#: against ``off``'s: the log-partition (logsumexp over the vocab, the
+#: loss's own reduction) within this relative difference, path e's bound
+#: on its loss; an H100 read at most 2.1e-5
+SERVE_LSE_RTOL = 2e-4
+#: and each logit within this many bf16 ulps at the largest |logit|: an
+#: H100 read at most 1.45 (one rounding of each logit, and of the hidden
+#: state before it, in other places)
+SERVE_LOGIT_ULPS = 4
+
+
+def _spy_request(eng, prompt, max_new: int):
+    """Serve one more request alone through ``eng`` (its slot 0), keeping
+    what each executable returned (``Engine.keep_logits``): (the first
+    token's logits — the last prefill chunk's —, the logits of each
+    decode tick's slot 0, the tokens, the prefill chunks)."""
+    from repro_torch.serve.engine import Request
+
+    eng.logits.clear()
+    eng.keep_logits = True
+    try:
+        req = Request(uid=-1, prompt=prompt, max_new=max_new)
+        eng.serve([req])
+    finally:
+        eng.keep_logits = False
+    seen, eng.logits = eng.logits, []
+    if req.finish_reason != "length":
+        raise AssertionError(f"the rerun finished {req.finish_reason}")
+    prefill = [lg for name, lg in seen if name != "decode"]
+    decode = [lg[0] for name, lg in seen if name == "decode"]
+    return prefill[-1], decode, req.out, len(prefill)
+
+
+def _logits_check(label: str, got, ref, vocab: int) -> tuple[float, float]:
+    """Hold one position's logits over the vocab: their logsumexp within
+    :data:`SERVE_LSE_RTOL` (relative) and every logit within
+    :data:`SERVE_LOGIT_ULPS` bf16 ulps at the largest |logit|; prints
+    whether the greedy token agrees.  Returns (relative logsumexp
+    difference, max |error|)."""
+    import torch
+    got, ref = got[:vocab].float(), ref[:vocab].float()
+    lse_got, lse_ref = float(torch.logsumexp(got, 0)), float(
+        torch.logsumexp(ref, 0))
+    rel = abs(lse_got - lse_ref) / abs(lse_ref)
+    err, scale = max_abs_err(got, ref)
+    atol = SERVE_LOGIT_ULPS * 2.0 ** -7 * scale
+    same = int(torch.argmax(got)) == int(torch.argmax(ref))
+    ok = rel <= SERVE_LSE_RTOL and err <= atol and math.isfinite(err)
+    print(f"  {label:<44} logsumexp {lse_got:.6f} vs {lse_ref:.6f}: rel "
+          f"{rel:.3e} (rtol {SERVE_LSE_RTOL:g}) | max_abs_err {err:.3e} "
+          f"(tol {atol:.3e}, max|ref| {scale:.3e}, "
+          f"{err / (2.0 ** -7 * scale):.2f} ulps) | greedy token "
+          f"{'same' if same else 'DIFFERS'}  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: logsumexp rel {rel}, max_abs_err "
+                             f"{err}")
+    return rel, err
+
+
+def _walls_line(eng) -> str:
+    """Each executable's calls and per-call walls in ms (host clock, to
+    ``torch.cuda.synchronize``): the first (it pays what is set up on
+    first use in the process), the median and the least."""
+    import statistics
+    return " | ".join(
+        f"{name} {len(w)} calls, first {w[0] * 1e3:.3f}, median "
+        f"{statistics.median(w) * 1e3:.3f}, least {min(w) * 1e3:.3f}"
+        for name, w in eng.call_walls.items() if w)
+
+
+def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
+               **overrides) -> dict:
+    """Main path i: ``Session.serve`` of glm4-9b at full width and depth
+    (40 layers, 9.40 B params in fp32) under :data:`SERVE_ARGS` — 16
+    Poisson requests, prompts of 64-1024 tokens, 16-64 new tokens each, 8
+    slots over a paged KV pool of 2048 tokens a slot, 256-token prefill
+    chunks, O1, ``static`` (``overrides`` rehearse it on the host at the
+    smoke size).  Launch counts are set to 0 just before the call and
+    read just after; then it holds:
+
+    1. every request finished by ``length``; ``cache.check()``; every
+       page back on the free-list;
+    2. the launches of flash, ``fused_rmsnorm``, ``fused_rmsnorm_residual``
+       and ``fused_swiglu`` above 0, and each equal to the walk's count
+       per call of each executable times its calls;
+    3. the ``serve/glm4-9b`` record read back by ``Session.report`` under
+       its run id, with ``prefill`` and ``decode`` phases; each phase's
+       FLOPs, HBM bytes, arithmetic intensity and share of its bound;
+    4. request 0 served again alone: its first-token logits (the
+       ``prefill_first`` and ``prefill_ext`` chunks) and the next 4
+       tokens' (decode ticks) against ``forward_fn`` over the prompt and
+       the generated prefix; the trace served again by an engine at
+       ``off`` on the same parameters (every request done by
+       ``length``; its per-call walls beside ``static``'s), and request 0
+       through it: its first-token logits against ``static``'s
+       (:func:`_logits_check`);
+    5. on the card, the share of a rerun's wall in which the card ran a
+       kernel (:func:`busy_share`).
+
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.session.session import Session
+
+    args = {**SERVE_ARGS, **overrides}
+    cuda = torch.device(device).type == "cuda"
+    print(f"== 4i. main path: serve {arch} (Session.serve: "
+          f"{json.dumps(args)})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    t0 = time.perf_counter()
+    res = s.serve(arch, **args)
+    counts = kernels.launch_counts()
+    took = time.perf_counter() - t0
+    rec, stats, eng, reqs = res.data
+    cfg = eng.cfg
+    print(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f} B params in fp32 "
+          f"({4 * cfg.param_count() / 1e9:.1f} GB); KV pool "
+          f"{eng.cache.n_pages} pages of {eng.cache.page_size} "
+          f"({2 * eng.cache.k_pool.numel() * 2 / 1e9:.3f} GB bf16); prefill "
+          f"chunk {eng.chunk}, flash on the first chunk: "
+          f"{eng.prefill_first_flash}; Session.serve {took:.1f} s")
+    print(res.text)
+    # 1. the run
+    reasons = sorted({r.finish_reason for r in reqs})
+    if res.exit_code or stats.n_completed != args["n_requests"] \
+            or reasons != ["length"]:
+        raise AssertionError(f"serve: {stats.n_completed} of "
+                             f"{args['n_requests']} completed, finished by "
+                             f"{reasons}; gate {stats.gate()}")
+    eng.cache.check()
+    if sorted(eng.cache.free) != list(range(eng.cache.n_pages)):
+        raise AssertionError("serve: pages still owned after the trace")
+    sm = rec.meta["serve"]
+    print(f"  all {sm['completed']} requests done by length in "
+          f"{sm['ticks']} ticks, {sm['new_tokens']} new tokens; every page "
+          f"free")
+    # 2. launches against the walk
+    walk = {name: 0 for name in SERVE_KERNELS}
+    for exe, ana in res.analyses.items():
+        per = {name: sum(k.exec_count for k in ana.kernels
+                         if k.opcode == op)
+               for name, op in SERVE_KERNELS.items()}
+        print(f"  walk of {exe}: {eng.calls[exe]} calls, "
+              f"{eng.wall[exe] / eng.calls[exe] * 1e3:.3f} ms a call, "
+              f"per call {json.dumps(per)}, "
+              f"{sum(k.exec_count for k in ana.kernels)} launches")
+        for name in walk:
+            walk[name] += per[name] * eng.calls[exe]
+    static_walls = _walls_line(eng)
+    print(f"launches on main path i: {json.dumps(counts)} (the walk: "
+          f"{json.dumps(walk)})")
+    for name in SERVE_KERNELS:
+        if walk[name] <= 0 or (cuda and counts[name] != walk[name]):
+            raise AssertionError(f"serve: {name} launched {counts[name]} "
+                                 f"times, the walk says {walk[name]}")
+    # 3. the record, read back; the phases against the roofline
+    back = s.report(f"serve/{arch}")
+    if back.data.run_id != rec.run_id or set(back.phases) != {"prefill",
+                                                              "decode"}:
+        raise AssertionError(f"report read {back.data.run_id} "
+                             f"{sorted(back.phases)}, wrote {rec.run_id}")
+    print(f"  TTFT p50 {sm['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+          f"{sm['ttft_p99_s'] * 1e3:.3f} ms | per-token p50 "
+          f"{sm['tpot_p50_s'] * 1e3:.3f} ms, p99 "
+          f"{sm['tpot_p99_s'] * 1e3:.3f} ms | {sm['tokens_per_s']:.2f} "
+          f"tokens/s | ms per decode tick "
+          f"{eng.wall['decode'] / eng.calls['decode'] * 1e3:.3f} | ms per "
+          f"prefill chunk "
+          f"{(eng.wall['prefill_first'] + eng.wall['prefill_ext']) / (eng.calls['prefill_first'] + eng.calls['prefill_ext']) * 1e3:.3f}"
+          f" (report read back run {rec.run_id})")
+    for ph, p in rec.phases.items():
+        ai = p["flops"] / p["hbm_bytes"] if p["hbm_bytes"] else 0.0
+        print(f"  phase {ph:<8} {p['iters']} calls, wall "
+              f"{p['wall_s'] * 1e3:.3f} ms | FLOPs {p['flops']:.4e} | HBM "
+              f"bytes {p['hbm_bytes']:.4e} | AI {ai:.2f} FLOP/B | bound "
+              f"{p['bound_overlap_s'] * 1e3:.3f} ms ({p['dominant']}) | "
+              f"{100 * p['pct_of_roofline']:.2f}% of bound | launches "
+              f"{p['launches']} ({p['zero_ai_launches']} zero-AI)")
+    # 4. request 0 again, against forward_fn and against fusion off
+    req0 = next(r for r in reqs if r.uid == 0)
+    n_dec = 4
+    first, dec, toks, chunks = _spy_request(eng, req0.prompt, n_dec + 1)
+    seq = torch.as_tensor(np.concatenate([req0.prompt, toks[:n_dec]]),
+                          dtype=torch.int32, device=device)
+    P = len(req0.prompt)
+    with torch.inference_mode():
+        full = eng.model.forward_fn(eng.params, {"tokens": seq[None]},
+                                    eng.run)[0, P - 1:]
+    print(f"  request 0 served again alone: prompt {P} tokens in {chunks} "
+          f"chunks, tokens {toks} (in the trace, beside other slots: "
+          f"{req0.out[:n_dec + 1]}); against forward_fn over the prompt and "
+          f"the generated prefix ({P + n_dec} tokens, the same run)")
+    _logits_check("first token (prefill_first + prefill_ext)", first,
+                  full[0], cfg.vocab_size)
+    for i, lg in enumerate(dec[:n_dec]):
+        _logits_check(f"decoded token {i + 1} (decode tick)", lg,
+                      full[i + 1], cfg.vocab_size)
+    del full
+    off = Engine(cfg, RunConfig(amp=args["amp"], fusion="off"), eng.params,
+                 n_slots=eng.n_slots, max_len=eng.max_len,
+                 page_size=eng.cache.page_size, prefill_chunk=eng.chunk,
+                 device=device)
+    again = [Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                     arrival=r.arrival) for r in reqs]
+    st_off = off.run_trace(again)
+    if st_off.n_completed != args["n_requests"] \
+            or {r.finish_reason for r in again} != {"length"}:
+        raise AssertionError(f"serve at off: {st_off.n_completed} of "
+                             f"{args['n_requests']} completed")
+    same = sum(a.out == r.out for a, r in zip(again, reqs))
+    print(f"  the trace again at fusion off, same parameters: "
+          f"{st_off.n_completed} requests in {st_off.ticks} ticks, "
+          f"{st_off.wall_s:.3f} s (static {stats.wall_s:.3f} s), "
+          f"{st_off.tokens_per_s:.2f} tokens/s; {same} of {len(reqs)} "
+          f"requests with static's tokens exactly")
+    print(f"  per-call walls, ms, static: {static_walls}")
+    print(f"  per-call walls, ms, off:    {_walls_line(off)}")
+    first_off = _spy_request(off, req0.prompt, 1)[0]
+    _logits_check("first token, static against off", first, first_off,
+                  cfg.vocab_size)
+    del off
+    if cuda:
+        busy_share(eng, req0.prompt, n_dec)
+    del res, eng
+    return counts
+
+
+def busy_share(eng, prompt, n_dec: int) -> None:
+    """Where the serving wall goes: request 0 served alone once more
+    under ``torch.profiler`` (CUDA activity only, so the host is not
+    slowed by CPU tracing): the share of its wall in which a kernel ran
+    on the card, and the kernels that took the most device time, each
+    with its share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _spy_request(eng, prompt, n_dec + 1)
+        wall = time.perf_counter() - t0
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    dev_s = sum(e.self_device_time_total for e in ev) / 1e6
+    top = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
+                    f" x{e.count} "
+                    f"({e.self_device_time_total / 1e4 / dev_s:.1f}%)"
+                    for e in ev[:4])
+    print(f"  request 0 alone under torch.profiler (its prefill chunks "
+          f"and {n_dec} decode ticks): wall {wall * 1e3:.3f} ms, kernels "
+          f"on the card {dev_s * 1e3:.3f} ms: busy {100 * dev_s / wall:.1f}%"
+          f", idle {100 * (1 - dev_s / wall):.1f}%; most device time: "
+          f"{top}")
+
+
+#: path j's duality bound: each decode step's logits against the
+#: forward's at that position, both fp32 (O0), the recurrence against the
+#: chunked scan summing in another order.  An H100 read at most 2.3e-5
+#: (mamba2-1.3b) and 1.1e-5 (zamba2-1.2b) over 64 steps; the bound is
+#: the port's O0 logits tolerance (tests/test_torch_model.py), under the
+#: reference's own 5e-2 for the SSD duality (tests/test_models.py:152)
+DECODE_DUALITY_ATOL = 1e-4
+
+
+def decode_path(cfgs, sheet, *, device: str = "cuda", layers=None,
+                batch: int = 2, prompt: int = 64, time_batches=(2, 8),
+                smoke: bool = False) -> dict:
+    """Main path j: the SSM and hybrid decode steps at full width and
+    depth (mamba2-1.3b, 48 layers; zamba2-1.2b, 38 layers and 6 sites), O0
+    (fp32), ``fusion="static"`` (the fused rmsnorm at the few-row decode
+    shapes: (B, 2048) and the gated (B, d_inner); the hybrid's residual
+    seam too).  For each: a ``prompt``-token prompt fed one token at a
+    time through ``decode_fn`` from a zero state (the hybrid's window
+    fp32 and as long as the prompt), each step's logits held against
+    ``forward_fn`` over the prompt (:data:`DECODE_DUALITY_ATOL`); then
+    one decode step timed at each batch of ``time_batches``, eager (host
+    clock, synchronized) and replayed from a CUDA graph, against its bound
+    (the fp32 weights and the state read, the state written).  Launch
+    counts are set to 0 just before and read just after."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import api as M
+    from repro_torch.models.params import init
+    from torch.utils._pytree import tree_flatten
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    run = RunConfig(amp="O0", fusion="static")
+    print(f"== 4j. main path: SSM and hybrid decode at full width, O0, "
+          f"static; a {prompt}-token prompt one token at a time against "
+          f"the forward (atol {DECODE_DUALITY_ATOL:g}: fp32 sums in "
+          f"another order; the reference's SSD duality bound is 5e-2)")
+    kernels.reset_launch_counts()
+    for cfg in cfgs:
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = M.build(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init(model.spec, gen, torch.float32, device)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+
+        def fresh(b):
+            if cfg.family == "hybrid":
+                return model.init_state_fn(b, prompt, torch.float32,
+                                           device=device)
+            return model.init_state_fn(b, device=device)
+
+        with torch.inference_mode():
+            full = model.forward_fn(params, {"tokens": tokens}, run)
+            state, worst = fresh(batch), (0.0, 0)
+            for t in range(prompt):
+                lg, state = model.decode_fn(
+                    params, {"tokens": tokens[:, t:t + 1]}, state, run)
+                err = (lg[:, 0] - full[:, t]).abs().max().item()
+                worst = max(worst, (err, t))
+        scale = full.abs().max().item()
+        ok = worst[0] <= DECODE_DUALITY_ATOL and math.isfinite(worst[0])
+        print(f"  {cfg.name}: {cfg.n_layers} layers, "
+              f"{cfg.param_count() / 1e9:.3f} B params; {prompt} decode "
+              f"steps at batch {batch} against the forward: max_abs_err "
+              f"{worst[0]:.3e} at step {worst[1]} (max|ref| {scale:.3e}, "
+              f"atol {DECODE_DUALITY_ATOL:g})  {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} decode against the forward: "
+                                 f"{worst}")
+        del full, state, lg
+        w_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_flatten(params)[0])
+        for b in time_batches:
+            st = fresh(b)
+            s_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_flatten(tuple(st))[0])
+            tok = tokens[:1, :1].expand(b, 1).contiguous()
+
+            def step():
+                return model.decode_fn(params, {"tokens": tok}, st, run)
+
+            with torch.inference_mode():
+                for _ in range(3):
+                    step()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    step()
+                sync()
+                eager = (time.perf_counter() - t0) / 10 * 1e3
+                graph = graph_ms(step, calls=10) if cuda else float("nan")
+            bnd = bound(w_bytes + 2 * s_bytes, 0.0, "f32", sheet)
+            print(f"  {cfg.name} decode step at batch {b}: eager "
+                  f"{eager:.3f} ms (host clock) | graph-replayed "
+                  f"{graph:.3f} ms | bound {bnd['bound_ms']:.3f} ms "
+                  f"({bnd['bound_by']}: {w_bytes / 1e9:.3f} GB of fp32 "
+                  f"weights, {s_bytes / 1e6:.2f} MB of state read and "
+                  f"written) | {100 * bnd['bound_ms'] / graph:.1f}% of bound "
+                  f"replayed")
+            del st
+        del params, model
+        if cuda:
+            torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    print(f"launches on main path j: {json.dumps(counts)}")
+    for name in ("fused_rmsnorm", "fused_rmsnorm_residual"):
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on main "
+                                 "path j")
+    return counts
+
+
 #: the learning rate of ``make_train_step``'s default
 LR = 3e-4
 
@@ -2823,6 +3389,7 @@ def main() -> int:
     rows += layernorm_checks(dev, sheet)
     rows += flash_checks(dev, sheet)
     rows += ssd_checks(dev, sheet)
+    rows += serving_checks(dev, sheet)
     for r in rows:
         lib = r["library_ms"]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
@@ -2943,6 +3510,16 @@ def main() -> int:
     counts_h = dense_family_path(get_config("granite-8b"),
                                  get_config("minitron-4b"),
                                  get_config("mistral-large-123b"), sheet)
+    torch.cuda.empty_cache()
+    # 4j. main path: the SSM and hybrid decode steps at full width ----------
+    # (before path i, which ends under torch.profiler: eager host time
+    # read after a profiled window doubled on an H100 host)
+    decode_path((get_config("mamba2-1.3b"), get_config("zamba2-1.2b")),
+                sheet)
+    torch.cuda.empty_cache()
+
+    # 4i. main path: glm4-9b served at full width by the engine -----------
+    serve_path(sheet)
     torch.cuda.empty_cache()
     for r in rows_g:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "

@@ -16,6 +16,10 @@ subcommands of ``python -m repro``).
 * ``record``       — measure the phases and append a record to the trace
   store (``--store``, default the workspace's ``trace.jsonl``);
   ``--scale-wall`` multiplies the stored wall times (regression drills);
+* ``serve``        — continuous-batching serving of a seeded arrival
+  trace (``repro_torch.serve``); prefill and decode recorded as separate
+  phases of a ``serve/<config>`` record; exit code 1 when the latency
+  gate fails;
 * ``report``       — the newest stored record, re-rendered;
 * ``compare``      — the newest record of each config against the one
   before; exit code 1 when a cell regressed past 10%;
@@ -42,6 +46,9 @@ Examples::
         --impl fused
     python -m repro_torch record --config glm4-9b --full --layers 4 \
         --seq 2048 --batch 2 --fusion static --attn-impl flash
+    python -m repro_torch serve --config glm4-9b --device cpu
+    python -m repro_torch serve --config glm4-9b --full --fusion static \
+        --slots 8 --max-len 2048 --prefill-chunk 256
     python -m repro_torch report
     python -m repro_torch compare
     python -m repro_torch tune search --device cpu --smoke
@@ -117,6 +124,26 @@ def cmd_record(args) -> int:
     print(res.render())
     print(f"run {res.data.run_id} -> {s.workspace.trace_path}")
     return 0
+
+
+def cmd_serve(args) -> int:
+    try:
+        s = _session(args)
+        res = s.serve(args.config, n_requests=args.requests,
+                      trace=args.trace, rate=args.rate, burst=args.burst,
+                      seed=args.seed, n_slots=args.slots,
+                      max_len=args.max_len,
+                      prefill_chunk=args.prefill_chunk,
+                      page_size=args.page_size, amp=args.amp,
+                      fusion=args.fusion, smoke=not args.full,
+                      max_ticks=args.max_ticks)
+    except (RuntimeError, KeyError, NotImplementedError, ValueError) as e:
+        # no card, an unknown config, a family the engine does not serve
+        print(f"serve: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    print(f"run {res.data[0].run_id} -> {s.workspace.trace_path}")
+    return res.exit_code
 
 
 def cmd_report(args) -> int:
@@ -242,6 +269,42 @@ def build_parser() -> argparse.ArgumentParser:
     rc.add_argument("--scale-wall", type=float, default=1.0,
                     help="multiply stored wall times (regression drills)")
     rc.set_defaults(fn=cmd_record)
+
+    from repro_torch.configs.base import FUSION_MODES
+    sv = sub.add_parser("serve",
+                        help="continuous-batching serving under a seeded "
+                             "arrival trace; prefill/decode recorded as "
+                             "separate phases (repro_torch.serve)")
+    common(sv)
+    store(sv)
+    sv.add_argument("--config", required=True,
+                    help="registry config name (dense family)")
+    sv.add_argument("--requests", type=int, default=16,
+                    help="arrival-trace length (default 16)")
+    sv.add_argument("--trace", default="poisson",
+                    choices=("poisson", "bursty"),
+                    help="arrival process (default poisson)")
+    sv.add_argument("--rate", type=float, default=1.0,
+                    help="arrivals (or bursts) per tick (default 1.0)")
+    sv.add_argument("--burst", type=int, default=4,
+                    help="requests per burst for --trace bursty")
+    sv.add_argument("--seed", type=int, default=0,
+                    help="workload + weight-init seed (default 0)")
+    sv.add_argument("--slots", type=int, default=4,
+                    help="concurrent sequence slots (default 4)")
+    sv.add_argument("--max-len", type=int, default=64,
+                    help="max tokens per sequence incl. prompt")
+    sv.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt tokens prefilled per tick (default 16)")
+    sv.add_argument("--page-size", type=int, default=16,
+                    help="KV-cache page size in tokens (default 16)")
+    sv.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
+    sv.add_argument("--fusion", default="off", choices=FUSION_MODES)
+    sv.add_argument("--full", action="store_true",
+                    help="full config instead of the smoke variant")
+    sv.add_argument("--max-ticks", type=int, default=4096,
+                    help="tick budget before the run is cut off")
+    sv.set_defaults(fn=cmd_serve)
 
     rp = sub.add_parser("report", help="the newest stored record")
     common(rp)

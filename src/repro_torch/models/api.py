@@ -1,9 +1,18 @@
 """Model facade (port of ``repro.models.api``) for the dense, SSM, hybrid
 and CNN (DeepCAM) families.
 
-``build(cfg)`` returns a :class:`Model` whose ``loss_fn`` / ``forward_fn``
-close over the config; ``batch_schema`` and ``synthetic_batch`` give the
-input batch of one shape cell.
+``build(cfg)`` returns a :class:`Model` whose members close over the
+config:
+
+* ``loss_fn(params, batch, run)`` → (loss, metrics)   [train step]
+* ``forward_fn(params, batch, run)`` → logits          [prefill]
+* ``decode_fn(params, batch, state, run)`` → (logits, new state) [decode]
+* ``init_state_fn(batch, max_len, dtype, device)`` → an empty decode
+  state (zeros; on ``meta``, the default, the shapes alone)
+
+DeepCAM has no decode members.  ``batch_schema`` and ``synthetic_batch``
+give the input batch of one shape cell (train, prefill or decode), and
+``decode_state_specs`` the decode state of a decode cell.
 """
 
 from __future__ import annotations
@@ -53,6 +62,9 @@ class Model:
     loss_fn: Callable[[Params, Batch, RunConfig],
                       tuple[torch.Tensor, dict[str, torch.Tensor]]]
     forward_fn: Callable[[Params, Batch, RunConfig], torch.Tensor]
+    decode_fn: Callable[[Params, Batch, Any, RunConfig],
+                        tuple[torch.Tensor, Any]] | None = None
+    init_state_fn: Callable[..., Any] | None = None
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -64,16 +76,26 @@ def build(cfg: ModelConfig) -> Model:
         return _build_lm(cfg, HY)
     if cfg.family == "cnn":
         return _build_deepcam(cfg)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "family 'moe': the MoE family, and with it MoE serving, comes "
+            "with ROADMAP queue 1 item 6")
     raise NotImplementedError(
         f"family {cfg.family!r}: the port has the dense, SSM and hybrid LMs "
         "and DeepCAM (ROADMAP queue 1)")
 
 
 def _build_lm(cfg: ModelConfig, module) -> Model:
-    """The reference's ``_build_dense`` / ``_build_ssm`` /
-    ``_build_hybrid`` without their decode members (they come with
-    serving): a token LM whose ``module`` has ``lm_spec`` and
-    ``forward``."""
+    """The reference's ``_build_transformer`` / ``_build_ssm`` /
+    ``_build_hybrid``: a token LM whose ``module`` has ``lm_spec``,
+    ``forward`` and ``decode_step``.  The decode state of each family:
+
+    * dense: a KV cache of ``max_len`` rows, ``dtype`` bf16 by default;
+    * ssm: the O(1) recurrent state, fp32 by default (``max_len`` does
+      not size it);
+    * hybrid: the recurrent states and a window of ``min(max_len,
+      ATTN_WINDOW)`` rows a site (``max_len`` defaults to the window).
+    """
 
     def loss_fn(params, batch, run):
         logits = module.forward(params, batch["tokens"], cfg, run)
@@ -82,7 +104,26 @@ def _build_lm(cfg: ModelConfig, module) -> Model:
     def forward_fn(params, batch, run):
         return module.forward(params, batch["tokens"], cfg, run)
 
-    return Model(cfg, module.lm_spec(cfg), loss_fn, forward_fn)
+    def decode_fn(params, batch, state, run):
+        return module.decode_step(params, batch["tokens"], state, cfg, run)
+
+    if module is SM:
+        def init_state_fn(batch, max_len=0, dtype=torch.float32,
+                          device="meta"):
+            del max_len          # O(1) state: the context does not size it
+            return SM.init_state(cfg, batch, dtype, device=device)
+    elif module is HY:
+        def init_state_fn(batch, max_len=HY.ATTN_WINDOW,
+                          dtype=torch.bfloat16, device="meta"):
+            return HY.init_state(cfg, batch, min(max_len, HY.ATTN_WINDOW),
+                                 dtype, device=device)
+    else:
+        def init_state_fn(batch, max_len, dtype=torch.bfloat16,
+                          device="meta"):
+            return TR.init_cache(cfg, batch, max_len, dtype, device=device)
+
+    return Model(cfg, module.lm_spec(cfg), loss_fn, forward_fn, decode_fn,
+                 init_state_fn)
 
 
 def _build_deepcam(cfg: ModelConfig) -> Model:
@@ -107,24 +148,29 @@ def _build_deepcam(cfg: ModelConfig) -> Model:
 def batch_schema(cfg: ModelConfig, shape: ShapeSpec,
                  per_device_batch: int | None = None
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of one train cell's input batch: token LMs,
-    or DeepCAM's images (B, H, W, 16) f32 and labels (B, H, W) int32 at
+    """{name: (shape, dtype)} of one cell's input batch.
+
+    DeepCAM takes images (B, H, W, 16) f32 and labels (B, H, W) int32 at
     the paper's resolution (``IMAGE_HW``) for a stem width of 64 or more,
-    ``SMOKE_HW`` below (``shape.seq_len`` is not read).  Prefill and
-    decode cells come with serving (ROADMAP queue 1, decode and
-    serving)."""
+    ``SMOKE_HW`` below, whatever the cell's kind (``shape.seq_len`` is not
+    read).  A token LM's train cell takes tokens and targets (B, S), a
+    prefill cell tokens (B, S), a decode cell one new token (B, 1)
+    against a cache of ``seq_len`` (:func:`decode_state_specs`).
+    ``per_device_batch=None`` takes the cell's global batch.
+    """
     B = per_device_batch if per_device_batch is not None else shape.global_batch
     if cfg.family == "cnn":
         from repro_torch.configs.deepcam import IMAGE_HW, SMOKE_HW
         hw = IMAGE_HW if cfg.d_model >= 64 else SMOKE_HW
         return {"images": ((B, *hw, DC.IN_CHANNELS), torch.float32),
                 "labels": ((B, *hw), torch.int32)}
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind} cells come with serving "
-                                  "(ROADMAP queue 1, decode and serving)")
     S = shape.seq_len
-    return {"tokens": ((B, S), torch.int32),
-            "targets": ((B, S), torch.int32)}
+    if shape.kind == "train":
+        return {"tokens": ((B, S), torch.int32),
+                "targets": ((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": ((B, S), torch.int32)}
+    return {"tokens": ((B, 1), torch.int32)}
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, batch: int,
@@ -147,3 +193,20 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, batch: int,
             out[name] = torch.randint(0, high, shp, generator=generator,
                                       dtype=dt, device=device)
     return out
+
+
+def decode_state_specs(cfg: ModelConfig, shape: ShapeSpec,
+                       batch: int | None = None) -> Any:
+    """The decode state of a decode cell (a cache of ``seq_len``) as meta
+    tensors, which allocate nothing.  The cells model an *aligned* batch:
+    the fill is a scalar, so the cache update is the one-slice write (the
+    per-row (B,) fill is the continuous-batching engine's)."""
+    model = build(cfg)
+    if model.init_state_fn is None:
+        raise ValueError(f"{cfg.name} has no decode path")
+    B = batch if batch is not None else shape.global_batch
+    state = model.init_state_fn(B, shape.seq_len)
+    if hasattr(state, "length"):
+        state = state._replace(length=torch.zeros(
+            (), dtype=torch.int32, device="meta"))
+    return state

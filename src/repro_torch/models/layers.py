@@ -195,12 +195,15 @@ def attention_spec(cfg: ModelConfig) -> Params:
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+          k_len: torch.Tensor | None = None,
           stat_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Grouped scaled-dot-product attention.
 
     q: (B, Sq, K, G, hd) — query heads grouped by their KV head.
-    k/v: (B, Sk, K, hd).  Masked scores are -1e30 (not -inf, as the
-    reference), softmax statistics in ``stat_dtype``.
+    k/v: (B, Sk, K, hd).  ``k_len`` (decode: the cache's fill) masks the
+    keys at positions ≥ it: a scalar for an aligned batch, or (B,) one a
+    row.  Masked scores are -1e30 (not -inf, as the reference), softmax
+    statistics in ``stat_dtype``.
     """
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
@@ -208,6 +211,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = q_pos[:, None] >= k_pos[None, :]                 # (Sq, Sk)
         scores = torch.where(mask, scores, -1e30)
+    if k_len is not None:                                       # cache fill
+        if k_len.dim() == 0:                                    # aligned batch
+            valid = k_pos < k_len                               # (Sk,)
+        else:
+            valid = (k_pos[None, :] < k_len[:, None])[:, None, None, None]
+        scores = torch.where(valid, scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
 
@@ -225,7 +234,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     Sq = q.shape[1]
     outs = [checkpoint(_sdpa, q[:, i:i + chunk], k, v, q_pos[i:i + chunk],
-                       k_pos, causal, stat_dtype, use_reentrant=False)
+                       k_pos, causal, None, stat_dtype, use_reentrant=False)
             for i in range(0, Sq - Sq % chunk, chunk)]
     return torch.cat(outs, dim=1)
 
@@ -237,10 +246,15 @@ def _flash(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                    run: RunConfig, positions: torch.Tensor | None = None
-                    ) -> torch.Tensor:
-    """Causal GQA self-attention (no KV cache), lowered by
-    ``run.attn_impl``."""
+                    run: RunConfig, positions: torch.Tensor | None = None,
+                    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    cache_len: torch.Tensor | None = None):
+    """Causal GQA self-attention, lowered by ``run.attn_impl`` → y.
+
+    With a ``kv_cache`` (decode) → (y, new_kv_cache): the new K/V land in
+    a copy of the cache at ``cache_len`` (zeros when None) and the queries
+    attend the cache's first ``cache_len + 1`` rows (:func:`cache_update`).
+    """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
@@ -255,7 +269,16 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     qg = q.reshape(B, S, K, G, hd)
-    if run.attn_impl == "flash":
+    new_cache = None
+    if kv_cache is not None:
+        idx = (cache_len if cache_len is not None else
+               torch.zeros((B,), dtype=torch.int32, device=x.device))
+        ck, cv = cache_update(kv_cache, k, v, idx)
+        new_cache = (ck, cv)
+        k_pos = torch.arange(ck.shape[1], device=x.device)
+        out = _sdpa(qg, ck.to(cd), cv.to(cd), positions, k_pos, causal=False,
+                    k_len=idx + 1, stat_dtype=sd)
+    elif run.attn_impl == "flash":
         out = _flash(qg, k, v)
     elif (run.attn_impl == "chunked" and S > run.attn_chunk
             and S % run.attn_chunk == 0):
@@ -274,8 +297,60 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         out = _sdpa(qg, k, v, positions, positions, causal=True,
                     stat_dtype=sd)
     out = out.reshape(B, S, H, hd)
-    y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd))
-    return y.to(x.dtype)
+    y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd)).to(x.dtype)
+    return y if kv_cache is None else (y, new_cache)
+
+
+def cache_update(kv_cache: tuple[torch.Tensor, torch.Tensor],
+                 k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The caches (B, S_max, K, hd) with the new k/v (B, S, K, hd) written
+    at fill position ``idx``, out of place, as the reference writes them:
+
+    * one token at a scalar ``idx`` (an aligned batch): its
+      ``dynamic_update_slice``, which clamps the start into the cache — a
+      full cache has its last row overwritten;
+    * one token at per-row ``idx`` (B,): its scatter with
+      ``mode="drop"`` — a row whose ``idx`` is past the cache is left as
+      it was;
+    * several tokens: its one-hot blend ``ck·(1 - oh) + oh·k`` over the
+      cache axis (an ``idx`` outside the cache writes nothing).
+    """
+    ck, cv = kv_cache
+    B, S = k.shape[:2]
+    S_max = ck.shape[1]
+    if S == 1 and idx.dim() == 0:
+        at = idx.clamp(0, S_max - 1).reshape(1).long()
+        return (ck.index_copy(1, at, k.to(ck.dtype)),
+                cv.index_copy(1, at, v.to(cv.dtype)))
+    if S == 1:
+        rows = torch.arange(B, device=ck.device)
+        # a dropped row rewrites its own row 0 with what it holds (a
+        # negative idx counts from the end, as the reference's does)
+        ok = idx < S_max
+        at = torch.where(ok, idx, 0)
+        return tuple(
+            c.index_put((rows, at), torch.where(
+                ok[:, None, None], n[:, 0].to(c.dtype), c[rows, at]))
+            for c, n in ((ck, k), (cv, v)))
+    oh = (idx[..., None] == torch.arange(S_max, device=ck.device)
+          ).to(ck.dtype)[:, :, None, None]
+    return (ck * (1 - oh) + oh * k.to(ck.dtype),
+            cv * (1 - oh) + oh * v.to(cv.dtype))
+
+
+def kv_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  n_layers: int | None = None,
+                  device: str | torch.device = "meta"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero K and V caches (L, batch, max_len, K, hd) on ``device``; on
+    ``meta`` (the default) they stand for the shapes and allocate
+    nothing, as the reference's abstract ``ShapeDtypeStruct`` specs."""
+    L = n_layers if n_layers is not None else cfg.n_layers
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 # --------------------------------------------------------------------------

@@ -113,20 +113,26 @@ def init(specs: Any, generator: torch.Generator | None,
 
 def _port_state_types() -> dict[str, type]:
     from repro_torch.distributed.amp import DynLossScale
+    from repro_torch.models.hybrid import HybridState
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.models.transformer import DecodeState
     from repro_torch.train.optim import AdafactorState, AdamWState
     from repro_torch.train.step import TrainState
     return {"TrainState": TrainState, "AdamWState": AdamWState,
-            "AdafactorState": AdafactorState, "DynLossScale": DynLossScale}
+            "AdafactorState": AdafactorState, "DynLossScale": DynLossScale,
+            "DecodeState": DecodeState, "SSMState": SSMState,
+            "HybridState": HybridState}
 
 
 def from_jax_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
-    """The reference's parameter tree — or a whole train state — given as
-    numpy arrays, as tensors.
+    """The reference's parameter tree — or a whole train or decode state —
+    given as numpy arrays, as tensors.
 
     A train state is the reference's ``TrainState`` / ``AdamWState`` /
     ``AdafactorState`` / ``DynLossScale`` named tuples (params, AdamW
     ``mu`` / ``nu`` / ``count`` or Adafactor ``vr`` / ``vc`` / ``v`` /
-    ``count``, loss ``scale`` / ``good_steps``, ``step``) after
+    ``count``, loss ``scale`` / ``good_steps``, ``step``), a decode state
+    its ``DecodeState`` / ``SSMState`` / ``HybridState``, after
     ``jax.tree.map(np.asarray, ...)``; each becomes the port's type of the
     same name.  ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16``;
     bf16 crosses as float32 (exact) and is cast back.

@@ -18,13 +18,18 @@ reference's sharding constraints are single-device no-ops and are left
 out.  ``run.remat`` checkpoints each layer body as the reference does
 (``layers.remat_apply``; under ``"dots"`` the backward keeps in_proj's
 and out_proj's outputs and recomputes the conv, the scan — its einsums,
-or the ``ssd_scan`` op — and the gated norm).  The decode path
-(``SSMState``, ``init_state``, ``decode_step``) comes with serving.
+or the ``ssd_scan`` op — and the gated norm).
+
+Decoding (:class:`SSMState`, :func:`init_state`, :func:`decode_step`) is
+the O(1) recurrent step on a persistent state: a rolling conv buffer and
+the (H, P, N) SSD state per layer.  Like the reference, it runs the
+recurrence in the compute dtype (bf16 under O1) and stores the result
+back in the state's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +40,11 @@ from repro_torch.models.params import P, stack_layers, unstack_layers
 
 Params = Any
 
-_DECODE = ("the SSM decode path (SSMState, init_state, decode_step) comes "
-           "with serving (ROADMAP queue 1, decode and serving)")
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor    # (B, W-1, d_conv_in)  rolling conv buffer
+    ssd: torch.Tensor     # (B, H, P, N)         recurrent state
 
 
 def ssm_spec(cfg: ModelConfig) -> Params:
@@ -86,9 +94,9 @@ def ssd_chunked(xh: torch.Tensor, a_log_dt: torch.Tensor, B_: torch.Tensor,
     a_log_dt: (B, S, H) per-step log-decay (negative);
     B_, C_: (B, S, N) (groups already broadcast).
     Returns y: (B, S, H, P).  The reference also returns the final state,
-    which only decoding reads (it comes with serving); the state after the
-    last chunk is not formed here (the reference's compiled training step
-    drops it too when there is a single chunk).
+    which none of its callers reads (decoding starts from its own state,
+    not from a prefill); the state after the last chunk is not formed
+    here.
 
     The dtypes follow the reference's promotion: the products run in
     xh's dtype, ``cum`` and the decays in fp32, the masked quadratic form
@@ -150,11 +158,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
-              state: Any = None) -> tuple[torch.Tensor, None]:
-    """Mamba-2 block, chunked prefill → (out, None).  A ``state`` (the
-    decode step) raises until serving lands."""
-    if state is not None:
-        raise NotImplementedError(_DECODE)
+              state: SSMState | None = None
+              ) -> tuple[torch.Tensor, SSMState | None]:
+    """Mamba-2 block: ``state=None`` → chunked prefill, (out, None); with
+    a ``state`` → the single-step decode, (out, new state)."""
     B, S, _ = x.shape
     di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_heads
     Pd = cfg.ssm_head_dim
@@ -163,8 +170,14 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     zg, xi, Bc, Cc, dt_raw = _split_proj(z, cfg)
 
     conv_in = torch.cat([xi, Bc, Cc], dim=-1)            # (B, S, di+2GN)
-    conv = F.silu(_causal_conv(conv_in, p["conv_w"].to(cd),
-                               p["conv_b"].to(cd)))
+    w, b = p["conv_w"].to(cd), p["conv_b"].to(cd)
+    if state is None:
+        conv = _causal_conv(conv_in, w, b)
+    else:
+        buf = torch.cat([state.conv.to(cd), conv_in], dim=1)
+        conv = _causal_conv(buf, w, b)[:, -S:]
+        new_conv = buf[:, -(cfg.ssm_conv_width - 1):]
+    conv = F.silu(conv)
     xi, Bc, Cc = torch.split(conv, [di, G * N, G * N], dim=-1)
 
     dt = _softplus(dt_raw.float() + p["dt_bias"].float())          # (B,S,H)
@@ -175,19 +188,43 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     Bn = Bc.reshape(B, S, G, N)[:, :, 0, :]                        # group 0
     Cn = Cc.reshape(B, S, G, N)[:, :, 0, :]
 
-    chunk = min(cfg.ssm_chunk, S)
-    if run.ssd_impl == "kernel":
+    new_state = None
+    if state is not None:
+        # the one-step recurrence, in the compute dtype (the reference's)
+        a = torch.exp(a_log_dt[:, 0]).to(cd)                       # (B, H)
+        s = state.ssd.to(cd) * a[:, :, None, None] + torch.einsum(
+            "bn,bhp->bhpn", Bn[:, 0].to(cd), xh[:, 0])
+        y = torch.einsum("bn,bhpn->bhp", Cn[:, 0].to(cd), s)[:, None]
+        y = y.reshape(B, S, H, Pd)
+        new_state = SSMState(conv=new_conv.to(state.conv.dtype),
+                             ssd=s.to(state.ssd.dtype))
+    elif run.ssd_impl == "kernel":
         from repro_torch.kernels.ssd_scan.ops import ssd_scan_model_layout
         y = ssd_scan_model_layout(xh.float(), a_log_dt, Bn.float(),
-                                  Cn.float(), chunk).to(cd)
+                                  Cn.float(), min(cfg.ssm_chunk, S)).to(cd)
     else:
-        y = ssd_chunked(xh, a_log_dt, Bn, Cn, chunk)
+        y = ssd_chunked(xh, a_log_dt, Bn, Cn, min(cfg.ssm_chunk, S))
 
     y = y + xh * p["D_skip"].to(cd)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = L.rmsnorm_apply(p["norm"], y * F.silu(zg), cfg.norm_eps, run)
     out = L.wdot("bse,ed->bsd", y.to(cd), p["out_proj"].to(cd))
-    return out.to(x.dtype), None
+    return out.to(x.dtype), new_state
+
+
+def ssm_state_spec(cfg: ModelConfig, batch: int,
+                   dtype: torch.dtype = torch.float32,
+                   n_layers: int | None = None,
+                   device: str | torch.device = "meta") -> SSMState:
+    """Zero decode states stacked over layers, on ``device`` (``meta``,
+    the default: the shapes alone)."""
+    L_ = n_layers if n_layers is not None else cfg.n_layers
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+    return SSMState(
+        conv=torch.zeros((L_, batch, cfg.ssm_conv_width - 1, conv_ch),
+                         dtype=dtype, device=device),
+        ssd=torch.zeros((L_, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state), dtype=dtype, device=device))
 
 
 # --------------------------------------------------------------------------
@@ -242,10 +279,33 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return L.unembed_apply(params["embed"], x, run)
 
 
-def init_state(cfg: ModelConfig, batch: int, dtype=None):
-    raise NotImplementedError(_DECODE)
+def init_state(cfg: ModelConfig, batch: int,
+               dtype: torch.dtype = torch.float32,
+               device: str | torch.device = "meta") -> SSMState:
+    return ssm_state_spec(cfg, batch, dtype, device=device)
 
 
-def decode_step(params: Params, tokens: torch.Tensor, state: Any,
-                cfg: ModelConfig, run: RunConfig):
-    raise NotImplementedError(_DECODE)
+def decode_step(params: Params, tokens: torch.Tensor, state: SSMState,
+                cfg: ModelConfig, run: RunConfig
+                ) -> tuple[torch.Tensor, SSMState]:
+    """One-token decode: the O(1) recurrent step of every layer → (logits
+    (B, 1, vocab_padded), the new state).  tokens: (B, 1)."""
+    x = L.embed_apply(params["embed"], tokens, run)
+    convs, ssds = [], []
+    for lp, conv, ssd in zip(unstack_layers(params["blocks"]), state.conv,
+                             state.ssd):
+        x, st = layer_step(lp, x, SSMState(conv, ssd), cfg, run)
+        convs.append(st.conv)
+        ssds.append(st.ssd)
+    x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
+    logits = L.unembed_apply(params["embed"], x, run)
+    return logits, SSMState(conv=torch.stack(convs), ssd=torch.stack(ssds))
+
+
+def layer_step(lp: Params, x: torch.Tensor, state: SSMState,
+               cfg: ModelConfig, run: RunConfig
+               ) -> tuple[torch.Tensor, SSMState]:
+    """:func:`layer_apply`'s decode step: (x + y, the layer's new state)."""
+    y, st = ssm_apply(lp["ssm"], L.rmsnorm_apply(lp["ln"], x, cfg.norm_eps,
+                                                 run), cfg, run, state=state)
+    return x + y, st

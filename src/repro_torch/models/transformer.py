@@ -19,11 +19,14 @@ reference wraps its scan body.  What the backward keeps of a block:
 * ``"full"``: the block's input alone; the backward recomputes the
   block's forward up to its last product, whose output no backward
   reads.
+
+Decoding (:class:`DecodeState`, :func:`init_cache`, :func:`decode_step`)
+runs one token per sequence against a KV cache per layer.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -44,14 +47,19 @@ def block_spec(cfg: ModelConfig) -> Params:
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
-                positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm transformer block (the residual add and the next norm
-    fuse into one pass under ``fusion="static"``)."""
+                positions: torch.Tensor, kv_cache=None, cache_len=None):
+    """One pre-norm transformer block → x (the residual add and the next
+    norm fuse into one pass under ``fusion="static"``); with a
+    ``kv_cache`` (decode) → (x, new_kv_cache)."""
     h = L.attention_apply(p["attn"], L.rmsnorm_apply(p["ln_attn"], x,
                                                      cfg.norm_eps, run),
-                          cfg, run, positions=positions)
+                          cfg, run, positions=positions, kv_cache=kv_cache,
+                          cache_len=cache_len)
+    if kv_cache is not None:
+        h, new_cache = h
     x, y = L.rmsnorm_residual_apply(p["ln_mlp"], x, h, cfg.norm_eps, run)
-    return x + L.mlp_apply(p["mlp"], y, cfg, run)
+    x = x + L.mlp_apply(p["mlp"], y, cfg, run)
+    return x if kv_cache is None else (x, new_cache)
 
 
 def lm_spec(cfg: ModelConfig) -> Params:
@@ -100,3 +108,51 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x = L.remat_apply(block_apply, run, lp, x, cfg, run, positions)
     x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
     return L.unembed_apply(params["embed"], x, run)
+
+
+# --------------------------------------------------------------------------
+# Decode (one token against the KV cache)
+# --------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """KV caches stacked over layers: (L, B, S_max, K, hd) each."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor     # (B,) current fill, or () for an aligned batch
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "meta") -> DecodeState:
+    """An empty cache: zero K/V and fill (on ``meta``, the default, the
+    shapes alone, as the reference's abstract spec)."""
+    k, v = L.kv_cache_spec(cfg, batch, max_len, dtype, device=device)
+    return DecodeState(k=k, v=v, length=torch.zeros(
+        (batch,), dtype=torch.int32, device=device))
+
+
+def decode_step(params: Params, tokens: torch.Tensor, state: DecodeState,
+                cfg: ModelConfig, run: RunConfig
+                ) -> tuple[torch.Tensor, DecodeState]:
+    """One new token per sequence against the KV cache → (logits (B, 1,
+    vocab_padded), the state one token on).  tokens: (B, 1).
+
+    ``state.length`` may be per sequence (B,) — continuous batching — or
+    a scalar (an aligned batch); :func:`layers.cache_update` writes each
+    accordingly.  The caches come back stacked anew, as the reference's
+    scan returns them.
+    """
+    x = L.embed_apply(params["embed"], tokens, run)
+    positions = (state.length[:, None] if state.length.dim()
+                 else state.length.reshape(1, 1))     # RoPE position(s)
+    new_k, new_v = [], []
+    for lp, ck, cv in zip(unstack_layers(params["blocks"]), state.k,
+                          state.v):
+        x, (ck, cv) = block_apply(lp, x, cfg, run, positions,
+                                  kv_cache=(ck, cv), cache_len=state.length)
+        new_k.append(ck)
+        new_v.append(cv)
+    x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps, run)
+    logits = L.unembed_apply(params["embed"], x, run)
+    return logits, DecodeState(k=torch.stack(new_k), v=torch.stack(new_v),
+                               length=state.length + 1)

@@ -2,7 +2,7 @@
 ``repro.session.session``) — characterize the machine, characterize the
 application against it, record measured runs and read them back::
 
-    characterize → profile → record → report → compare
+    characterize → profile → record → serve → report → compare
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
@@ -13,7 +13,9 @@ bwd and opt phases (``repro_torch.train.step.make_phases``) at any
 ``"reference"`` or ``"fused"`` (DeepCAM, on its image batch).  Records
 go to the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
-schema.  ``tune`` searches kernel launch configs, and (``dispatch=True``)
+schema; so does ``serve``, which drives the continuous-batching engine
+(``repro_torch.serve``) over a seeded arrival trace and records its
+prefill and decode phases.  ``tune`` searches kernel launch configs, and (``dispatch=True``)
 the fused-vs-reference dispatch table, into the workspace's tune store;
 ``profile``, ``record`` and ``characterize`` read that store under the
 session's machine key (``fusion="auto"`` routes by its dispatch table,
@@ -239,6 +241,99 @@ class Session:
             phases=phases_from_record(rec),
             text=ascii_timeline(build_timeline(ms)),
             data=rec)
+
+    # -- 3b. serving under load (continuous batching, repro_torch.serve) --
+    def serve(self, config: str, *, n_requests: int = 16,
+              trace: str = "poisson", rate: float = 1.0, burst: int = 4,
+              seed: int = 0, n_slots: int = 4, max_len: int = 64,
+              prefill_chunk: int = 16, page_size: int = 16,
+              prompt_len: tuple[int, int] = (4, 16),
+              max_new: tuple[int, int] = (4, 16),
+              amp: str = "O1", fusion: str = "off", smoke: bool = True,
+              max_ticks: int = 4096,
+              meta: Mapping[str, Any] | None = None) -> RooflineResult:
+        """Serve a seeded synthetic arrival trace through the continuous-
+        batching engine on the session's device and record prefill and
+        decode as *separate* phase payloads in the trace store (config
+        key ``serve/<name>``).
+
+        Parameters are drawn on the device from ``seed``, which also
+        seeds the trace (request for request the reference's trace).  The
+        engine's executables — the callables it timed — are walked on
+        meta tensors and their envelopes scaled by their call counts, so
+        the record says per serving phase where the time goes.
+        ``analyses`` holds each executable's one-call walk; ``data`` is
+        ``(record, stats, engine, requests)``.  ``exit_code`` is 1 when the latency
+        gate fails (a wedged scheduler, an admitted request that never
+        finished).
+        """
+        with self._scope():
+            return self._serve(
+                config, n_requests=n_requests, trace=trace, rate=rate,
+                burst=burst, seed=seed, n_slots=n_slots, max_len=max_len,
+                prefill_chunk=prefill_chunk, page_size=page_size,
+                prompt_len=prompt_len, max_new=max_new, amp=amp,
+                fusion=fusion, smoke=smoke, max_ticks=max_ticks, meta=meta)
+
+    def _serve(self, config, *, n_requests, trace, rate, burst, seed,
+               n_slots, max_len, prefill_chunk, page_size, prompt_len,
+               max_new, amp, fusion, smoke, max_ticks, meta
+               ) -> RooflineResult:
+        from repro_torch.configs.base import RunConfig
+        from repro_torch.configs.registry import get_config, get_smoke
+        from repro_torch.models import api as M
+        from repro_torch.models.params import init
+        from repro_torch.serve.engine import Engine
+        from repro_torch.serve.trace import executable_profiles, serve_record
+        from repro_torch.serve.workload import make_trace
+        from repro_torch.tune.dispatch import active_dispatch_table
+        from repro_torch.tune.store import active_kernel_configs
+
+        cfg = get_smoke(config) if smoke else get_config(config)
+        run = RunConfig(amp=amp, fusion=fusion)
+        model = M.build(cfg)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = init(model.spec, gen, run.param_dtype, self.device)
+        engine = Engine(cfg, run, params, n_slots=n_slots, max_len=max_len,
+                        page_size=page_size, prefill_chunk=prefill_chunk,
+                        device=self.device)
+        pl = (min(prompt_len[0], max_len), min(prompt_len[1], max_len))
+        kw = {"burst": burst} if trace == "bursty" else {}
+        reqs = make_trace(trace, n_requests, rate=rate, seed=seed,
+                          vocab=cfg.vocab_size, prompt_len=pl,
+                          max_new=max_new, **kw)
+        stats = engine.run_trace(reqs, max_ticks=max_ticks)
+        mm = _matmul_class(run)
+        profiles = executable_profiles(engine, self.machine, mm)
+        rec = serve_record(
+            config, engine, stats, self.machine, matmul_class=mm,
+            profiles=profiles,
+            meta={"smoke": smoke, "amp": amp, "fusion": fusion,
+                  "trace": trace, "n_requests": n_requests,
+                  "n_slots": n_slots, "max_len": max_len,
+                  "prefill_chunk": engine.chunk, "page_size": page_size,
+                  "seed": seed, "device": self._provenance()["device"],
+                  "kernel_configs": active_kernel_configs(
+                      machine=self.machine.name,
+                      store=self.workspace.tune_store),
+                  "dispatch_table": active_dispatch_table(
+                      machine=self.machine.name,
+                      store=self.workspace.tune_store),
+                  **dict(meta or {})})
+        self.workspace.trace_store.append(rec)
+        self.workspace.write_header(self.machine.name)
+        problems = stats.gate()
+        text = stats.render()
+        if problems:
+            text += "\n" + "\n".join(f"GATE: {p}" for p in problems)
+        return RooflineResult(
+            kind="record", name=f"serve/{config}", machine=self.machine,
+            provenance=self._provenance(run_id=rec.run_id,
+                                        store=self.workspace.trace_path),
+            phases=phases_from_record(rec),
+            analyses={name: res.analysis for name, res in profiles.items()},
+            text=text, data=(rec, stats, engine, reqs),
+            exit_code=1 if problems else 0)
 
     # -- 4. read back without re-running ---------------------------------
     def report(self, config: str | None = None) -> RooflineResult:

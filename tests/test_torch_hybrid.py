@@ -310,12 +310,3 @@ def test_from_jax_numpy_carries_the_hybrid_tree(smoke):
                        "site_ln_mlp", "ln_f"}
     assert set(tp["shared"]["mlp"]) == {"w_up", "w_down"}   # ungated gelu
     assert tp["site_ln"]["scale"].shape == (2, 64)
-
-
-def test_decode_raises_until_serving():
-    cfg = p_get_smoke(ARCH)
-    with pytest.raises(NotImplementedError, match="comes with serving"):
-        p_hybrid.init_state(cfg, 1)
-    with pytest.raises(NotImplementedError, match="comes with serving"):
-        p_hybrid.decode_step({}, torch.zeros((1, 1), dtype=torch.int64),
-                             None, cfg, p_base.RunConfig())

@@ -248,21 +248,6 @@ def test_run_config_refuses_an_unknown_ssd_impl():
     assert p_base.RunConfig().ssd_impl == r_base.RunConfig().ssd_impl
 
 
-def test_decode_raises_until_serving(smoke):
-    _, p_cfg, params_np, tokens, _ = smoke
-    tp = from_jax_numpy(params_np)
-    run = p_base.RunConfig(amp="O0")
-    with pytest.raises(NotImplementedError, match="comes with serving"):
-        p_ssm.ssm_apply(p_params.unstack_layers(tp["blocks"])[0]["ssm"],
-                        torch.zeros(1, 1, p_cfg.d_model), p_cfg, run,
-                        state=object())
-    with pytest.raises(NotImplementedError, match="comes with serving"):
-        p_ssm.init_state(p_cfg, 1)
-    with pytest.raises(NotImplementedError, match="comes with serving"):
-        p_ssm.decode_step(tp, torch.from_numpy(tokens[:, :1]), None, p_cfg,
-                          run)
-
-
 def _matmul(analysis) -> float:
     return sum(k.total_flops for k in analysis.kernels
                if k.category == "matmul")
