@@ -49,8 +49,14 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    path i gives them: flash on a 256-token prefill chunk (1, 256, 2 KV
    heads x 16, 128), the norms at (8, 4096) (a decode tick over 8 slots)
    and (256, 4096), SwiGLU at (8, 13696) and (256, 13696), each beside
-   its library call where there is one (``F.rms_norm``, SDPA);
-4. drives ten main paths, each with every launch count set to 0 just
+   its library call where there is one (``F.rms_norm``, SDPA); and the
+   shapes paths k and l give them: flash at granite-moe's 16 heads of 64
+   on 8 KV heads, phi-3-vision's 32 heads of 96 (the padded 128-wide
+   tile) and seamless's encoder over 256 frames, the norms at width 1024
+   (granite-moe, seamless; phi-3's 3072 is minitron's), SwiGLU at
+   (4096, 8192) (phi-3), and (after path k) the AdamW launch on
+   granite-moe's leaves;
+4. drives twelve main paths, each with every launch count set to 0 just
    before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
@@ -145,14 +151,37 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       zero state, each step's logits against ``forward_fn``, and one
       decode step timed at batch 2 and 8 beside its bound (path j runs
       before path i, whose last step runs under ``torch.profiler``);
+   k. the MoE family (:func:`moe_path`): granite-moe-1b-a400m's train
+      step at full width and depth (24 layers, 32 experts top-8, seq
+      2048, batch 2, O1, ``static``, flash: phases against the walk's
+      bound, the experts at E·C = 32 x 640 slots in the walk's matmul
+      FLOPs, one flash launch a layer a pass, one AdamW launch an opt
+      call, 3 steps with their aux loss, the AdamW launch on its leaves),
+      ``Session.serve`` of path i's trace on it (16 of 16 done, the
+      flash and norm launches equal to the walk's, the first chunk of
+      request 0 against ``forward_fn`` over the same routing group,
+      :func:`moe_first_token`), and kimi-k2-1t-a32b's fwd walk on meta
+      tensors at full width and depth (matmul FLOPs and ``param_count``
+      exact);
+   l. the VLM and the enc-dec (:func:`multimodal_path`):
+      phi-3-vision-4.2b's fwd at full width and depth (576 patch
+      embeddings in 2048 positions, batch 2, O1, ``static``, flash) and
+      its train step at 4 layers; seamless-m4t-large-v2's train step at
+      full width and depth (24 + 24 layers, 256 frames; flash on every
+      self-attention, the encoder's too, never on a cross-attention); 16
+      of its decode steps against the encoder's memory, each within
+      :data:`ENCDEC_DECODE_ATOL` of the forward (O0);
+   (paths l and k run after h and before j and i: no profiled window
+   before them);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
    on the card against the same functions on the host (the port's CPU
    path, which the tests hold against the JAX reference): glm4-9b at
    einsum and flash attention, mamba2-1.3b at the SSD kernel (the
    kernels on the card, their plain versions on the host), DeepCAM in
    both lowerings (fwd of each, a train step of each), zamba2-1.2b at
-   the SSD kernel and flash, minitron-4b under Adafactor and granite-8b
-   under remat dots;
+   the SSD kernel and flash, minitron-4b under Adafactor, granite-8b
+   under remat dots, and granite-moe-1b-a400m, kimi-k2-1t-a32b,
+   phi-3-vision-4.2b and seamless-m4t-large-v2 at einsum and flash;
 6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``.
 
 Every step runs in one workspace, ``build/chip_workspace``, emptied at
@@ -525,10 +554,13 @@ def fused_checks(dev, sheet) -> list[dict]:
         **bound(norm.hbm_bytes(4096, 4096, 2, residual=True),
                 norm.flops(4096, 4096, residual=True), "f32", sheet)})
     del sets, x, h, stack
-    # the widths paths g and h give the norms: zamba2-1.2b (2048) and
-    # minitron-4b (3072), 4096 rows (seq 2048 x batch 2)
+    # the widths paths g, h, k and l give the norms: zamba2-1.2b (2048),
+    # minitron-4b and phi-3-vision-4.2b (3072), granite-moe-1b-a400m and
+    # seamless-m4t-large-v2 (1024), 4096 rows (seq 2048 x batch 2)
     for d, who in ((2048, "zamba2-1.2b, path g"),
-                   (3072, "minitron-4b, path h")):
+                   (3072, "minitron-4b, path h; phi-3-vision-4.2b, path l"),
+                   (1024, "granite-moe-1b-a400m and seamless-m4t-large-v2, "
+                          "paths k and l")):
         sets, nxt = rotating(lambda: (randn((4096, d), bf16, 3.0),
                                       randn((4096, d), bf16)))
         x, h = sets[0]
@@ -602,6 +634,21 @@ def fused_checks(dev, sheet) -> list[dict]:
                   swiglu.flops(4096, 14_336, act), "f32", sheet),
             launch_config("fused_swiglu", a, (4096, 14_336), act=act)))
     del sets, a, b
+    # phi-3-vision-4.2b's MLP (path l): silu at d_ff 8192
+    sets, nxt = rotating(lambda: (randn((4096, 8192), bf16, 2.0),
+                                  randn((4096, 8192), bf16)), k=2)
+    a, b = sets[0]
+    want = swiglu.swiglu_ref(a, b, "silu", bf16)
+    err = check("swiglu silu bf16 4096x8192 (phi-3-vision-4.2b, path l)",
+                swiglu.fused_swiglu(a, b), want, ulp_tol(bf16, want))
+    rows.append(shape_row(
+        "fused_swiglu", "bf16 (4096, 8192), silu (phi-3-vision-4.2b, path "
+        "l)", err, lambda: swiglu.fused_swiglu(*nxt()),
+        lambda: swiglu.swiglu_ref(*nxt(), "silu", bf16), None,
+        bound(swiglu.hbm_bytes(4096, 8192, 2), swiglu.flops(4096, 8192),
+              "f32", sheet),
+        launch_config("fused_swiglu", a, (4096, 8192))))
+    del sets, a, b, want
 
     rows.append(adamw_checks(dev, sheet, randn))
 
@@ -1145,9 +1192,16 @@ def flash_checks(dev, sheet) -> list[dict]:
     # the heads paths g and h give it: zamba2-1.2b's 32 heads of 64 on 32
     # KV heads (G = 1), granite-8b's 32 on 8 (G = 4), minitron-4b's 24 on
     # 8 (G = 3); seq 2048, batch 2, causal
+    # and paths k and l: granite-moe-1b-a400m's 16 on 8 (G = 2, hd 64),
+    # phi-3-vision-4.2b's 32 heads of 96 (G = 1: the padded 128-wide tile),
+    # seamless-m4t-large-v2's encoder over 256 frames (16 heads of 64)
     for shape, who in (((2, 2048, 32, 1, 64), "zamba2-1.2b, path g"),
                        ((2, 2048, 8, 4, 128), "granite-8b, path h"),
-                       ((2, 2048, 8, 3, 128), "minitron-4b, path h")):
+                       ((2, 2048, 8, 3, 128), "minitron-4b, path h"),
+                       ((2, 2048, 8, 2, 64), "granite-moe-1b-a400m, path k"),
+                       ((2, 2048, 32, 1, 96), "phi-3-vision-4.2b, path l"),
+                       ((2, 256, 16, 1, 64),
+                        "seamless-m4t-large-v2's encoder, path l")):
         b, s_, kv, grp, hd = shape
         sets, nxt = rotating(lambda: gqa(*shape, bf16), k=2)
         q, k, v = sets[0]
@@ -2702,18 +2756,21 @@ def dense_family_path(granite, minitron, mistral, sheet, *,
 
 
 def serving_checks(dev, sheet) -> list[dict]:
-    """Phase 3 at the shapes path i gives the kernels (rows of step 3's
-    table, not of the JSON line): glm4-9b's prefill chunk of 256 tokens
-    and its decode tick over 8 slots — flash on the chunk (1, 256, 2 KV
-    heads x 16, 128), causal; the norms at (8, 4096) and (256, 4096); the
-    SwiGLU at (8, 13696) and (256, 13696).  Each is held against its plain
-    version at its existing tolerance and timed through a replayed CUDA
-    graph beside its bound and the library call (``F.rms_norm``, SDPA).
-    Flash's bound counts each input read once: q and o for the 32 query
-    heads, k and v for the 2 KV heads.  Then the fp32 norms path j's
-    decode step gives them, at batch 2 and 8: (B, 2048), the layer and
-    final norms of mamba2-1.3b and zamba2-1.2b and zamba2's residual
-    seam, and (B, 4096), mamba2's gated norm over d_inner."""
+    """Phase 3 at the shapes serving gives the kernels (rows of step 3's
+    table, not of the JSON line): a prefill chunk of 256 tokens and a
+    decode tick over 8 slots of glm4-9b (path i) and granite-moe-1b-a400m
+    (path k) — flash on the chunk, causal, at (1, 256, 2 KV heads x 16,
+    128) and (1, 256, 8 x 2, 64); the norms at (8, d) and (256, d), d 4096
+    and 1024; glm4-9b's SwiGLU at (8, 13696) and (256, 13696).  Each is
+    held against its plain version at its existing tolerance and timed
+    through a replayed CUDA graph beside its bound and the library call
+    (``F.rms_norm``, SDPA).  Flash's bound counts each input read once: q
+    and o for the query heads, k and v for the KV heads.  Then the fp32
+    norms of the O0 decode checks: path j's at batch 2 and 8 — (B, 2048),
+    the layer and final norms of mamba2-1.3b and zamba2-1.2b and zamba2's
+    residual seam, and (B, 4096), mamba2's gated norm over d_inner — and
+    path l's seamless-m4t-large-v2 at width 1024: its decode step (2
+    rows), its decoder forward (32) and its encoder (512)."""
     import itertools
 
     import torch
@@ -2735,93 +2792,106 @@ def serving_checks(dev, sheet) -> list[dict]:
         # one bf16 rounding at the largest |ref| (fused_checks' bound)
         return 2.0 ** -7 * ref.float().abs().max().item() + 1e-30
 
-    print("serving shapes (path i: glm4-9b, a 256-token prefill chunk and a "
-          "decode tick over 8 slots; tolerances as above: the norms and "
-          "SwiGLU 1 bf16 ulp at max|ref|, flash ref.kernel_tolerance)")
+    print("serving shapes (paths i and k: glm4-9b and granite-moe-1b-a400m, "
+          "a 256-token prefill chunk and a decode tick over 8 slots; "
+          "tolerances as above: the norms and SwiGLU 1 bf16 ulp at max|ref|, "
+          "flash ref.kernel_tolerance)")
     rows = []
-    shape = (1, 256, 2, 16, 128)
-    b, s, kv, grp, hd = shape
-    sets, nxt = rotating(lambda: (randn(shape), randn((b, s, kv, hd)),
-                                  randn((b, s, kv, hd))), k=4)
-    q, k, v = sets[0]
-    want = fops._ref_gqa(q, k, v, True)
-    err = check_within(f"flash[{fk.route(hd, bf16)}] prefill chunk "
-                       f"{'x'.join(map(str, shape))} bf16 causal",
-                       fk.flash_attention_grouped(q, k, v), want,
-                       fref.kernel_tolerance(want))
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
             q.flatten(2, 3).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), is_causal=True, enable_gqa=True)
 
-    flop = fk.flops(b * kv * grp, s, s, hd)
-    r = shape_row(
-        "flash_attention", f"bf16 q {shape}, causal (the prefill chunk, "
-        "path i)", err, lambda: fk.flash_attention_grouped(*nxt()),
-        lambda: fops._ref_gqa(*nxt(), True), lambda: sdpa(*nxt()),
-        bound(2 * 2 * b * s * (kv * grp + kv) * hd, flop, "bf16", sheet),
-        kc.resolve("flash_attention", None).dict)
-    r["extra"] = (f"{fk.route(hd, bf16)} kernel, "
-                  f"{r['ms'] / r['library_ms']:.3f}x SDPA")
-    rows.append(r)
-    del sets, q, k, v, want
-    for rows_n, who in ((8, "decode tick"), (256, "prefill chunk")):
-        d = 4096
-        sets, nxt = rotating(lambda: (randn((rows_n, d), 3.0),
-                                      randn((rows_n, d))))
-        x, h = sets[0]
-        sc = torch.rand((4, d), generator=g, device=dev)[1]
-        want = norm.rmsnorm_ref(x, sc, eps, bf16)
-        err = check(f"rmsnorm bf16 {rows_n}x{d} ({who})",
-                    norm.fused_rmsnorm(x, sc), want, ulp(want))
-        rows.append(shape_row(
-            "fused_rmsnorm", f"bf16 ({rows_n}, {d}), f32 scale ({who}, "
-            "path i)", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
-            lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, bf16),
-            lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
-            bound(norm.hbm_bytes(rows_n, d, 2), norm.flops(rows_n, d),
-                  "f32", sheet),
-            launch_config("fused_norm", x, (rows_n, d))))
-        r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, bf16)
-        rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
-        check(f"rmsnorm_residual r bf16 {rows_n}x{d}", rr, r_ref, 0.0)
-        err = check(f"rmsnorm_residual y bf16 {rows_n}x{d} ({who})", yy,
-                    y_ref, ulp(y_ref))
-        rows.append(shape_row(
-            "fused_rmsnorm_residual", f"bf16 ({rows_n}, {d}) x and h "
-            f"({who}, path i)", err,
-            lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
-            lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, bf16), None,
-            bound(norm.hbm_bytes(rows_n, d, 2, residual=True),
-                  norm.flops(rows_n, d, residual=True), "f32", sheet),
-            launch_config("fused_norm", x, (rows_n, d))))
-        del sets, x, h
-        f = 13_696
-        sets, nxt = rotating(lambda: (randn((rows_n, f), 2.0),
-                                      randn((rows_n, f))))
-        a, bb = sets[0]
-        want = swiglu.swiglu_ref(a, bb, "silu", bf16)
-        err = check(f"swiglu silu bf16 {rows_n}x{f} ({who})",
-                    swiglu.fused_swiglu(a, bb), want, ulp(want))
-        rows.append(shape_row(
-            "fused_swiglu", f"bf16 ({rows_n}, {f}), silu ({who}, path i)",
-            err, lambda: swiglu.fused_swiglu(*nxt()),
-            lambda: swiglu.swiglu_ref(*nxt(), "silu", bf16), None,
-            bound(swiglu.hbm_bytes(rows_n, f, 2), swiglu.flops(rows_n, f),
-                  "f32", sheet),
-            launch_config("fused_swiglu", a, (rows_n, f))))
-        del sets, a, bb
-    print("decode shapes (path j: mamba2-1.3b and zamba2-1.2b at O0; "
-          "tolerance as fused_checks' fp32: 8 f32 ulps at max|ref|, r = x "
-          "+ h exactly)")
+    for (d, f, shape), who in (((4096, 13_696, (1, 256, 2, 16, 128)),
+                                "glm4-9b, path i"),
+                               ((1024, None, (1, 256, 8, 2, 64)),
+                                "granite-moe-1b-a400m, path k")):
+        b, s, kv, grp, hd = shape
+        sets, nxt = rotating(lambda: (randn(shape), randn((b, s, kv, hd)),
+                                      randn((b, s, kv, hd))), k=4)
+        q, k, v = sets[0]
+        want = fops._ref_gqa(q, k, v, True)
+        err = check_within(f"flash[{fk.route(hd, bf16)}] prefill chunk "
+                           f"{'x'.join(map(str, shape))} bf16 causal ({who})",
+                           fk.flash_attention_grouped(q, k, v), want,
+                           fref.kernel_tolerance(want))
+        flop = fk.flops(b * kv * grp, s, s, hd)
+        r = shape_row(
+            "flash_attention", f"bf16 q {shape}, causal (the prefill chunk, "
+            f"{who})", err, lambda: fk.flash_attention_grouped(*nxt()),
+            lambda: fops._ref_gqa(*nxt(), True), lambda: sdpa(*nxt()),
+            bound(2 * 2 * b * s * (kv * grp + kv) * hd, flop, "bf16", sheet),
+            kc.resolve("flash_attention", None).dict)
+        r["extra"] = (f"{fk.route(hd, bf16)} kernel, "
+                      f"{r['ms'] / r['library_ms']:.3f}x SDPA")
+        rows.append(r)
+        del sets, q, k, v, want
+        for rows_n, tick in ((8, "decode tick"), (256, "prefill chunk")):
+            sets, nxt = rotating(lambda: (randn((rows_n, d), 3.0),
+                                          randn((rows_n, d))))
+            x, h = sets[0]
+            sc = torch.rand((4, d), generator=g, device=dev)[1]
+            want = norm.rmsnorm_ref(x, sc, eps, bf16)
+            err = check(f"rmsnorm bf16 {rows_n}x{d} ({tick}, {who})",
+                        norm.fused_rmsnorm(x, sc), want, ulp(want))
+            rows.append(shape_row(
+                "fused_rmsnorm", f"bf16 ({rows_n}, {d}), f32 scale ({tick}, "
+                f"{who})", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
+                lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, bf16),
+                lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
+                bound(norm.hbm_bytes(rows_n, d, 2), norm.flops(rows_n, d),
+                      "f32", sheet),
+                launch_config("fused_norm", x, (rows_n, d))))
+            r_ref, y_ref = norm.rmsnorm_residual_ref(x, h, sc, eps, bf16)
+            rr, yy = norm.fused_rmsnorm_residual(x, h, sc)
+            check(f"rmsnorm_residual r bf16 {rows_n}x{d}", rr, r_ref, 0.0)
+            err = check(f"rmsnorm_residual y bf16 {rows_n}x{d} ({tick}, "
+                        f"{who})", yy, y_ref, ulp(y_ref))
+            rows.append(shape_row(
+                "fused_rmsnorm_residual", f"bf16 ({rows_n}, {d}) x and h "
+                f"({tick}, {who})", err,
+                lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
+                lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, bf16),
+                None,
+                bound(norm.hbm_bytes(rows_n, d, 2, residual=True),
+                      norm.flops(rows_n, d, residual=True), "f32", sheet),
+                launch_config("fused_norm", x, (rows_n, d))))
+            del sets, x, h
+            if f is None:       # granite-moe's experts: plain silu(g)·u
+                continue
+            sets, nxt = rotating(lambda: (randn((rows_n, f), 2.0),
+                                          randn((rows_n, f))))
+            a, bb = sets[0]
+            want = swiglu.swiglu_ref(a, bb, "silu", bf16)
+            err = check(f"swiglu silu bf16 {rows_n}x{f} ({tick}, {who})",
+                        swiglu.fused_swiglu(a, bb), want, ulp(want))
+            rows.append(shape_row(
+                "fused_swiglu", f"bf16 ({rows_n}, {f}), silu ({tick}, "
+                f"{who})", err, lambda: swiglu.fused_swiglu(*nxt()),
+                lambda: swiglu.swiglu_ref(*nxt(), "silu", bf16), None,
+                bound(swiglu.hbm_bytes(rows_n, f, 2),
+                      swiglu.flops(rows_n, f), "f32", sheet),
+                launch_config("fused_swiglu", a, (rows_n, f))))
+            del sets, a, bb
+    print("decode shapes (path j: mamba2-1.3b and zamba2-1.2b at O0; path "
+          "l: seamless-m4t-large-v2's O0 decode; tolerance as fused_checks' "
+          "fp32: 8 f32 ulps at max|ref|, r = x + h exactly)")
 
     def f32_tol(ref) -> float:
         return 8 * 2.0 ** -22 * ref.abs().max().item() + 1e-30
 
+    decode = {}
     for rows_n, d in itertools.product((2, 8), (2048, 4096)):
-        who = ("layer and final norms, zamba2's residual seam" if d == 2048
-               else "mamba2's gated norm")
+        decode[rows_n, d] = ("layer and final norms, zamba2's residual seam, "
+                             "path j" if d == 2048 else
+                             "mamba2's gated norm, path j")
+    # seamless's decode check at batch 2: the step, the forward over 16
+    # tokens and the encoder over 256 frames
+    for rows_n, who in ((2, "decode step"), (32, "decoder forward"),
+                        (512, "encoder")):
+        decode[rows_n, 1024] = f"seamless-m4t-large-v2's {who}, path l"
+    for (rows_n, d), who in decode.items():
         sets, nxt = rotating(lambda: (randn((rows_n, d), 3.0, f32),
                                       randn((rows_n, d), 1.0, f32)))
         x, h = sets[0]
@@ -2830,8 +2900,7 @@ def serving_checks(dev, sheet) -> list[dict]:
         err = check(f"rmsnorm f32 {rows_n}x{d} ({who})",
                     norm.fused_rmsnorm(x, sc), want, f32_tol(want))
         rows.append(shape_row(
-            "fused_rmsnorm", f"f32 ({rows_n}, {d}), f32 scale ({who}, "
-            "path j)", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
+            "fused_rmsnorm", f"f32 ({rows_n}, {d}), f32 scale ({who})", err, lambda: norm.fused_rmsnorm(nxt()[0], sc),
             lambda: norm.rmsnorm_ref(nxt()[0], sc, eps, f32),
             lambda: F.rms_norm(nxt()[0], (d,), sc, eps),
             bound(norm.hbm_bytes(rows_n, d, 4), norm.flops(rows_n, d),
@@ -2844,7 +2913,7 @@ def serving_checks(dev, sheet) -> list[dict]:
                     y_ref, f32_tol(y_ref))
         rows.append(shape_row(
             "fused_rmsnorm_residual", f"f32 ({rows_n}, {d}) x and h "
-            f"({who}, path j)", err,
+            f"({who})", err,
             lambda: norm.fused_rmsnorm_residual(*nxt(), sc),
             lambda: norm.rmsnorm_residual_ref(*nxt(), sc, eps, f32), None,
             bound(norm.hbm_bytes(rows_n, d, 4, residual=True),
@@ -2871,7 +2940,10 @@ SERVE_KERNELS = {"flash_attention": "flash_attention",
 #: paged attention against one causal einsum pass), and ``static``'s
 #: against ``off``'s: the log-partition (logsumexp over the vocab, the
 #: loss's own reduction) within this relative difference, path e's bound
-#: on its loss; an H100 read at most 2.1e-5
+#: on its loss; an H100 read at most 2.1e-5 on path i and 1.139e-4 on
+#: path k, where the top logit (about 7.77, its bf16 spacing 2^-5) holds
+#: 3.8% of the softmax and rounds to either side: 0.038 x 2^-5 / 11.04 =
+#: 1.09e-4 (path k's experts replayed, so routing plays no part)
 SERVE_LSE_RTOL = 2e-4
 #: and each logit within this many bf16 ulps at the largest |logit|: an
 #: H100 read at most 1.45 (one rounding of each logit, and of the hidden
@@ -2914,11 +2986,17 @@ def _logits_check(label: str, got, ref, vocab: int) -> tuple[float, float]:
     rel = abs(lse_got - lse_ref) / abs(lse_ref)
     err, scale = max_abs_err(got, ref)
     atol = SERVE_LOGIT_ULPS * 2.0 ** -7 * scale
-    same = int(torch.argmax(got)) == int(torch.argmax(ref))
+    top = int(torch.argmax(ref))
+    same = int(torch.argmax(got)) == top
     ok = rel <= SERVE_LSE_RTOL and err <= atol and math.isfinite(err)
+    # one bf16 rounding of the top logit moves the logsumexp by its
+    # softmax share times its spacing (2^(e-8) for a value m·2^e)
+    p_top = float(torch.softmax(ref, 0)[top])
+    one = p_top * 2.0 ** (math.frexp(float(ref[top]))[1] - 8) / abs(lse_ref)
     print(f"  {label:<44} logsumexp {lse_got:.6f} vs {lse_ref:.6f}: rel "
-          f"{rel:.3e} (rtol {SERVE_LSE_RTOL:g}) | max_abs_err {err:.3e} "
-          f"(tol {atol:.3e}, max|ref| {scale:.3e}, "
+          f"{rel:.3e} (rtol {SERVE_LSE_RTOL:g}; one bf16 ulp of the top "
+          f"logit, softmax share {p_top:.4f}: {one:.3e}) | max_abs_err "
+          f"{err:.3e} (tol {atol:.3e}, max|ref| {scale:.3e}, "
           f"{err / (2.0 ** -7 * scale):.2f} ulps) | greedy token "
           f"{'same' if same else 'DIFFERS'}  {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -2939,6 +3017,7 @@ def _walls_line(eng) -> str:
 
 
 def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
+               kernels: dict | None = None, path: str = "i",
                **overrides) -> dict:
     """Main path i: ``Session.serve`` of glm4-9b at full width and depth
     (40 layers, 9.40 B params in fp32) under :data:`SERVE_ARGS` — 16
@@ -2967,23 +3046,30 @@ def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
     5. on the card, the share of a rerun's wall in which the card ran a
        kernel (:func:`busy_share`).
 
+    ``kernels`` names the kernels the trace must launch (default
+    :data:`SERVE_KERNELS`).  A MoE model (path k) holds request 0 by
+    :func:`moe_first_token` and :func:`moe_against_off` in 4, on replayed
+    experts: its logits follow the engine's routing groups, not one
+    forward's, and a near-tie can route two lowerings apart.
+
     Returns the launch counts."""
     import numpy as np
     import torch
-    from repro_torch import kernels
+    from repro_torch import kernels as K
     from repro_torch.configs.base import RunConfig
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.session.session import Session
 
     args = {**SERVE_ARGS, **overrides}
     cuda = torch.device(device).type == "cuda"
-    print(f"== 4i. main path: serve {arch} (Session.serve: "
+    want_kernels = SERVE_KERNELS if kernels is None else kernels
+    print(f"== 4{path}. main path: serve {arch} (Session.serve: "
           f"{json.dumps(args)})")
-    kernels.reset_launch_counts()
+    K.reset_launch_counts()
     s = Session(machine=sheet, device=device)
     t0 = time.perf_counter()
     res = s.serve(arch, **args)
-    counts = kernels.launch_counts()
+    counts = K.launch_counts()
     took = time.perf_counter() - t0
     rec, stats, eng, reqs = res.data
     cfg = eng.cfg
@@ -3010,11 +3096,11 @@ def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
           f"{sm['ticks']} ticks, {sm['new_tokens']} new tokens; every page "
           f"free")
     # 2. launches against the walk
-    walk = {name: 0 for name in SERVE_KERNELS}
+    walk = {name: 0 for name in want_kernels}
     for exe, ana in res.analyses.items():
         per = {name: sum(k.exec_count for k in ana.kernels
                          if k.opcode == op)
-               for name, op in SERVE_KERNELS.items()}
+               for name, op in want_kernels.items()}
         print(f"  walk of {exe}: {eng.calls[exe]} calls, "
               f"{eng.wall[exe] / eng.calls[exe] * 1e3:.3f} ms a call, "
               f"per call {json.dumps(per)}, "
@@ -3022,9 +3108,9 @@ def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
         for name in walk:
             walk[name] += per[name] * eng.calls[exe]
     static_walls = _walls_line(eng)
-    print(f"launches on main path i: {json.dumps(counts)} (the walk: "
-          f"{json.dumps(walk)})")
-    for name in SERVE_KERNELS:
+    print(f"launches on main path {path} (serving): {json.dumps(counts)} "
+          f"(the walk: {json.dumps(walk)})")
+    for name in want_kernels:
         if walk[name] <= 0 or (cuda and counts[name] != walk[name]):
             raise AssertionError(f"serve: {name} launched {counts[name]} "
                                  f"times, the walk says {walk[name]}")
@@ -3054,23 +3140,30 @@ def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
     # 4. request 0 again, against forward_fn and against fusion off
     req0 = next(r for r in reqs if r.uid == 0)
     n_dec = 4
-    first, dec, toks, chunks = _spy_request(eng, req0.prompt, n_dec + 1)
-    seq = torch.as_tensor(np.concatenate([req0.prompt, toks[:n_dec]]),
-                          dtype=torch.int32, device=device)
-    P = len(req0.prompt)
-    with torch.inference_mode():
-        full = eng.model.forward_fn(eng.params, {"tokens": seq[None]},
-                                    eng.run)[0, P - 1:]
-    print(f"  request 0 served again alone: prompt {P} tokens in {chunks} "
-          f"chunks, tokens {toks} (in the trace, beside other slots: "
-          f"{req0.out[:n_dec + 1]}); against forward_fn over the prompt and "
-          f"the generated prefix ({P + n_dec} tokens, the same run)")
-    _logits_check("first token (prefill_first + prefill_ext)", first,
-                  full[0], cfg.vocab_size)
-    for i, lg in enumerate(dec[:n_dec]):
-        _logits_check(f"decoded token {i + 1} (decode tick)", lg,
-                      full[i + 1], cfg.vocab_size)
-    del full
+    moe = cfg.family == "moe"
+    if moe:
+        prompt, first, dec, toks, calls = moe_first_token(eng, req0.prompt,
+                                                          n_dec, device)
+    else:
+        prompt = req0.prompt
+        first, dec, toks, chunks = _spy_request(eng, prompt, n_dec + 1)
+        seq = torch.as_tensor(np.concatenate([prompt, toks[:n_dec]]),
+                              dtype=torch.int32, device=device)
+        P = len(prompt)
+        with torch.inference_mode():
+            full = eng.model.forward_fn(eng.params, {"tokens": seq[None]},
+                                        eng.run)[0, P - 1:]
+        print(f"  request 0 served again alone: prompt {P} tokens in "
+              f"{chunks} chunks, tokens {toks} (in the trace, beside other "
+              f"slots: {req0.out[:n_dec + 1]}); against forward_fn over the "
+              f"prompt and the generated prefix ({P + n_dec} tokens, the "
+              f"same run)")
+        _logits_check("first token (prefill_first + prefill_ext)", first,
+                      full[0], cfg.vocab_size)
+        for i, lg in enumerate(dec[:n_dec]):
+            _logits_check(f"decoded token {i + 1} (decode tick)", lg,
+                          full[i + 1], cfg.vocab_size)
+        del full
     off = Engine(cfg, RunConfig(amp=args["amp"], fusion="off"), eng.params,
                  n_slots=eng.n_slots, max_len=eng.max_len,
                  page_size=eng.cache.page_size, prefill_chunk=eng.chunk,
@@ -3090,14 +3183,160 @@ def serve_path(sheet, *, device: str = "cuda", arch: str = "glm4-9b",
           f"requests with static's tokens exactly")
     print(f"  per-call walls, ms, static: {static_walls}")
     print(f"  per-call walls, ms, off:    {_walls_line(off)}")
-    first_off = _spy_request(off, req0.prompt, 1)[0]
-    _logits_check("first token, static against off", first, first_off,
-                  cfg.vocab_size)
+    if moe:
+        moe_against_off(off, prompt, first, dec, toks, calls, n_dec)
+    else:
+        first_off = _spy_request(off, prompt, 1)[0]
+        _logits_check("first token, static against off", first, first_off,
+                      cfg.vocab_size)
     del off
-    if cuda:
-        busy_share(eng, req0.prompt, n_dec)
+    # no torch.profiler window for path k: it runs before j and i, whose
+    # host clocks a profiled window would slow
+    if cuda and not moe:
+        busy_share(eng, prompt, n_dec)
     del res, eng
     return counts
+
+
+def _routing_diff(label: str, pairs, K: int) -> int:
+    """Print where two runs' routing differs.  ``pairs`` holds, for each
+    routing call in order, (experts a, experts b, probs b) over the same
+    real tokens — (T, K), (T, K), (T, E).  For each call, the tokens whose
+    top-k sets differ; for those, b's relative margin at the cut,
+    ``(p_K - p_K+1) / p_K``, against the median over all tokens.  Equal
+    top-k sets in every call give equal kept sets too: the ranks inside an
+    expert, and so the capacity drops, follow from the sets.  Returns the
+    number of (call, token) flips."""
+    import torch
+    flips, margins, first, med = [], [], None, []
+    for i, (ea, eb, pb) in enumerate(pairs):
+        differ = (torch.sort(ea, -1).values
+                  != torch.sort(eb, -1).values).any(-1)
+        top = torch.topk(pb.float(), K + 1, dim=-1).values
+        rel = (top[:, K - 1] - top[:, K]) / top[:, K - 1]
+        med.append(rel)
+        flips.append(int(differ.sum()))
+        if flips[-1]:
+            margins.append(float(rel[differ].max()))
+            first = i if first is None else first
+    med = float(torch.cat(med).median())
+    n = sum(flips)
+    worst = (f"; their margins in b at most {max(margins):.3e}, at the "
+             f"first such call ({first}) at most {margins[0]:.3e}"
+             if n else "")
+    print(f"  routing, {label}: {n} of {sum(len(p[0]) for p in pairs)} "
+          f"(call, token) top-k sets differ; per call {flips}; median "
+          f"margin at the cut {med:.3e}{worst}")
+    return n
+
+
+def _free_gap(label: str, got, ref, vocab: int) -> None:
+    """Print (not held) the gap between two logit vectors."""
+    import torch
+    lse = [float(torch.logsumexp(t[:vocab].float(), 0)) for t in (got, ref)]
+    err, scale = max_abs_err(got[:vocab].float(), ref[:vocab].float())
+    same = int(got[:vocab].argmax()) == int(ref[:vocab].argmax())
+    print(f"  (not held) {label}: logsumexp rel "
+          f"{abs(lse[0] - lse[1]) / abs(lse[1]):.3e}, max_abs_err {err:.3e} "
+          f"({err / (2.0 ** -7 * scale):.2f} bf16 ulps at max|ref|), greedy "
+          f"token {'same' if same else 'differs'}")
+
+
+def moe_first_token(eng, prompt, n_dec: int, device):
+    """Path k's check against ``forward_fn``.  A MoE block routes each
+    group of tokens with its own capacity, and the engine's groups are
+    its calls: a prefill chunk (its padded tail included) or one decode
+    slot's token.  So the request is the prompt's first chunk served
+    alone (``n_dec`` + 1 tokens), under a :class:`~moe.RoutingTape`, and
+    its first-token logits are held against ``forward_fn`` over the same
+    chunk padded as the engine pads it (zeros after the prompt; the stable
+    sort puts the padding behind the prompt in every expert and the causal
+    mask hides it) with the engine's experts replayed: the same discrete
+    choices, rounding alone between them, under :func:`_logits_check`'s
+    bounds.  The same forward routing on its own is compared and its
+    routing diffed (:func:`_routing_diff`), not held: where the two
+    lowerings round a near-tie differently they pick other experts.  So is
+    the forward over the unpadded prompt, one group of another capacity.
+    Returns (the prompt chunk, the first-token and decode-tick logits,
+    the tokens, the tape's calls)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe as MOE
+
+    cfg, C, L = eng.cfg, eng.chunk, eng.cfg.n_layers
+    prompt = np.asarray(prompt[:C], np.int32)
+    P = len(prompt)
+    with MOE.RoutingTape() as tape:
+        first, dec, toks, chunks = _spy_request(eng, prompt, n_dec + 1)
+    padded = np.zeros(C, np.int32)
+    padded[:P] = prompt
+    fwd = eng.model.forward_fn
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(padded, device=device)[None]}
+        with MOE.RoutingTape(replay=tape.calls[:L]):
+            pinned = fwd(eng.params, batch, eng.run)[0, P - 1]
+        with MOE.RoutingTape() as free:
+            grouped = fwd(eng.params, batch, eng.run)[0, P - 1]
+        whole = fwd(eng.params, {"tokens": torch.as_tensor(
+            prompt, device=device)[None]}, eng.run)[0, P - 1]
+    print(f"  request 0's first {P} prompt tokens served alone ({chunks} "
+          f"chunk of {C}: one routing group, capacity "
+          f"{MOE._capacity(C, cfg)}; {n_dec} decode ticks, each slot's token "
+          f"a group), tokens {toks}; against forward_fn over the chunk as "
+          f"the engine pads it, on the engine's experts")
+    _routing_diff("engine's chunk against forward_fn's own", [
+        (a["experts"][0, :P], b["experts"][0, :P], b["probs"][0, :P])
+        for a, b in zip(tape.calls[:L], free.calls)], cfg.experts_per_token)
+    _free_gap("against forward_fn's own routing over the padded chunk",
+              first, grouped, cfg.vocab_size)
+    _free_gap(f"against forward_fn over the {P} unpadded tokens, one group "
+              f"at capacity {MOE._capacity(P, cfg)}", first, whole,
+              cfg.vocab_size)
+    _logits_check("first token (prefill_first), engine's experts", first,
+                  pinned, cfg.vocab_size)
+    return prompt, first, dec, toks, tape.calls
+
+
+def moe_against_off(off, prompt, first, dec, toks, calls, n_dec: int
+                    ) -> None:
+    """Path k's check of ``static`` against ``off``: the prompt chunk of
+    :func:`moe_first_token` served alone again by the engine at
+    ``fusion="off"``, replaying the ``static`` run's experts (``calls``):
+    its first-token logits and each decode tick's held against
+    ``static``'s under :func:`_logits_check`'s bounds, the ticks while the
+    two runs' greedy tokens (each tick's input) agree.  Then once more on
+    its own routing: the routing diffed over the prompt's tokens and slot
+    0's decode tokens, and the first token's gap printed, not held."""
+    import torch
+    from repro_torch.models import moe as MOE
+
+    cfg, L, P = off.cfg, off.cfg.n_layers, len(prompt)
+    with torch.inference_mode(), MOE.RoutingTape(replay=calls):
+        first_o, dec_o, toks_o, _ = _spy_request(off, prompt, n_dec + 1)
+    print(f"  the same request at fusion off on static's experts: tokens "
+          f"{toks_o} (static {toks})")
+    _logits_check("first token, static against off", first, first_o,
+                  cfg.vocab_size)
+    held = 0
+    for i in range(n_dec):
+        if toks_o[:i + 1] != toks[:i + 1]:
+            break
+        _logits_check(f"decoded token {i + 1}, static against off", dec[i],
+                      dec_o[i], cfg.vocab_size)
+        held += 1
+    print(f"  {held} of {n_dec} decode ticks held (a tick is held while its "
+          f"input token agrees)")
+    with torch.inference_mode(), MOE.RoutingTape() as free:
+        first_f = _spy_request(off, prompt, n_dec + 1)[0]
+    # the chunk's calls, then one a layer each decode tick (slot 0's token)
+    pairs = [(a["experts"][0, :P], b["experts"][0, :P], b["probs"][0, :P])
+             if i < L else (a["experts"][0], b["experts"][0],
+                            b["probs"][0])
+             for i, (a, b) in enumerate(zip(calls, free.calls))]
+    _routing_diff("static against off, each on its own", pairs,
+                  cfg.experts_per_token)
+    _free_gap("first token, static against off, each on its own routing",
+              first, first_f, cfg.vocab_size)
 
 
 def busy_share(eng, prompt, n_dec: int) -> None:
@@ -3242,6 +3481,376 @@ def decode_path(cfgs, sheet, *, device: str = "cuda", layers=None,
             raise AssertionError(f"kernel {name} was not launched on main "
                                  "path j")
     return counts
+
+
+def family_train(arch: str, sheet, *, device: str = "cuda",
+                 layers: int | None = None, seq: int = 2048, batch: int = 2,
+                 smoke: bool = False, iters: int = 5, warmup: int = 2,
+                 label: str, adamw_row: bool = False
+                 ) -> tuple[dict, list[dict]]:
+    """One train step of a registry config (paths k and l) at O1,
+    ``fusion="static"``, ``attn_impl="flash"`` (``layers`` cuts the
+    depth, keeping the widths):
+
+    1. the fwd, bwd and opt phases profiled with ``measure=True``, each
+       wall beside the walk's bound: the fwd's matmul FLOPs equal
+       ``transformer.matmul_flops`` less the QKᵀ and PV of every causal
+       self-attention (the encoder's too), which flash takes — a MoE's
+       experts at the capacity-padded E·C slots, a cross-attention's
+       products in the count; flash launched once a self-attention in
+       each fwd pass, ``fused_adamw`` once an opt call, its walk record
+       the per-leaf sums;
+    2. 3 steps of ``make_train_step``, each with a finite loss (and its
+       aux, for a MoE), and the peak memory;
+    3. with ``adamw_row``, the AdamW launch held and timed on the
+       model's leaves (a row of step 3's table).
+
+    Launch counts are set to 0 just before and read just after; returns
+    them and the rows."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import api as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.params import leaves
+    from repro_torch.session.session import Session
+    from repro_torch.train.step import init_state, make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    layers = cfg.n_layers if layers is None else layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    H, hd = cfg.n_heads, cfg.head_dim
+    mem = seq // TR.FRAME_DOWNSAMPLE
+    selfs = [(layers, seq)] + ([(cfg.n_encoder_layers, mem)]
+                               if cfg.n_encoder_layers else [])
+    qk_pv = sum(n * TR.attention_flops(cfg, batch, s)["qk_pv"]
+                for n, s in selfs)
+    want_mm = TR.matmul_flops(cfg, batch, seq) - qk_pv
+    want_flash = sum(n * fk.flops(batch * H, s, s, hd) for n, s in selfs)
+    n_self = sum(n for n, _ in selfs)
+    numels = [math.prod(p.shape) for _, p in leaves(M.build(cfg).spec)]
+    extra = ""
+    if cfg.family == "moe":
+        extra = (f"; {cfg.n_experts} experts top-{cfg.experts_per_token} "
+                 f"of d_ff {cfg.d_ff}, capacity C = "
+                 f"{MOE._capacity(seq, cfg)} a group of {seq} tokens")
+    if cfg.family == "vlm":
+        extra = (f"; {cfg.n_prefix_embeds} patch embeddings before "
+                 f"{seq - cfg.n_prefix_embeds} tokens")
+    if cfg.n_encoder_layers:
+        extra = (f"; encoder {cfg.n_encoder_layers} layers over {mem} "
+                 f"frames, cross-attention in every decoder layer")
+    print(f"  {label}: {cfg.name} train step, {layers} layers, d_model "
+          f"{cfg.d_model}, heads {H}/{cfg.n_kv_heads} x {hd}, act "
+          f"{cfg.act}, vocab {cfg.vocab_size}{extra}; {sum(numels)} params "
+          f"in the spec tree (params, grads and both AdamW moments in fp32: "
+          f"{16 * sum(numels) / 1e9:.1f} GB); seq {seq} batch {batch} O1 "
+          f"static flash (fwd matmul FLOPs must be {want_mm}, flash "
+          f"{want_flash:.0f})")
+    kernels.reset_launch_counts()
+    s = Session(machine=sheet, device=device)
+    t0 = time.perf_counter()
+    prof = s.profile(arch, smoke=smoke, n_layers=layers, seq=seq,
+                     batch=batch, amp="O1", fusion="static",
+                     attn_impl="flash", measure=True, iters=iters,
+                     warmup=warmup)
+    got = kernels.launch_counts()
+    for ph in ("fwd", "bwd", "opt"):
+        mm, fa = phase_summary(label, ph, prof, sheet)
+        if ph == "fwd" and (mm != want_mm or fa != want_flash):
+            raise AssertionError(f"{cfg.name} fwd: matmul FLOPs {mm} != "
+                                 f"{want_mm} or flash {fa} != {want_flash}")
+    passes = 2 * (warmup + iters)       # the fwd and bwd phases' fwd passes
+    print(f"  launches in the profile: flash {got['flash_attention']} "
+          f"(expected {passes * n_self}: {n_self} self-attentions a pass "
+          f"over {passes} passes), fused_adamw {got['fused_adamw']}; "
+          f"profile call {time.perf_counter() - t0:.1f} s")
+    if cuda and got["flash_attention"] != passes * n_self:
+        raise AssertionError(f"{cfg.name}: flash launched "
+                             f"{got['flash_attention']} times")
+    check_adamw_walk(f"{cfg.name} opt", prof.analyses["opt"], numels,
+                     got["fused_adamw"], warmup + iters, cuda)
+    del prof
+    if cuda:
+        torch.cuda.empty_cache()
+
+    run = RunConfig(amp="O1", fusion="static", attn_impl="flash")
+    model = M.build(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(model, run, gen, device)
+    step = make_train_step(model, run)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch_t = M.synthetic_batch(cfg, ShapeSpec("t", seq, batch,
+                                                   "train"), batch, gen,
+                                    device)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_t)
+        sync()
+        loss = float(metrics["loss"])
+        aux = (f" (ce {float(metrics['ce']):.6f} + 0.01 x aux "
+               f"{float(metrics['aux']):.6f})" if "aux" in metrics else "")
+        print(f"  {cfg.name} train step {i + 1}: loss {loss:.6f}{aux} | "
+              f"grad norm {float(metrics['grad_norm']):.4f} | "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{cfg.name} train step {i + 1}: loss "
+                                 f"{loss}")
+    if cuda:
+        print(f"  train steps: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del step, batch_t
+    counts = kernels.launch_counts()
+    rows = ([adamw_leaves_row(state.params, sheet, f"{cfg.name}, {label}")]
+            if cuda and adamw_row else [])
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+    return counts, rows
+
+
+def need_launched(counts: dict, names, path: str, cuda: bool) -> None:
+    if cuda:
+        for name in names:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"main path {path}")
+
+
+#: the MoE serving path's kernels, by their op in the walk: granite-moe's
+#: routed experts compute silu(g)·u in plain ops, as the reference's
+#: (``src/repro/models/moe.py:118``), so fused_swiglu does not run
+MOE_SERVE_KERNELS = {k: v for k, v in SERVE_KERNELS.items()
+                     if k != "fused_swiglu"}
+#: the parameters of kimi-k2-1t-a32b (the reference's ``param_count``)
+KIMI_PARAMS = 1_043_853_440_000
+
+
+def moe_path(sheet, *, device: str = "cuda", smoke: bool = False,
+             train: dict | None = None, serve: dict | None = None,
+             kimi: dict | None = None) -> tuple[dict, list[dict]]:
+    """Main path k: the MoE family.
+
+    1. granite-moe-1b-a400m's train step at full width and depth (24
+       layers, 32 experts top-8, seq 2048, batch 2, O1, ``static``,
+       flash; :func:`family_train`): its phases against the walk's bound,
+       the experts at E·C = 32 x 640 slots in the walk's matmul FLOPs,
+       3 steps with their aux loss, the AdamW launch on its leaves;
+    2. ``Session.serve`` of path i's trace on granite-moe
+       (:func:`serve_path`): 16 of 16 requests done, the allocator
+       clean, flash and the norms launched as the walk says;
+    3. kimi-k2-1t-a32b's fwd walk on meta tensors at full width and
+       depth (61 layers, 384 experts, a shared expert; its fp32 weights,
+       about 4 TB, fit no card): matmul FLOPs equal the count.
+
+    ``train`` / ``serve`` / ``kimi`` override the keywords of each part
+    (a host rehearsal at the smoke size).  Returns the launch counts of
+    1 and 2 and the AdamW row."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.models import transformer as TR
+    from repro_torch.session.session import Session
+
+    cuda = torch.device(device).type == "cuda"
+    print("== 4k. main path: the MoE family (granite-moe-1b-a400m trained "
+          "and served; kimi-k2-1t-a32b's walk)")
+    counts, rows = family_train("granite-moe-1b-a400m", sheet, device=device,
+                                smoke=smoke, label="path k",
+                                adamw_row=True, **(train or {}))
+    need_launched(counts, ("flash_attention", "fused_rmsnorm",
+                           "fused_rmsnorm_residual", "fused_adamw"), "k",
+                  cuda)
+    served = serve_path(sheet, device=device, arch="granite-moe-1b-a400m",
+                        kernels=MOE_SERVE_KERNELS, path="k",
+                        **(serve or {}))
+    kw = {"seq": 2048, "batch": 2, **(kimi or {})}
+    cfg = get_smoke("kimi-k2-1t-a32b") if smoke else get_config(
+        "kimi-k2-1t-a32b")
+    t0 = time.perf_counter()
+    prof = Session(machine=sheet, device=device).profile(
+        "kimi-k2-1t-a32b", smoke=smoke, phases=("fwd",), amp="O1", **kw)
+    ana = prof.analyses["fwd"]
+    mm = sum(k.total_flops for k in ana.kernels if k.category == "matmul")
+    want = TR.matmul_flops(cfg, kw["batch"], kw["seq"])
+    print(f"  kimi-k2-1t-a32b fwd walk on meta: {cfg.n_layers} layers, "
+          f"{cfg.n_experts} experts top-{cfg.experts_per_token} and a "
+          f"shared expert of {cfg.moe_shared_ff}; param_count "
+          f"{cfg.param_count()} ({cfg.active_param_count()} active a "
+          f"token); seq {kw['seq']} batch {kw['batch']}: matmul FLOPs "
+          f"{mm:.0f} (analytic {want}), total {ana.total_flops:.0f}, HBM "
+          f"bytes {ana.total_hbm_bytes:.0f}, "
+          f"{sum(k.exec_count for k in ana.kernels)} launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if mm != want or (not smoke and cfg.param_count() != KIMI_PARAMS):
+        raise AssertionError(f"kimi walk: matmul FLOPs {mm} != {want}, or "
+                             f"param_count {cfg.param_count()}")
+    print(f"launches on main path k: train {json.dumps(counts)}, serve "
+          f"{json.dumps(served)}")
+    return {k: counts[k] + served[k] for k in counts}, rows
+
+
+#: path l's seamless decode against its forward, both fp32 (O0): each
+#: step's logits within the port's O0 logits tolerance
+#: (tests/test_torch_model.py)
+ENCDEC_DECODE_ATOL = 1e-4
+
+
+def multimodal_path(sheet, *, device: str = "cuda", smoke: bool = False,
+                    vlm_fwd: dict | None = None, vlm_train: dict | None = None,
+                    audio_train: dict | None = None, decode_steps: int = 16,
+                    decode_frames: int = 256) -> tuple[dict, list[dict]]:
+    """Main path l: the VLM and the encoder-decoder.
+
+    1. phi-3-vision-4.2b's fwd at full width and depth (32 layers, 576
+       patch embeddings in a 2048-token sequence, batch 2, O1,
+       ``static``, flash): its wall against the walk's bound, matmul
+       FLOPs equal to the count less the QKᵀ and PV flash takes (the
+       unembedding over the 1472 tokens), flash once a layer a pass;
+    2. its train step cut to 4 layers (:func:`family_train`; at 32 layers
+       its 3.72 B fp32 params, gradients and AdamW moments take about 60
+       GB before any activation);
+    3. seamless-m4t-large-v2's train step at full width and depth (24 +
+       24 layers, 256 encoder frames, seq 2048, batch 2; flash on both
+       stacks' self-attention, never on the cross-attention);
+    4. seamless's decode: ``decode_steps`` tokens one at a time through
+       ``decode_fn`` against the encoder's memory of ``decode_frames``
+       frames, from a zero fp32 cache, O0, ``static``: each step's logits
+       within :data:`ENCDEC_DECODE_ATOL` of ``forward_fn`` over the same
+       frames and tokens, and of the same steps at ``fusion="off"`` (its
+       launches are not counted); a step timed.
+
+    Returns the launch counts and rows."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.models import api as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.params import init
+    from repro_torch.session.session import Session
+    from torch.utils._pytree import tree_flatten
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    vlm, audio = "phi-3-vision-4.2b", "seamless-m4t-large-v2"
+    print("== 4l. main path: the VLM (phi-3-vision-4.2b) and the enc-dec "
+          "(seamless-m4t-large-v2)")
+    kernels.reset_launch_counts()
+    kw = {"seq": 2048, "batch": 2, "iters": 3, "warmup": 1,
+          **(vlm_fwd or {})}
+    cfg = get_smoke(vlm) if smoke else get_config(vlm)
+    B, S = kw["batch"], kw["seq"]
+    want_mm = TR.matmul_flops(cfg, B, S) - cfg.n_layers * \
+        TR.attention_flops(cfg, B, S)["qk_pv"]
+    t0 = time.perf_counter()
+    prof = Session(machine=sheet, device=device).profile(
+        vlm, smoke=smoke, phases=("fwd",), amp="O1", fusion="static",
+        attn_impl="flash", measure=True, **kw)
+    got = kernels.launch_counts()
+    print(f"  {vlm} fwd at full width and depth: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}; {cfg.param_count() / 1e9:.3f} B params in "
+          f"fp32; {cfg.n_prefix_embeds} patches + "
+          f"{S - cfg.n_prefix_embeds} tokens, batch {B}; loss "
+          f"{float(prof.data['fwd'].output):.6f}; profile call "
+          f"{time.perf_counter() - t0:.1f} s")
+    mm, _ = phase_summary("path l", "fwd", prof, sheet)
+    passes = kw["iters"] + kw["warmup"]
+    if mm != want_mm or (cuda and got["flash_attention"]
+                         != passes * cfg.n_layers):
+        raise AssertionError(f"{vlm} fwd: matmul FLOPs {mm} != {want_mm}, "
+                             f"or flash launched {got['flash_attention']}")
+    if not math.isfinite(float(prof.data["fwd"].output)):
+        raise AssertionError(f"{vlm} fwd loss is not finite")
+    counts = kernels.launch_counts()
+    del prof
+    if cuda:
+        torch.cuda.empty_cache()
+    rows = []
+    for arch, kw_t in ((vlm, {"layers": 4, **(vlm_train or {})}),
+                       (audio, dict(audio_train or {}))):
+        got, r = family_train(arch, sheet, device=device, smoke=smoke,
+                              label="path l", iters=3, warmup=1, **kw_t)
+        counts = {k: counts[k] + got[k] for k in counts}
+        rows += r
+
+    # 4. the enc-dec decode against its forward
+    kernels.reset_launch_counts()
+    cfg = get_smoke(audio) if smoke else get_config(audio)
+    run = RunConfig(amp="O0", fusion="static")
+    model = M.build(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init(model.spec, gen, torch.float32, device)
+    T = decode_steps
+    tokens = torch.randint(0, cfg.vocab_size, (2, T), generator=gen,
+                           device=device, dtype=torch.int32)
+    frames = (torch.randn((2, decode_frames, cfg.d_model), generator=gen,
+                          device=device) * 0.02).to(torch.bfloat16)
+    def decode(run, walls=None):
+        memory = TR.encode(params, frames, cfg, run)
+        state = model.init_state_fn(2, T, torch.float32, device=device)
+        out = []
+        for t in range(T):
+            sync()
+            t0 = time.perf_counter()
+            lg, state = model.decode_fn(
+                params, {"tokens": tokens[:, t:t + 1], "memory": memory},
+                state, run)
+            sync()
+            if walls is not None:
+                walls.append(time.perf_counter() - t0)
+            out.append(lg[:, 0])
+        return torch.stack(out, 1)
+
+    walls = []
+    with torch.inference_mode():
+        full = model.forward_fn(params, {"tokens": tokens,
+                                         "frames": frames}, run)
+        steps = decode(run, walls)
+        dec = kernels.launch_counts()
+        steps_off = decode(RunConfig(amp="O0", fusion="off"))
+    err = (steps - full).abs().amax((0, 2))
+    worst = (err.max().item(), int(err.argmax()))
+    err_off = (steps - steps_off).abs().amax((0, 2))
+    worst_off = (err_off.max().item(), int(err_off.argmax()))
+    scale = full.abs().max().item()
+    ok = all(w <= ENCDEC_DECODE_ATOL and math.isfinite(w)
+             for w in (worst[0], worst_off[0]))
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_flatten(params)[0])
+    print(f"  {audio} decode, O0 static: {T} steps at batch 2 against an "
+          f"encoder memory of {decode_frames} frames, each step's logits "
+          f"against forward_fn over the same frames and tokens: "
+          f"max_abs_err {worst[0]:.3e} at step {worst[1]} (max|ref| "
+          f"{scale:.3e}, atol {ENCDEC_DECODE_ATOL:g}); against the same "
+          f"steps at fusion off (the plain norms): max_abs_err "
+          f"{worst_off[0]:.3e} at step {worst_off[1]}  "
+          f"{'ok' if ok else 'MISMATCH'}; a step {min(walls) * 1e3:.3f} ms "
+          f"least, {sorted(walls)[len(walls) // 2] * 1e3:.3f} ms median "
+          f"(host clock, synchronized; {w_bytes / 1e9:.3f} GB of fp32 "
+          f"weights: bound "
+          f"{bound(w_bytes, 0.0, 'f32', sheet)['bound_ms']:.3f} ms)")
+    if not ok:
+        raise AssertionError(f"{audio} decode against the forward: {worst}, "
+                             f"against fusion off: {worst_off}")
+    del params, full, steps, steps_off
+    if cuda:
+        torch.cuda.empty_cache()
+    counts = {k: counts[k] + dec[k] for k in counts}
+    print(f"launches on main path l: {json.dumps(counts)}")
+    need_launched(counts, ("flash_attention", "fused_rmsnorm",
+                           "fused_rmsnorm_residual", "fused_swiglu",
+                           "fused_adamw"), "l", cuda)
+    return counts, rows
 
 
 #: the learning rate of ``make_train_step``'s default
@@ -3511,6 +4120,17 @@ def main() -> int:
                                  get_config("minitron-4b"),
                                  get_config("mistral-large-123b"), sheet)
     torch.cuda.empty_cache()
+
+    # 4l. main path: phi-3-vision's fwd and step, seamless's step and decode
+    counts_l, rows_l = multimodal_path(sheet)
+    rows += rows_l
+    torch.cuda.empty_cache()
+
+    # 4k. main path: granite-moe trained and served, kimi-k2's walk --------
+    counts_k, rows_k = moe_path(sheet)
+    rows += rows_k
+    torch.cuda.empty_cache()
+
     # 4j. main path: the SSM and hybrid decode steps at full width ----------
     # (before path i, which ends under torch.profiler: eager host time
     # read after a profiled window doubled on an H100 host)
@@ -3521,7 +4141,7 @@ def main() -> int:
     # 4i. main path: glm4-9b served at full width by the engine -----------
     serve_path(sheet)
     torch.cuda.empty_cache()
-    for r in rows_g:
+    for r in rows_g + rows_l + rows_k:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "
               f"{r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
               f"plain {r['plain_ms']:.4f} ms | library "
@@ -3562,6 +4182,14 @@ def main() -> int:
                  RunConfig(amp="O0", fusion="static", optimizer="adafactor"))
     smoke_checks(dev, "granite-8b", {"einsum": RunConfig(amp="O0")},
                  RunConfig(amp="O0", fusion="static", remat="dots"))
+    # the MoE, VLM and enc-dec families (paths k and l)
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                 "phi-3-vision-4.2b", "seamless-m4t-large-v2"):
+        smoke_checks(dev, arch,
+                     {"einsum": RunConfig(amp="O0"),
+                      "flash (kernel on the card)": RunConfig(
+                          amp="O0", attn_impl="flash")},
+                     RunConfig(amp="O0", fusion="static", attn_impl="flash"))
 
     # 6. results -------------------------------------------------------------
     out = []

@@ -278,7 +278,8 @@ def build_parser() -> argparse.ArgumentParser:
     common(sv)
     store(sv)
     sv.add_argument("--config", required=True,
-                    help="registry config name (dense family)")
+                    help="registry config name of a dense or MoE model "
+                         "(the engine serves those families)")
     sv.add_argument("--requests", type=int, default=16,
                     help="arrival-trace length (default 16)")
     sv.add_argument("--trace", default="poisson",

@@ -21,6 +21,7 @@ AMP_MODES = ("O0", "O1", "O2")
 ATTN_IMPLS = ("einsum", "chunked", "flash")
 SSD_IMPLS = ("xla", "kernel")
 REMAT_MODES = ("none", "dots", "full")
+MOE_COMBINES = ("default", "reshard", "a2a")
 OPTIMIZERS = ("adamw", "adafactor")
 #: DeepCAM lowerings (the paper's TF-vs-PyTorch comparison)
 IMPLS = ("reference", "fused")
@@ -92,8 +93,8 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense, SSM or hybrid model
-        (embedding included), as the reference writes it.
+        """Analytic parameter count (embedding included), as the reference
+        writes it (``repro.configs.base.ModelConfig.param_count``).
 
         The ``ssm`` and ``hybrid`` branches are the reference's counts,
         mirrored and not corrected: they take the embedding at
@@ -104,19 +105,32 @@ class ModelConfig:
         tree holds a pair for each site: for ``zamba2-1.2b`` it reads
         1,087,997,696, 183,424 below the 1,088,181,120 spec leaves
         (162,944 of ``dt_bias`` and ``conv_b``, 20,480 of site norms; 800
-        below at the smoke size: 177,664 against 178,464)."""
-        if self.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"param_count for family {self.family!r} comes with its "
-                "model family (ROADMAP queue 1)")
+        below at the smoke size: 177,664 against 178,464).  Every family
+        takes the embedding at ``vocab_size``, and ``encdec`` / ``audio``
+        leave out the encoder's final norm, as the reference's do."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         total = V * D * (1 if self.tie_embeddings else 2)
         attn = (D * self.n_heads * self.head_dim
                 + 2 * D * self.n_kv_heads * self.head_dim
                 + self.n_heads * self.head_dim * D)
-        mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
-        if self.family == "dense":
-            return total + L * (attn + mlp + 2 * D) + D
+
+        def mlp(ff: int) -> int:
+            return (3 if self.act in ("swiglu", "geglu") else 2) * D * ff
+
+        if self.family in ("dense", "vlm"):
+            return total + L * (attn + mlp(F) + 2 * D) + D
+        if self.family == "moe":
+            return total + L * (attn + self.n_experts * mlp(F)
+                                + D * self.n_experts          # router
+                                + mlp(self.moe_shared_ff) + 2 * D) + D
+        if self.family in ("encdec", "audio"):
+            enc = self.n_encoder_layers * (attn + mlp(F) + 2 * D)
+            dec = L * (2 * attn + mlp(F) + 3 * D)
+            return total + enc + dec + D
+        if self.family not in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"param_count for family {self.family!r}: the reference "
+                "counts none")
         di, G, N = self.d_inner, self.ssm_n_groups, self.ssm_state
         H = self.ssm_heads
         ssm = (D * (2 * di + 2 * G * N + H)               # in_proj
@@ -125,8 +139,20 @@ class ModelConfig:
                + 2 * H + di)                              # A_log, D, norm
         total += L * (ssm + D)
         if self.family == "hybrid":
-            total += attn + mlp + 2 * D                   # the shared block
+            total += attn + mlp(F) + 2 * D                # the shared block
         return total + D
+
+    def active_param_count(self) -> int:
+        """Parameters a token meets: a MoE layer's top-k experts, not all
+        of them (the reference's, for 6·N_active·D); every other family's
+        :meth:`param_count`."""
+        if self.family != "moe":
+            return self.param_count()
+        mult = 3 if self.act in ("swiglu", "geglu") else 2
+        expert = mult * self.d_model * self.d_ff
+        return (self.param_count()
+                - self.n_layers * (self.n_experts
+                                   - self.experts_per_token) * expert)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +162,7 @@ class RunConfig:
     ``repro_torch.tune.dispatch``), the ``einsum``, ``chunked`` and
     ``flash`` attention, the ``xla`` and ``kernel`` SSD scans, every
     ``remat`` mode, both DeepCAM lowerings (``impl``), AdamW and
-    Adafactor."""
+    Adafactor, and takes the reference's three ``moe_combine`` values."""
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
@@ -160,6 +186,11 @@ class RunConfig:
     # deepcam lowering: "reference" (every norm round-trips through fp32)
     # | "fused" (every norm folded into its conv)
     impl: str = "reference"
+    # MoE combine: the reference's three values ("default", "reshard",
+    # "a2a") differ only in the sharding annotations (``constrain``) they
+    # put on the dispatch and combine buffers.  On one device they compute
+    # the same function, and the port runs the one lowering for each.
+    moe_combine: str = "default"
 
     def __post_init__(self):
         if self.amp not in AMP_MODES:
@@ -181,6 +212,9 @@ class RunConfig:
                              f"valid: {OPTIMIZERS}")
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; valid: {IMPLS}")
+        if self.moe_combine not in MOE_COMBINES:
+            raise ValueError(f"unknown moe_combine {self.moe_combine!r}; "
+                             f"valid: {MOE_COMBINES}")
         if self.attn_chunk < 1:
             raise ValueError(f"attn_chunk must be >= 1, got "
                              f"{self.attn_chunk}")

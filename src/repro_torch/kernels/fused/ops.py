@@ -153,13 +153,16 @@ def use_embed(run, table, tokens, compute_dtype) -> bool:
 
 
 def use_flash_from_chunked(run, q_shape, k_shape, dtype, *, causal: bool,
+                           has_memory: bool, has_cache: bool,
                            softmax_f32: bool, chunk: int,
                            device: torch.device | None = None) -> bool:
     """May ``attn_impl="chunked"`` take the flash kernel at this call?
-    (The port's attention has no memory and no KV cache.)"""
+    Never for cross-attention (``has_memory``) or against a KV cache
+    (``has_cache``): the kernel is causal self-attention."""
     if not (fusion_enabled(run) and flash_from_chunked_eligible(
             int(q_shape[1]), int(k_shape[1]), causal=causal,
-            has_memory=False, has_cache=False, softmax_f32=softmax_f32)):
+            has_memory=has_memory, has_cache=has_cache,
+            softmax_f32=softmax_f32)):
         return False
     from repro_torch.tune import dispatch as dsp
     return _dispatch_fused(run, lambda: dsp.flash_key(

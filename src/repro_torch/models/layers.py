@@ -248,8 +248,16 @@ def _flash(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     run: RunConfig, positions: torch.Tensor | None = None,
                     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-                    cache_len: torch.Tensor | None = None):
-    """Causal GQA self-attention, lowered by ``run.attn_impl`` → y.
+                    cache_len: torch.Tensor | None = None,
+                    causal: bool = True,
+                    memory: torch.Tensor | None = None):
+    """GQA attention, lowered by ``run.attn_impl`` → y: causal
+    self-attention by default; ``causal=False`` unmasked; with ``memory``
+    (B, Sm, D) cross-attention, the reference's: K/V are projected from
+    ``memory``, neither q nor k is roped, the keys sit at ``arange(Sm)``
+    and nothing is masked.  ``"flash"`` takes the kernel only for causal
+    self-attention, as the reference's (its kernel is causal); anything
+    else runs the plain math of the route.
 
     With a ``kv_cache`` (decode) → (y, new_kv_cache): the new K/V land in
     a copy of the cache at ``cache_len`` (zeros when None) and the queries
@@ -263,11 +271,13 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xc = x.to(cd)
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    kv_src = xc if memory is None else memory.to(cd)
     q = wdot("bsd,dhk->bshk", xc, p["wq"].to(cd))
-    k = wdot("bsd,dhk->bshk", xc, p["wk"].to(cd))
-    v = wdot("bsd,dhk->bshk", xc, p["wv"].to(cd))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = wdot("bsd,dhk->bshk", kv_src, p["wk"].to(cd))
+    v = wdot("bsd,dhk->bshk", kv_src, p["wv"].to(cd))
+    if memory is None:                                 # self-attn: RoPE
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     qg = q.reshape(B, S, K, G, hd)
     new_cache = None
     if kv_cache is not None:
@@ -278,24 +288,30 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         k_pos = torch.arange(ck.shape[1], device=x.device)
         out = _sdpa(qg, ck.to(cd), cv.to(cd), positions, k_pos, causal=False,
                     k_len=idx + 1, stat_dtype=sd)
-    elif run.attn_impl == "flash":
-        out = _flash(qg, k, v)
-    elif (run.attn_impl == "chunked" and S > run.attn_chunk
-            and S % run.attn_chunk == 0):
-        # under fusion the chunked path takes the flash kernel where the
-        # shape is eligible: the same score math, no (chunk × S) matrices
-        fops = _fused(run)
-        if fops is not None and fops.use_flash_from_chunked(
-                run, qg.shape, k.shape, qg.dtype, causal=True,
-                softmax_f32=run.softmax_f32, chunk=run.attn_chunk,
-                device=qg.device):
-            out = _flash(qg, k, v)
-        else:
-            out = _sdpa_chunked(qg, k, v, positions, positions, True,
-                                run.attn_chunk, stat_dtype=sd)
     else:
-        out = _sdpa(qg, k, v, positions, positions, causal=True,
-                    stat_dtype=sd)
+        k_pos = (torch.arange(k.shape[1], device=x.device)
+                 if memory is not None else positions)
+        masked = causal and memory is None
+        if run.attn_impl == "flash" and masked:
+            out = _flash(qg, k, v)
+        elif (run.attn_impl == "chunked" and S > run.attn_chunk
+                and S % run.attn_chunk == 0):
+            # under fusion the chunked path takes the flash kernel where
+            # the shape is eligible (causal self-attention): the same
+            # score math, no (chunk × S) matrices
+            fops = _fused(run)
+            if fops is not None and fops.use_flash_from_chunked(
+                    run, qg.shape, k.shape, qg.dtype, causal=causal,
+                    has_memory=memory is not None, has_cache=False,
+                    softmax_f32=run.softmax_f32, chunk=run.attn_chunk,
+                    device=qg.device):
+                out = _flash(qg, k, v)
+            else:
+                out = _sdpa_chunked(qg, k, v, positions, k_pos, masked,
+                                    run.attn_chunk, stat_dtype=sd)
+        else:
+            out = _sdpa(qg, k, v, positions, k_pos, causal=masked,
+                        stat_dtype=sd)
     out = out.reshape(B, S, H, hd)
     y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd)).to(x.dtype)
     return y if kv_cache is None else (y, new_cache)

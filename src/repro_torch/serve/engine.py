@@ -63,7 +63,8 @@ from repro_torch.serve.paged_kv import (DEFAULT_PAGE_SIZE, PagedKVCache,
                                         drop_pages)
 
 #: families the engine can serve: token-only prompts + a paged KV cache
-#: (the port's ``build`` refuses ``moe`` until that family is ported)
+#: (as the reference: a VLM's patches and an enc-dec's memory are not
+#: served)
 SERVABLE_FAMILIES = ("dense", "moe")
 
 #: phase each executable's wall time lands in
@@ -102,7 +103,15 @@ class _Slot:
 
 
 class Engine:
-    """Continuous-batching engine over a dense-family model."""
+    """Continuous-batching engine over a dense or MoE model.
+
+    A MoE block routes each executable call's tokens as its groups, as
+    the reference's engine does: a prefill chunk (padded tail included;
+    the stable sort keeps the padding behind the prompt in every expert)
+    is one group, each decode slot's token another, each with its own
+    capacity.  So a MoE request's logits follow its chunking: they equal
+    a forward over the same groups, not one over the whole sequence where
+    a full expert drops other tokens."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, params: Any,
                  n_slots: int = 4, max_len: int = 256,
@@ -190,13 +199,14 @@ class Engine:
                       attend, wpage, woff):
         """Shared chunk-prefill math: the residual stream of ``chunk``
         (C,) evolved layer by layer with exactly ``block_apply``'s op
-        sequence (norm → attention → residual-norm seam → mlp →
-        residual), with attention delegated to ``attend(qg, k, v, kp,
-        vp)`` and the chunk's per-layer K/V written to the page pool at
+        sequence (norm → attention → residual-norm seam → mlp or MoE
+        block → residual), with attention delegated to ``attend(qg, k, v,
+        kp, vp)`` and the chunk's per-layer K/V written to the page pool at
         ``(wpage, woff)`` (``-1`` page ids go to the drop page — the
         padding mask).  The logits are the chunk's at ``valid - 1``.
         """
         from repro_torch.models import layers as L
+        from repro_torch.models import transformer as TR
         from repro_torch.models.params import unstack_layers
 
         cfg, run = self.cfg, self.run
@@ -222,7 +232,7 @@ class Engine:
                              lp["attn"]["wo"].to(cd)).to(x.dtype)
             h2, z = L.rmsnorm_residual_apply(lp["ln_mlp"], x, y,
                                              cfg.norm_eps, run)
-            z = L.mlp_apply(lp["mlp"], z, cfg, run)
+            z, _ = TR.ffn_apply(lp, z, cfg, run)
             kp.index_put_((wp, woff), k[0].to(kp.dtype))
             vp.index_put_((wp, woff), v[0].to(vp.dtype))
             x = h2 + z
@@ -249,7 +259,8 @@ class Engine:
         use_flash = (fops.fusion_enabled(run)
                      and fops.use_flash_from_chunked(
                          run, (1, C, K, G, hd), (1, C, K, hd), cd,
-                         causal=True, softmax_f32=run.softmax_f32,
+                         causal=True, has_memory=False, has_cache=False,
+                         softmax_f32=run.softmax_f32,
                          chunk=run.attn_chunk, device=self.device))
         self.prefill_first_flash = use_flash
 

@@ -9,9 +9,11 @@ no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
 on the host.  ``profile`` and ``record`` build a registry config's fwd,
 bwd and opt phases (``repro_torch.train.step.make_phases``) at any
 ``fusion`` mode, ``attn_impl`` ``"einsum"``, ``"chunked"`` or ``"flash"``
-(dense), ``ssd_impl`` ``"xla"`` or ``"kernel"`` (SSM) and ``impl``
-``"reference"`` or ``"fused"`` (DeepCAM, on its image batch).  Records
-go to the workspace's trace store
+(the attention families: dense, MoE, VLM — its patch embeddings in the
+batch — and enc-dec — its encoder frames), ``ssd_impl`` ``"xla"`` or
+``"kernel"`` (SSM, hybrid) and ``impl`` ``"reference"`` or ``"fused"``
+(DeepCAM, on its image batch).  ``serve`` takes a dense or MoE config.
+Records go to the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
 schema; so does ``serve``, which drives the continuous-batching engine
 (``repro_torch.serve``) over a seeded arrival trace and records its

@@ -195,8 +195,13 @@ def test_config_copies_match_reference():
     full_r, full_p = r_get_config("glm4-9b"), p_get_config("glm4-9b")
     assert dataclasses.asdict(full_p) == dataclasses.asdict(full_r)
     assert full_p.param_count() == full_r.param_count()
+    # the MoE family is ported: its config is the reference's too
+    moe_r, moe_p = (r_get_config("granite-moe-1b-a400m"),
+                    p_get_config("granite-moe-1b-a400m"))
+    assert dataclasses.asdict(moe_p) == dataclasses.asdict(moe_r)
+    assert moe_p.param_count() == moe_r.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        p_get_config("granite-moe-1b-a400m")
+        p_get_config("granite-moe-2b")
 
 
 @pytest.mark.parametrize("kw,exc", [

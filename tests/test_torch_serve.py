@@ -17,6 +17,7 @@ Two kinds of test:
   the record schema agree.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -198,12 +199,25 @@ class TestEngine:
         with pytest.raises(ValueError, match="Engine serves"):
             Engine(cfg, RUN, {}, device="cpu")
 
-    def test_moe_is_servable_but_not_yet_built(self, setup):
-        import dataclasses
-        cfg = dataclasses.replace(setup[0], family="moe")
+    def test_moe_is_servable_but_not_yet_built(self):
+        """The engine builds for the MoE family and serves it: a smoke
+        granite-moe request's greedy tokens equal repeated full forwards
+        (a prompt of 8 and 4 new tokens: every group of at most 12
+        tokens fits its experts' capacity of 8 choices, so chunked
+        prefill and decode group the tokens without a drop, as the
+        forward does).  Same servable families as the reference."""
         assert SERVABLE_FAMILIES == r_engine.SERVABLE_FAMILIES
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            Engine(cfg, RUN, {}, device="cpu")
+        assert "moe" in SERVABLE_FAMILIES
+        cfg = get_smoke("granite-moe-1b-a400m")
+        model = build(cfg)
+        params = init(model.spec, torch.Generator().manual_seed(0))
+        eng = Engine(cfg, RUN, params, n_slots=2, max_len=32,
+                     prefill_chunk=4, device="cpu")
+        prompt = np.arange(3, 11, dtype=np.int32)
+        req = Request(0, prompt, max_new=4)
+        eng.serve([req])
+        assert req.finish_reason == "length"
+        assert req.out == greedy(model, params, cfg, prompt, 4)
 
 
 class TestSchedulerInvariants:
@@ -504,12 +518,36 @@ def test_same_trace_same_tokens_ticks_and_pages_as_the_reference(shared):
     after every tick; at the end the tokens, tick stamps and finish
     reasons do, and every page the port wrote is within the pools'
     tolerance of the reference's (module doc)."""
-    r_cfg, p_cfg, params, tp = shared
-    kw = dict(n_slots=3, max_len=24, prefill_chunk=8, page_size=4)
+    _same_trace_both_engines(*shared, dict(n_slots=3, max_len=24,
+                                           prefill_chunk=8, page_size=4),
+                             prompt_len=(2, 20))
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_same_trace_same_tokens_ticks_and_pages_as_the_reference(
+        capacity_factor):
+    """The same tick-by-tick comparison on the granite-moe smoke config
+    (4 experts, top-2): each prefill chunk of 32 (its padded tail
+    included) is one routing group, each decode slot's token another.  At
+    the config's capacity factor a chunk's experts hold 24 of its 64
+    choices each; at 0.5 they hold 8, so experts overflow in every chunk
+    and the padded tail competes for the slots the stable sort leaves
+    it, in both engines alike."""
+    r_cfg, p_cfg = (dataclasses.replace(
+        get("granite-moe-1b-a400m"), capacity_factor=capacity_factor)
+        for get in (r_get_smoke, get_smoke))
+    params = r_init(jax.random.PRNGKey(0), r_build(r_cfg).spec)
+    tp = from_jax_numpy(jax.tree.map(np.asarray, params))
+    _same_trace_both_engines(r_cfg, p_cfg, params, tp,
+                             dict(n_slots=3, max_len=64, prefill_chunk=32,
+                                  page_size=8), prompt_len=(2, 60))
+
+
+def _same_trace_both_engines(r_cfg, p_cfg, params, tp, kw, prompt_len):
     r_eng = r_engine.Engine(r_cfg, RRunConfig(amp="O0"), params, **kw)
     p_eng = Engine(p_cfg, RunConfig(amp="O0"), tp, device="cpu", **kw)
-    tk = dict(rate=0.8, seed=5, vocab=r_cfg.vocab_size, prompt_len=(2, 20),
-              max_new=(2, 8))
+    tk = dict(rate=0.8, seed=5, vocab=r_cfg.vocab_size,
+              prompt_len=prompt_len, max_new=(2, 8))
     r_reqs = r_workload.poisson_trace(10, **tk)
     p_reqs = poisson_trace(10, **tk)
     pend_r, pend_p = list(r_reqs), list(p_reqs)
