@@ -37,7 +37,7 @@ import argparse
 import sys
 from typing import Sequence
 
-Row = tuple[str, float, str]
+from repro_torch.bench.common import Row, emit
 
 WIDTH, HW, BATCH = 8, (64, 96), 2
 IMPLS = ("reference", "fused")
@@ -103,11 +103,6 @@ def main(device: str = "cuda", *, full: bool = False, measure: bool = False,
             print(kernel_table(res.analysis, spec, top_n=8))
         print(terms_table(results))
     return rows_of(results)
-
-
-def emit(rows: Sequence[Row]) -> None:
-    for name, us, derived in rows:
-        print(f"{name},{us:.1f},{derived}")
 
 
 def cli(argv: Sequence[str] | None = None) -> int:

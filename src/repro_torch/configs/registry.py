@@ -30,6 +30,7 @@ _MODULES = {
 }
 
 ARCHS = tuple(k for k in _MODULES if k != "deepcam")
+ALL = tuple(_MODULES)
 
 
 def _module(name: str):

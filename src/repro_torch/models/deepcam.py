@@ -39,7 +39,14 @@ Layout and numerics, so that parameters and results transfer unchanged:
   DeepCAM resizes (by 2 and by 4).  Downsampling would need the
   antialiased filter, which the reference applies and the plain kernel
   does not, so :func:`_resize` refuses it.  The plain kernel has a
-  channels-last CUDA path in bf16 (no layout copy);
+  channels-last CUDA path in bf16 (no layout copy).  Its CUDA backward
+  adds with atomics in a varying order, so two runs part, and ATen's
+  deterministic replacement is 40× slower (``PERF.md``,
+  ``tools/train_check.py``).  Under ``torch.use_deterministic_algorithms``
+  (the trainer's mode on the card) :func:`_resize` keeps ATen's forward
+  and computes the backward as the reference computes a resize, two
+  products with the per-axis interpolation matrices
+  (:func:`_interp_matrix`): deterministic, and as fast as the atomics;
 * under O0 the convs must run in fp32, not TF32: cuDNN's
   ``torch.backends.cudnn.allow_tf32`` is True by default and the backward
   convs read it when they run, so the flag is a process setting, turned
@@ -217,16 +224,68 @@ def _bottleneck(x: torch.Tensor, p: Params, stride: int, dilation: int,
     return torch.relu(x + h)
 
 
+def _interpolate(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def _interp_matrix(n_in: int, n_out: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """(n_out, n_in) weights of one axis of :func:`_interpolate`: output
+    ``j`` reads source ``max((j + 0.5)·n_in/n_out - 0.5, 0)`` between its
+    two neighbours, as ATen's half-pixel linear rule does.  Built on
+    ``device`` by comparisons (no host copy, no scatter)."""
+    f64 = dict(dtype=torch.float64, device=device)
+    src = ((torch.arange(n_out, **f64) + 0.5) * (n_in / n_out)
+           - 0.5).clamp_(min=0)
+    i0 = src.floor().clamp_(max=n_in - 1)
+    i1 = (i0 + 1).clamp_(max=n_in - 1)
+    l1 = (src - i0)[:, None]
+    cols = torch.arange(n_in, **f64)
+    a = (cols == i0[:, None]) * (1 - l1) + (cols == i1[:, None]) * l1
+    return a.to(dtype)
+
+
+class _DeterministicResize(torch.autograd.Function):
+    """:func:`_interpolate` with the backward as two products with the
+    interpolation matrices, ``dX = A_hᵀ·dY·A_w`` per channel (the W axis
+    first, the larger contraction), in the gradient's dtype.  The forward
+    runs ATen's kernel, deterministic as it is (each output reads its own
+    four inputs): under deterministic algorithms ATen would take its
+    slower gather decomposition instead."""
+
+    @staticmethod
+    def forward(ctx, x, hw):
+        ctx.in_hw = (x.shape[1], x.shape[2])
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(False)
+        try:
+            return _interpolate(x, hw)
+        finally:
+            torch.use_deterministic_algorithms(True, warn_only=warn_only)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hi, wi), (ho, wo) = ctx.in_hw, g.shape[1:3]
+        a_w = _interp_matrix(wi, wo, g.dtype, g.device)
+        a_h = _interp_matrix(hi, ho, g.dtype, g.device)
+        t = torch.einsum("bhwc,wv->bhvc", g, a_w)
+        return torch.einsum("bhvc,hu->buvc", t, a_h), None
+
+
 def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NHWC ``x`` to ``hw`` (half-pixel centres), equal
-    to ``jax.image.resize(x, ..., "bilinear")`` when no side shrinks."""
+    to ``jax.image.resize(x, ..., "bilinear")`` when no side shrinks; under
+    ``torch.use_deterministic_algorithms`` with the backward of
+    :class:`_DeterministicResize`."""
     if hw[0] < x.shape[1] or hw[1] < x.shape[2]:
         raise ValueError(
             f"_resize upsamples only: {tuple(x.shape[1:3])} -> {tuple(hw)} "
             "would need the reference's antialiased filter")
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    if torch.are_deterministic_algorithms_enabled():
+        return _DeterministicResize.apply(x, tuple(hw))
+    return _interpolate(x, hw)
 
 
 def resolve_impl(run: RunConfig, impl: str | None = None) -> str:
