@@ -56,8 +56,8 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    (granite-moe, seamless; phi-3's 3072 is minitron's), SwiGLU at
    (4096, 8192) (phi-3), and (after path k) the AdamW launch on
    granite-moe's leaves;
-4. drives twelve main paths, each with every launch count set to 0 just
-   before it and read just after:
+4. drives thirteen main paths, each with every launch count set to 0
+   just before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
       the ladder and the GEMM size sweep with ``torch.matmul``'s rate
@@ -180,6 +180,21 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       ``launch.train``'s trainer (:func:`deepcam_campaign`): two clean
       runs, a resume and a fallback past a corrupted checkpoint, all bit
       for bit, and the card's busy share under ``torch.profiler``;
+   n. the campaign engine and the observability layer
+      (:func:`sweep_obs_path`, last; the parent frees its cached device
+      memory first): the measured sweep ``card`` — granite-moe-1b-a400m
+      and zamba2-1.2b at full width and depth, seq 2048, batch 2, O1,
+      ``off`` and ``static``, in one spawned worker pinned to the card —,
+      each point's FLOPs and bytes against the same point walked on meta;
+      granite-moe at ``static`` inline, its norm and AdamW launches equal
+      to the walk's count times the calls; every registry config (10 LMs
+      and DeepCAM) analytical at full size in 4 workers, twice, the
+      second all cache hits; the drill on measured smoke points (a
+      crashed and a hung worker replaced, a point quarantined, the
+      campaign resumed, the deadline 3x one worker's start-up, no worker
+      compiling); trend with a tagged baseline and its gate, advise, a
+      merge into an empty root, and ``sweep report`` / ``trend --gate``
+      through the CLI;
    (paths l and k run after h and before j and i: no profiled window
    before them);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
@@ -4175,6 +4190,371 @@ def campaign_path(*, device: str = "cuda", smoke: bool = False,
     return counts
 
 
+#: path n's measured campaign: two families the card runs at full width
+#: and depth (paths g and k), plain and with the hand-written kernels
+CARD_CONFIGS = ("granite-moe-1b-a400m", "zamba2-1.2b")
+#: the drill's deadline over one worker's measured start-up
+DRILL_DEADLINE_X = 3
+#: the kernels a ``static`` point launches in the parent (path n step 2),
+#: by their op in the walk: granite-moe's experts compute silu(g)·u in
+#: plain ops (no SwiGLU), its attention runs einsum (a sweep point's
+#: ``RunConfig`` carries only amp and fusion, as the reference's)
+SWEEP_KERNELS = {"fused_rmsnorm": "rmsnorm",
+                 "fused_rmsnorm_residual": "rmsnorm_residual",
+                 "fused_adamw": "adamw_multi_"}
+
+
+def _library_stamps() -> dict:
+    """Every file in the kernels' build directory with its inode and
+    mtime: a worker that ran ``nvcc`` would add or replace one."""
+    from repro_torch.kernels import build
+    d = build.BUILD_DIR
+    return {p.name: (p.stat().st_ino, p.stat().st_mtime_ns)
+            for p in sorted(d.iterdir())} if d.is_dir() else {}
+
+
+def _phase_totals(rec) -> dict:
+    return {ph: {k: p.get(k) for k in ("flops", "hbm_bytes", "vmem_bytes",
+                                       "launches")}
+            for ph, p in rec.phases.items()}
+
+
+def _cited_runs(text: str) -> set:
+    import re
+    return set(re.findall(r"run ([0-9a-f]{12})", text))
+
+
+def sweep_obs_path(sheet, *, device: str = "cuda", smoke: bool = False,
+                   workspace: str, smi: str = "", card: dict | None = None,
+                   drill: dict | None = None) -> dict:
+    """Main path n: the campaign engine and the observability layer.
+
+    1. the measured sweep ``card``: granite-moe-1b-a400m and zamba2-1.2b
+       at full width and depth (``card`` overrides: ``seq``, ``batch``),
+       O1, fusion off and static, in one spawned worker pinned to the
+       card: 4 records read back, each phase's wall above 0; the ranked
+       table (one worker's start-up is timed on a thread meanwhile);
+    2. granite-moe / static inline (``workers=0``) in this process: the
+       norm and AdamW launches equal the walk's count times the calls;
+    3. the analytical sweep of every registry config (``all`` and
+       DeepCAM: 11 points) at full size on meta, 4 workers, through
+       ``python -m repro_torch sweep run`` in a process of its own beside
+       the drill; each point of 1 then has FLOPs, bytes and launches
+       exactly those of the same point walked on meta (``card-meta``: its
+       off points are registry points, cache hits); the registry again,
+       all 11 cache hits;
+    4. the drill on measured smoke points (``drill`` overrides ``seq``),
+       the deadline 3x one worker's start-up: ``crash_point:0;
+       hang_point:1:600`` (both land on their second attempt, the killed
+       workers' memory back), ``crash_point:0x-1`` (point 0 quarantined
+       after 2 attempts, exit 1), then ``resume`` (point 0 lands, point 1
+       resumed, one record a point);
+    5. trend, a tagged baseline and the gate (0, then 1 after a record at
+       2x wall), advise (each finding's run ids in the workspace), merge
+       into an empty root (everything, then nothing), and ``sweep
+       report`` / ``trend --gate`` through the CLI in subprocesses.
+
+    No worker may run ``nvcc`` (the libraries were built in step 2 of
+    :func:`main`).  Launch counts are set to 0 just before step 2 and
+    read just after; returns them."""
+    import collections
+    import dataclasses
+    import re
+    import subprocess
+    import threading
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.resilience.faults import FAULT_ENV
+    from repro_torch.resilience.journal import CampaignJournal
+    from repro_torch.resilience.watchdog import SupervisedPool
+    from repro_torch.session.session import Session
+    from repro_torch.sweep import engine
+    from repro_torch.sweep.aggregate import (latest_per_point,
+                                             render_summary, sweep_records)
+    from repro_torch.sweep.spec import SweepSpec
+
+    cuda = torch.device(device).type == "cuda"
+    t_path = time.perf_counter()
+    tag = f" ({smi})" if smi else ""
+    if cuda:
+        print(f"== 4n. main path: the campaign engine and the observability "
+              f"layer on {device}{tag}; before the pools: "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated by "
+              "this process")
+    else:
+        print(f"== 4n. main path: the campaign engine and the observability "
+              f"layer on {device}")
+    s = Session(machine=sheet, device=device, workspace=workspace)
+    store = s.workspace.sweep_store
+    libs = _library_stamps()
+
+    # 1. the measured sweep: one spawned worker pinned to the card; on a
+    # thread meanwhile, one worker's start-up (spawn, torch, its CUDA
+    # context, a task) is timed for the drill's deadline, while the sweep's
+    # own worker starts (it is done before a phase is timed)
+    kw = {"seq": 2048, "batch": 2, **(card or {})}
+    spec = SweepSpec(name="card", configs=CARD_CONFIGS, seqs=(kw["seq"],),
+                     batches=(kw["batch"],), amps=("O1",),
+                     fusions=("off", "static"), machine=sheet.name,
+                     measure=True, smoke=smoke, iters=3, warmup=1)
+    cards = engine._group_cards(
+        torch.device(device, 0) if cuda else torch.device(device), 1)
+    probe: dict = {}
+
+    def time_startup() -> None:
+        t0 = time.perf_counter()
+        with SupervisedPool(os.getpid, 1, init=engine._worker_init,
+                            initargs=(cards,)) as pool:
+            probe["kind"] = pool.run([(0, ())])[0].kind
+        probe["s"] = time.perf_counter() - t0
+
+    prober = threading.Thread(target=time_startup)
+    prober.start()
+    t0 = time.perf_counter()
+    res = s.sweep(spec, workers=1, progress=print)
+    prober.join()
+    recs = latest_per_point(sweep_records(store, "card"))
+    print(f"  sweep card: {len(recs)} records, exit {res.exit_code}, "
+          f"{time.perf_counter() - t0:.1f} s (one worker, {spec.iters} timed "
+          f"calls after {spec.warmup} a phase){tag}")
+    print(res.text)
+    if res.exit_code or len(recs) != 4 or any(
+            set(r.phases) != {"fwd", "bwd", "opt"}
+            or min(p["wall_s"] for p in r.phases.values()) <= 0
+            for r in recs.values()):
+        raise AssertionError(f"sweep card: exit {res.exit_code}, "
+                             f"{len(recs)} records; "
+                             f"{res.data.failure_summary()}")
+    for r in recs.values():
+        print(f"  {r.meta['label']}: " + " | ".join(
+            f"{ph} {p['wall_s'] * 1e3:.3f} ms ({100 * p['pct_of_roofline']:.1f}"
+            f"% of {p['bound_overlap_s'] * 1e3:.3f} ms)"
+            for ph, p in r.phases.items()) + f" on {r.meta['device']}")
+
+    # 2. one point inline, its launches against the walk
+    kernels.reset_launch_counts()
+    inline = dataclasses.replace(spec, name="card-inline",
+                                 configs=(CARD_CONFIGS[0],),
+                                 fusions=("static",))
+    res = s.sweep(inline, workers=0, progress=print)
+    counts = kernels.launch_counts()
+    if res.exit_code:
+        raise AssertionError(f"inline point: {res.data.failure_summary()}")
+    walk = s.profile(CARD_CONFIGS[0], smoke=smoke, seq=kw["seq"],
+                     batch=kw["batch"], amp="O1", fusion="static")
+    calls = max(inline.iters, 1) + max(inline.warmup, 1)
+    want = {name: calls * sum(k.exec_count
+                              for ana in walk.analyses.values()
+                              for k in ana.kernels if k.opcode == op)
+            for name, op in SWEEP_KERNELS.items()}
+    got = {name: counts[name] for name in SWEEP_KERNELS}
+    print(f"  inline {CARD_CONFIGS[0]}/static: launches {json.dumps(got)}; "
+          f"the walk x {calls} calls a phase: {json.dumps(want)}")
+    if any(w <= 0 for w in want.values()) or (cuda and got != want):
+        raise AssertionError(f"inline point: launches {got}, walk {want}")
+    del walk
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 3. every registry config, analytical at full size on meta, through
+    # the CLI in a process of its own (4 workers) while the drill runs:
+    # the analytical workers need no card, and a process of their own keeps
+    # them out of the drill's fault plan, which the drill's workers take
+    # from the environment
+    reg = SweepSpec(name="registry", configs=("all", "deepcam"),
+                    seqs=(kw["seq"],), batches=(kw["batch"],), amps=("O1",),
+                    machine=sheet.name, measure=False, smoke=smoke)
+    reg_env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    reg_env.pop(FAULT_ENV, None)
+    reg_log = os.path.join(workspace, "registry_sweep.log")
+    t_reg = time.perf_counter()
+    with open(reg_log, "w") as log:
+        registry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch", "sweep", "run",
+             "--name", "registry", "--configs", "all,deepcam",
+             "--seq", str(kw["seq"]), "--batch", str(kw["batch"]),
+             "--amp", "O1", "--machine", sheet.name, "--no-measure",
+             "--workers", "4", *(() if smoke else ("--full",))],
+            cwd=ROOT, env=reg_env, stdout=log, stderr=subprocess.STDOUT)
+
+    # 4. the drill: crash, hang, quarantine, resume on measured points
+    deadline = DRILL_DEADLINE_X * probe["s"]
+    print(f"  one worker's start-up (spawn, torch, its CUDA context, a "
+          f"task): {probe['s']:.2f} s ({probe['kind']}); the drill's "
+          f"deadline {deadline:.1f} s")
+    dkw = {"seq": 64, **(drill or {})}
+    dspec = SweepSpec(name="drill", configs=("glm4-9b", CARD_CONFIGS[0]),
+                      seqs=(dkw["seq"],), batches=(2,), amps=("O1",),
+                      machine=sheet.name, measure=True, smoke=True, iters=2,
+                      warmup=1)
+    free0 = torch.cuda.mem_get_info()[0] if cuda else 0
+    os.environ[FAULT_ENV] = "crash_point:0;hang_point:1:600"
+    try:
+        t0 = time.perf_counter()
+        res = s.sweep(dspec, workers=2, deadline_s=deadline, retries=1,
+                      progress=print)
+        print(f"  drill (crash_point:0;hang_point:1:600): exit "
+              f"{res.exit_code}, attempts "
+              f"{[r.attempts for r in res.data.results]}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        if res.exit_code or [r.attempts for r in res.data.results] != [2, 2]:
+            raise AssertionError(f"drill: {res.data.failure_summary()}")
+        if cuda:
+            free1 = torch.cuda.mem_get_info()[0]
+            print(f"  free device memory {free0 / 1e9:.3f} GB before the "
+                  f"drill, {free1 / 1e9:.3f} GB after (the crashed and the "
+                  "killed worker reaped; each replacement's first "
+                  "allocation, its CUDA context, succeeded)")
+            if free1 < free0 - 2**31:
+                raise AssertionError("the killed workers' memory did not "
+                                     "come back")
+        qspec = dataclasses.replace(dspec, name="drill-q")
+        os.environ[FAULT_ENV] = "crash_point:0x-1"
+        t0 = time.perf_counter()
+        res = s.sweep(qspec, workers=2, deadline_s=deadline, retries=1,
+                      progress=print)
+        print(f"  drill-q (crash_point:0x-1): exit {res.exit_code}, "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{res.data.failure_summary()}")
+        first = res.data.results[0]
+        if res.exit_code != 1 or not first.quarantined or \
+                first.attempts != 2 or not res.data.results[1].ok:
+            raise AssertionError("drill-q: point 0 was not quarantined "
+                                 "after 2 attempts")
+    finally:
+        os.environ.pop(FAULT_ENV, None)
+    res = s.sweep(qspec, workers=0, resume=True, progress=print)
+    per_key = collections.Counter(
+        r.meta["sweep_point"] for r in sweep_records(store, "drill-q"))
+    keys = {p.key for p in qspec.expand()[0]}
+    summary = CampaignJournal(s.workspace.journal_path).summary("drill-q")
+    print(f"  drill-q --resume (inline): exit {res.exit_code}, "
+          f"{res.data.n_resumed} resumed; records a point "
+          f"{dict(per_key)}; journal {json.dumps(summary)}")
+    if res.exit_code or res.data.n_resumed != 1 or \
+            set(per_key) != keys or set(per_key.values()) != {1}:
+        raise AssertionError("drill-q --resume: a point is missing or "
+                             "stored twice")
+    rc = registry.wait(timeout=900)
+    with open(reg_log) as f:
+        reg_out = f.read()
+    reg_recs = latest_per_point(sweep_records(store, "registry"))
+    print(f"  sweep registry (python -m repro_torch sweep run --no-measure "
+          f"--workers 4, beside the drill): exit {rc}, {len(reg_recs)} "
+          f"points stored, {time.perf_counter() - t_reg:.1f} s")
+    print("\n".join(ln for ln in reg_out.splitlines()
+                    if not ln.startswith("[ok]")))
+    if rc or len(reg_recs) != 11 or f"[registry] 11 ok (0 cached" \
+            not in reg_out:
+        raise AssertionError(f"sweep registry: exit {rc}, "
+                             f"{len(reg_recs)} points\n{reg_out[-3000:]}")
+    # the card's points on meta: its off points are registry points (the
+    # same keys: a campaign's name is not part of a key), cache hits; the
+    # static ones walk
+    twin = s.sweep(dataclasses.replace(spec, name="card-meta",
+                                       measure=False), workers=0)
+    twins = {(r.config, r.meta["fusion"]): r for r in latest_per_point(
+        sweep_records(store, "card-meta")).values()}
+    print(f"  sweep card-meta (the card's points on meta, inline): "
+          f"{twin.data.n_ok} ok, {twin.data.n_cached} from the registry's "
+          "cache")
+    for r in recs.values():
+        got, want = (_phase_totals(x) for x in
+                     (r, twins[(r.config, r.meta["fusion"])]))
+        print(f"  {r.meta['label']}: FLOPs / HBM bytes / L2 bytes / "
+              f"launches a phase {json.dumps(got)}; on meta the same: "
+              f"{got == want}")
+        if got != want:
+            raise AssertionError(f"{r.meta['label']}: measured {got} != "
+                                 f"analytical {want}")
+    t0 = time.perf_counter()
+    res = s.sweep(reg, workers=0)
+    print(f"  sweep registry again: {res.data.n_cached} of 11 cache hits, "
+          f"no walk, {time.perf_counter() - t0:.2f} s")
+    if res.exit_code or res.data.n_cached != 11:
+        raise AssertionError("sweep registry again: not all cache hits")
+    if _library_stamps() != libs:
+        raise AssertionError("a worker rebuilt a kernel library")
+    print("  no worker ran nvcc: the kernel libraries are the ones step 2 "
+          "built")
+
+    # 5. observability over the chip workspace
+    tr = s.trend()
+    series = tr.data[0]
+    print(f"  trend: {len(series)} series "
+          f"({sum(x.source == 'bench' for x in series)} from BENCH_*.json)")
+    print("\n".join(tr.text.splitlines()[:16]))
+    first = s.record("glm4-9b", smoke=True, iters=5, warmup=2)
+    s.trend_tag("card", first.data.run_id)
+    gate0 = s.trend(gate=True, baseline="card")
+    second = s.record("glm4-9b", smoke=True, iters=5, warmup=2,
+                      scale_wall=2.0)
+    gate1 = s.trend(gate=True, baseline="card")
+    flagged = [r.series.key + " " + r.series.metric for r in gate1.data[1]]
+    print(f"  trend gate against tag 'card' (run {first.data.run_id}): "
+          f"exit {gate0.exit_code}; after run {second.data.run_id} at 2x "
+          f"wall: exit {gate1.exit_code}, flagged {flagged}")
+    print("\n".join(ln for ln in gate1.text.splitlines() if "!" in ln))
+    if gate0.exit_code != 0 or gate1.exit_code != 1 or not any(
+            f.startswith("glm4-9b|") and f.endswith("wall_s")
+            for f in flagged):
+        raise AssertionError("trend gate: the 2x record was not flagged")
+    adv = s.advise()
+    print(adv.text)
+    known = {r.run_id for r in s.workspace.trace_store.records()
+             + store.records()}
+    for f in adv.data:
+        cited = _cited_runs(" ".join(f.evidence))
+        if not cited or not cited <= known:
+            raise AssertionError(f"advise: {f.rule} cites {cited}, not "
+                                 "runs of the workspace")
+    if not adv.data:
+        raise AssertionError("advise found nothing in the chip workspace")
+    root = workspace.rstrip("/") + "_merged"
+    shutil.rmtree(root, ignore_errors=True)
+    m = Session(machine=sheet, device=device, workspace=root)
+    tune = s.workspace.tune_store
+    want_added = {"trace": len(s.workspace.trace_store.records()),
+                  "sweep": len(store.records()),
+                  "tune": len(list(tune.keys()))
+                  + len(list(tune.dispatch_keys())),
+                  "bench": len([f for f in (os.listdir(s.workspace.bench_dir)
+                                            if os.path.isdir(
+                                                s.workspace.bench_dir)
+                                            else ())
+                                if re.match(r"BENCH_.*\.json$", f)])}
+    added = [m.merge(workspace).provenance["added"] for _ in range(2)]
+    print(f"  merge into the empty {root}: {json.dumps(added[0])} (the "
+          f"workspace holds {json.dumps(want_added)}); again: "
+          f"{json.dumps(added[1])}")
+    if added[0] != want_added or any(added[1].values()):
+        raise AssertionError("merge: not every record once")
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    rolling = s.trend(gate=True).exit_code
+    # both CLI calls at once: each pays a process start and torch's import
+    procs = [(argv, want_rc, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for argv, want_rc in ((["sweep", "report", "--name", "card"], 0),
+                              (["trend", "--gate", "--device", device],
+                               rolling))]
+    for argv, want_rc, proc in procs:
+        out, err = proc.communicate(timeout=300)
+        print(f"  python -m repro_torch {' '.join(argv)}: exit "
+              f"{proc.returncode} (want {want_rc})")
+        print("\n".join(out.splitlines()[-6:]))
+        if proc.returncode != want_rc:
+            raise AssertionError(f"{argv}: exit {proc.returncode}\n"
+                                 f"{err[-2000:]}")
+    print(f"launches on main path n: {json.dumps(counts)}")
+    need_launched(counts, tuple(SWEEP_KERNELS), "n", cuda)
+    print(f"path n: {time.perf_counter() - t_path:.1f} s{tag}")
+    return counts
+
+
 #: the learning rate of ``make_train_step``'s default
 LR = 3e-4
 
@@ -4473,6 +4853,16 @@ def main() -> int:
     # path e: the benches' tuned ceilings are store hits; last, as its
     # torch.profiler window is)
     campaign_path(workspace=workspace, step_ms={"b": walls_b, "c": walls_c})
+    torch.cuda.empty_cache()
+
+    # 4n. main path: the campaign engine (measured and analytical sweeps in
+    # spawned workers, the drill) and trend / advise / merge over the
+    # workspace; the workers measure on the card this process holds
+    # memory on, so it frees what it can first
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    sweep_obs_path(sheet, workspace=workspace, smi=gpu["smi"])
     torch.cuda.empty_cache()
     for r in rows_g + rows_l + rows_k:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "

@@ -38,8 +38,8 @@ FULL_SUITES = ("deepcam_roofline", "zero_ai_census")
 
 
 def default_json_dir() -> str:
-    from repro_torch.session.workspace import default_workspace_root
-    return os.path.join(os.path.abspath(default_workspace_root()), "bench")
+    from repro_torch.session.workspace import Workspace
+    return Workspace().bench_dir
 
 
 def run(names, device: str = "cuda", full: bool = False,

@@ -1,6 +1,6 @@
 """``python -m repro_torch`` — the port's workflow as a CLI (mirrors the
-``characterize``, ``profile``, ``record``, ``report`` and ``compare``
-subcommands of ``python -m repro``).
+subcommands of ``python -m repro``; the network level's ``net`` waits
+for the port's distributed level).
 
 * ``characterize`` — machine model: the card's datasheet ceilings, or
   (``--empirical``) the ceilings the hand-written ERT kernels measure,
@@ -22,10 +22,20 @@ subcommands of ``python -m repro``).
   gate fails;
 * ``report``       — the newest stored record, re-rendered;
 * ``compare``      — the newest record of each config against the one
-  before; exit code 1 when a cell regressed past 10%;
+  before (``--window``), or two runs (``--base`` / ``--new``); exit code
+  1 when a cell regressed past ``--threshold`` (10%);
+* ``sweep``        — cross-config campaigns (``run`` / ``report``),
+  forwarded to ``repro_torch.sweep.cli``;
 * ``tune``         — kernel autotuning (``search`` / ``show`` / ``apply``)
   and the dispatch table (``dispatch search`` / ``show`` / ``apply``),
-  forwarded to ``repro_torch.tune.cli``.
+  forwarded to ``repro_torch.tune.cli``;
+* ``trend``        — perf-trend sparklines over the stored records and
+  the workspace's ``BENCH_*.json`` (``--gate`` exits 1 on a regression;
+  ``trend tag NAME`` pins a known-good run for ``--baseline``);
+* ``advise``       — the stored records mined for known bottleneck
+  patterns, ranked remediations with their evidence;
+* ``merge``        — the union of another workspace's stores into this
+  one (dedupe; conflicts skipped and reported).
 
 Every subcommand runs on the card unless ``--device cpu`` is given.
 
@@ -51,8 +61,15 @@ Examples::
         --slots 8 --max-len 2048 --prefill-chunk 256
     python -m repro_torch report
     python -m repro_torch compare
+    python -m repro_torch compare --base 1a2b --new 3c4d --threshold 0.05
+    python -m repro_torch sweep run --smoke --device cpu
+    python -m repro_torch sweep report --charts 2
     python -m repro_torch tune search --device cpu --smoke
     python -m repro_torch tune dispatch search --config glm4-9b --device cpu
+    python -m repro_torch trend --gate --device cpu
+    python -m repro_torch trend tag good --device cpu
+    python -m repro_torch advise --device cpu
+    python -m repro_torch merge /mnt/hostB/.repro-workspace --device cpu
 """
 
 from __future__ import annotations
@@ -68,8 +85,10 @@ def _session(args):
     from repro_torch.session.session import Session
     from repro_torch.session.workspace import Workspace
     store = getattr(args, "store", None)
+    workspace = (Workspace.for_store(store) if store
+                 else getattr(args, "workspace", None))
     return Session(machine=args.machine, device=args.device,
-                   workspace=Workspace.for_store(store) if store else None)
+                   workspace=workspace)
 
 
 def cmd_characterize(args) -> int:
@@ -158,9 +177,53 @@ def cmd_report(args) -> int:
 
 def cmd_compare(args) -> int:
     try:
-        res = _session(args).compare(args.config)
-    except (RuntimeError, LookupError) as e:
+        res = _session(args).compare(args.config, base=args.base,
+                                     new=args.new, threshold=args.threshold,
+                                     window=args.window)
+    except (RuntimeError, LookupError, ValueError) as e:
         print(f"compare: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    return res.exit_code
+
+
+def cmd_trend(args) -> int:
+    try:
+        s = _session(args)
+        if args.action == "tag":
+            if not args.name:
+                print(f"trend tag: a tag name is required (`{PROG} trend "
+                      "tag NAME [--run RUN_ID]`)", file=sys.stderr)
+                return 2
+            res = s.trend_tag(args.name, run_id=args.run)
+        else:
+            res = s.trend(config=args.config, gate=args.gate,
+                          tolerance=args.tolerance, baseline=args.baseline,
+                          max_rows=args.max_rows,
+                          bench_dirs=args.bench_dir or None)
+    except (RuntimeError, LookupError) as e:
+        print(f"trend: {e.args[0] if e.args else e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    return res.exit_code
+
+
+def cmd_advise(args) -> int:
+    try:
+        res = _session(args).advise(config=args.config, top=args.top)
+    except RuntimeError as e:
+        print(f"advise: {e}", file=sys.stderr)
+        return 2
+    print(res.render())
+    return res.exit_code
+
+
+def cmd_merge(args) -> int:
+    try:
+        res = _session(args).merge(args.remote)
+    except (RuntimeError, FileNotFoundError) as e:
+        # no card, or a missing remote root: the message and exit 2
+        print(f"merge: {e}", file=sys.stderr)
         return 2
     print(res.render())
     return res.exit_code
@@ -316,26 +379,96 @@ def build_parser() -> argparse.ArgumentParser:
 
     cp = sub.add_parser("compare",
                         help="newest record of each config against the one "
-                             "before; exit 1 on a regression")
+                             "before, or two runs; exit 1 on a regression")
     common(cp)
     store(cp)
     cp.add_argument("--config", default=None)
+    cp.add_argument("--base", default=None, help="base run id (prefix ok)")
+    cp.add_argument("--new", default=None, help="new run id (prefix ok)")
+    cp.add_argument("--threshold", type=float, default=0.10,
+                    help="relative regression threshold (default 0.10)")
+    cp.add_argument("--window", type=int, default=2,
+                    help="compare the newest against the run window-1 "
+                         "records before it (default 2)")
     cp.set_defaults(fn=cmd_compare)
 
-    # listed for --help; ``main`` forwards ``tune ...`` before parsing
-    tu = sub.add_parser("tune", add_help=False,
-                        help="kernel autotuning and the dispatch table "
-                             "(try `tune --help`)")
-    tu.add_argument("rest", nargs=argparse.REMAINDER)
+    def workspace(p) -> None:
+        p.add_argument("--workspace", default=None, metavar="DIR",
+                       help="workspace root (default: $REPRO_WORKSPACE, "
+                            "else ./.repro-workspace in a checkout, else "
+                            "~/.repro)")
+
+    tr = sub.add_parser("trend",
+                        help="perf-trend sparklines over the stored records "
+                             "and BENCH_*.json; --gate: the regression gate "
+                             "(repro_torch.obs)")
+    common(tr)
+    workspace(tr)
+    tr.add_argument("action", nargs="?", choices=("tag",),
+                    help="`trend tag NAME [--run ID]` pins a known-good run "
+                         "for --baseline")
+    tr.add_argument("name", nargs="?", help="tag name for `trend tag`")
+    tr.add_argument("--run", default=None,
+                    help="run id to tag (default: the newest trace record)")
+    tr.add_argument("--config", default=None,
+                    help="only this registry config's trace series")
+    tr.add_argument("--gate", action="store_true",
+                    help="exit 1 when a lower-is-better series regressed "
+                         "past --tolerance against its history")
+    tr.add_argument("--tolerance", type=float, default=None,
+                    help="relative regression tolerance (default 0.25)")
+    tr.add_argument("--baseline", default=None, metavar="TAG_OR_RUN",
+                    help="pin the gate to a tagged known-good run (a `trend "
+                         "tag` name or a run id) instead of the rolling "
+                         "median")
+    tr.add_argument("--max-rows", type=int, default=40,
+                    help="series rows to print (default 40)")
+    tr.add_argument("--bench-dir", action="append", metavar="DIR",
+                    help="a BENCH_*.json directory read besides the "
+                         "workspace's bench/ (repeatable)")
+    tr.set_defaults(fn=cmd_trend)
+
+    ad = sub.add_parser("advise",
+                        help="mine the stored records for bottleneck "
+                             "patterns; ranked remediations "
+                             "(repro_torch.obs)")
+    common(ad)
+    workspace(ad)
+    ad.add_argument("--config", default=None,
+                    help="only this registry config")
+    ad.add_argument("--top", type=int, default=0,
+                    help="print only the top N findings (default: all)")
+    ad.set_defaults(fn=cmd_advise)
+
+    mg = sub.add_parser("merge",
+                        help="union another workspace's stores into this "
+                             "one (repro_torch.obs)")
+    common(mg)
+    workspace(mg)
+    mg.add_argument("remote", metavar="REMOTE_ROOT",
+                    help="root directory of the workspace to merge in")
+    mg.set_defaults(fn=cmd_merge)
+
+    # listed for --help; ``main`` forwards them before parsing
+    for name, help_ in (
+            ("sweep", "cross-config campaigns: run / report (try "
+                      "`sweep --help`)"),
+            ("tune", "kernel autotuning and the dispatch table (try "
+                     "`tune --help`)")):
+        p = sub.add_parser(name, add_help=False, help=help_)
+        p.add_argument("rest", nargs=argparse.REMAINDER)
     return ap
 
 
 def main(argv: Sequence[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] == ["tune"]:
-        from repro_torch.tune.cli import main as tune_main
+    if argv[:1] in (["tune"], ["sweep"]):
+        if argv[0] == "tune":
+            from repro_torch.tune.cli import main as sub_main
+        else:
+            from repro_torch.sweep.cli import main as sub_main
         try:
-            return tune_main(argv[1:], prog=f"{PROG} tune")
+            return int(sub_main(argv[1:], prog=f"{PROG} {argv[0]}") or 0)
         except SystemExit as e:             # --help or a usage error
             return int(e.code or 0)
     args = build_parser().parse_args(argv)

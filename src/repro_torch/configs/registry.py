@@ -46,3 +46,35 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def family_of(name: str) -> str:
+    return get_config(name).family
+
+
+def select(selector: str) -> tuple[str, ...]:
+    """Expand one config selector (an entry of a sweep spec's
+    ``configs``): ``"all"`` is the LM archs (``ARCHS``),
+    ``"family:<fam>"`` every arch of that family, an exact name itself
+    (``deepcam`` too)."""
+    if selector == "all":
+        return ARCHS
+    if selector.startswith("family:"):
+        fam = selector.removeprefix("family:")
+        out = tuple(a for a in ARCHS if family_of(a) == fam)
+        if not out:
+            raise KeyError(f"no assigned arch has family {fam!r}")
+        return out
+    if selector not in _MODULES:
+        raise KeyError(f"unknown arch {selector!r}; known: {sorted(_MODULES)} "
+                       "(or 'all' / 'family:<fam>')")
+    return (selector,)
+
+
+def select_many(selectors) -> tuple[str, ...]:
+    """Expand and dedupe a list of selectors, first-seen order kept."""
+    seen: dict[str, None] = {}
+    for sel in selectors:
+        for name in select(sel):
+            seen.setdefault(name)
+    return tuple(seen)

@@ -190,6 +190,45 @@ def achieved_table(results: "dict[str, dict[str, object]]") -> str:
     return "\n".join(out)
 
 
+def sweep_table(rows: Sequence[dict]) -> str:
+    """Ranked cross-config campaign summary (``sweep report``).
+
+    One row per sweep point, best %-of-roofline first; analytical
+    (bound-only) points carry no achieved numbers and sort last.  A row
+    (``repro_torch.sweep.aggregate.summary_rows``) carries ``label``,
+    ``measured``, ``wall_s``, ``bound_overlap_s``,
+    ``achieved_flops_per_s``, ``pct_of_roofline``, the per-level time
+    fractions ``hbm_frac`` / ``vmem_frac`` (``vmem`` is the on-chip level:
+    L2 on Hopper) and ``dominant``.
+    """
+    out = [f"{'#':>3} {'point':<38}{'wall':>11}{'bound':>11}{'achieved':>12}"
+           f"{'%roof':>8}{'hbm%':>7}{'vmem%':>7}{'dominant':>12}"]
+    ranked = sorted(
+        rows, key=lambda r: (not r["measured"],
+                             -float(r.get("pct_of_roofline", 0.0)),
+                             -float(r.get("bound_overlap_s", 0.0))))
+    for i, r in enumerate(ranked, 1):
+        wall = float(r.get("wall_s", 0.0))
+        meas = r["measured"] and wall > 0
+        out.append(
+            f"{i:>3} {r['label'][:37]:<38}"
+            + (f"{wall*1e3:>9.3f}ms" if meas else f"{'--':>11}")
+            + f"{float(r['bound_overlap_s'])*1e3:>9.3f}ms"
+            + (f"{_fmt_si(float(r['achieved_flops_per_s']), 'F/s'):>12}"
+               f"{100*float(r['pct_of_roofline']):>7.1f}%"
+               f"{100*float(r['hbm_frac']):>6.1f}%"
+               f"{100*float(r['vmem_frac']):>6.1f}%"
+               if meas else f"{'--':>12}{'--':>8}{'--':>7}{'--':>7}")
+            + f"{str(r.get('dominant', '')):>12}")
+    n_meas = sum(1 for r in rows if r["measured"])
+    out.append(f"{len(rows)} point(s) | {n_meas} measured, "
+               f"{len(rows)-n_meas} analytical (bound-only) | "
+               "ranked by %-of-roofline (achieved wall vs perfect-overlap "
+               "bound); hbm%/vmem% = fraction of wall at that level's "
+               "bandwidth bound")
+    return "\n".join(out)
+
+
 def terms_table(results: dict[str, object]) -> str:
     """Three-term roofline summary across experiments."""
     out = [f"{'experiment':<34}{'compute':>11}{'memory':>11}{'coll':>11}"

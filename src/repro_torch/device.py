@@ -41,6 +41,14 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE
     raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
 
 
+def device_label(dev: torch.device) -> str:
+    """``"cpu"``, or ``"cuda:0 (<the card's name>)"``: the device a
+    record's ``meta`` names."""
+    if dev.type == "cuda":
+        return f"{dev} ({torch.cuda.get_device_name(dev)})"
+    return str(dev)
+
+
 def describe_gpu() -> dict[str, object]:
     """Name, compute capability and power limit of the first CUDA card;
     ``smi`` is ``name, power.limit`` exactly as ``nvidia-smi`` prints it."""

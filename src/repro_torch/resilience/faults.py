@@ -2,14 +2,17 @@
 one plan, hooks at the fragile seams.
 
 A :class:`FaultPlan` is parsed from the ``REPRO_FAULTS`` environment
-variable.  In the port one hook queries it so far: the serving engine's
-tick (``serve/engine.py``, ``serve_fault``); the reference also threads
-it through its sweep engine, trainer, checkpointer and JSONL stores, and
-the grammar keeps their kinds so that one plan reads the same in both
-packages.  Firing is deterministic: a spec targets one site index (point
-ordinal, train step, engine tick, checkpoint step) and fires a bounded
-number of times, so the same plan replays the same failure sequence
-every run.
+variable (or ``--faults``).  These hooks query it: the serving engine's
+tick (``serve/engine.py``, ``serve_fault``), the trainer
+(``train/trainer.py``, ``crash_step`` and ``step_fault``), the
+checkpointer (``checkpoint/checkpointer.py``, ``ckpt_fail``), the sweep
+points (``sweep/engine.py::_point_job``, ``crash_point`` and
+``hang_point``) and the JSONL stores (``trace/store.py::TraceStore.append``,
+``torn_tail``).  The grammar is the reference's, so that one plan reads
+the same in both packages.  Firing is deterministic: a spec targets one
+site index (point ordinal, train step, engine tick, checkpoint step) and
+fires a bounded number of times, so the same plan replays the same
+failure sequence every run.
 
 Grammar (``;``-separated specs, each ``kind[:target[:arg]][xTIMES]``)::
 

@@ -9,8 +9,9 @@ from typing import Any
 
 from repro_torch.core.machine import MachineSpec
 
-#: RooflineResult.kind values this slice produces
-KINDS = ("characterize", "profile", "record", "report", "compare", "tune")
+#: RooflineResult.kind values the port produces
+KINDS = ("characterize", "profile", "record", "report", "compare", "tune",
+         "sweep", "trend", "advise", "merge")
 
 
 @dataclasses.dataclass(frozen=True)

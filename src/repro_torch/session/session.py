@@ -1,8 +1,10 @@
 """Session: the paper's workflow as one object (port of
 ``repro.session.session``) — characterize the machine, characterize the
-application against it, record measured runs and read them back::
+application against it, record measured runs, run whole campaigns, and
+read the history back::
 
-    characterize → profile → record → serve → report → compare
+    characterize → profile → record → serve → sweep → report → compare
+                                                → trend → advise → merge
 
 ``Session(device=...)`` defaults to ``"cuda"`` and raises when there is
 no CUDA device; pass ``device="cpu"`` to run the plain PyTorch versions
@@ -17,11 +19,14 @@ Records go to the workspace's trace store
 (:class:`~repro_torch.session.workspace.Workspace`), in the reference's
 schema; so does ``serve``, which drives the continuous-batching engine
 (``repro_torch.serve``) over a seeded arrival trace and records its
-prefill and decode phases.  ``tune`` searches kernel launch configs, and (``dispatch=True``)
-the fused-vs-reference dispatch table, into the workspace's tune store;
-``profile``, ``record`` and ``characterize`` read that store under the
-session's machine key (``fusion="auto"`` routes by its dispatch table,
-the kernels launch with its winners).
+prefill and decode phases.  ``sweep`` runs a campaign of points
+(``repro_torch.sweep``) into the workspace's sweep store; ``trend``,
+``advise`` and ``merge`` read the stores (``repro_torch.obs``).
+``tune`` searches kernel launch configs, and (``dispatch=True``) the
+fused-vs-reference dispatch table, into the workspace's tune store;
+``profile``, ``record``, ``sweep`` and ``characterize`` read that store
+under the session's machine key (``fusion="auto"`` routes by its
+dispatch table, the kernels launch with its winners).
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.core.machine import (CPU_HOST, MachineSpec, datasheet_for,
                                       get_machine)
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import (DEFAULT_DEVICE, device_label,
+                                 resolve_device)
 from repro_torch.session.result import (RooflineResult, payload_from_profile,
                                         phases_from_record)
 from repro_torch.session.workspace import Workspace
@@ -77,11 +83,9 @@ class Session:
                 f"workspace={self.workspace.root!r})")
 
     def _provenance(self, **extra: Any) -> dict[str, Any]:
-        dev = str(self.device)
-        if self.device.type == "cuda":
-            dev += f" ({torch.cuda.get_device_name(self.device)})"
-        return {"device": dev, "machine": self.machine.name,
-                "torch": torch.__version__, **extra}
+        return {"device": device_label(self.device),
+                "machine": self.machine.name, "torch": torch.__version__,
+                **extra}
 
     def _scope(self):
         """Bind the workspace's tune store, the session's machine key and
@@ -363,17 +367,84 @@ class Session:
             data=rec)
 
     # -- 5. regressions between stored runs -------------------------------
-    def compare(self, config: str | None = None) -> RooflineResult:
-        """Diff the newest stored run of each config against the one
-        before; ``exit_code`` is 1 when any cell regressed past 10%."""
-        from repro_torch.trace.compare import (compare_last, format_deltas,
-                                               has_regressions)
-        deltas = compare_last(self.workspace.trace_store, config)
+    def compare(self, config: str | None = None, *, base: str | None = None,
+                new: str | None = None, threshold: float = 0.10,
+                window: int = 2) -> RooflineResult:
+        """Diff stored runs: the newest of each config against the run
+        ``window - 1`` records before it, or two explicit run ids (``base``
+        and ``new``, prefixes allowed); ``exit_code`` is 1 when any cell
+        regressed past ``threshold``."""
+        from repro_torch.trace.compare import (compare_last, compare_records,
+                                               format_deltas, has_regressions)
+        store = self.workspace.trace_store
+        if base or new:
+            if not (base and new):
+                raise ValueError("base and new run ids go together")
+            b, n = store.run(base), store.run(new)
+            if b is None or n is None:
+                raise LookupError(
+                    f"run id not found in {self.workspace.trace_path}")
+            deltas = compare_records(b, n, threshold)
+        else:
+            deltas = compare_last(store, config, threshold, window=window)
         return RooflineResult(
             kind="compare", name=config or "all", machine=self.machine,
-            provenance=self._provenance(store=self.workspace.trace_path),
+            provenance=self._provenance(store=self.workspace.trace_path,
+                                        threshold=threshold),
             text=format_deltas(deltas), data=deltas,
             exit_code=1 if has_regressions(deltas) else 0)
+
+    # -- 5b. cross-config campaigns ----------------------------------------
+    def sweep(self, spec: Any = None, *, smoke: bool = False,
+              workers: int | None = None,
+              progress: Callable[[str], None] | None = None,
+              resume: bool = False, deadline_s: float | None = None,
+              retries: int = 1, **axes: Any) -> RooflineResult:
+        """Run a campaign into the workspace's sweep store and summarize.
+
+        Pass a :class:`~repro_torch.sweep.spec.SweepSpec`, ``smoke=True``
+        for the CI preset, or the axes as keywords (``configs=("glm4-9b",),
+        seqs=(16,), amps=("O0", "O1")``...).  The bounds are against the
+        session's machine (the preset takes its name too), measured
+        points run on the session's device and launch with the
+        workspace's tune store.  ``resume``, ``deadline_s`` and
+        ``retries`` go to :func:`repro_torch.sweep.engine.run_sweep` (the
+        journal lies beside the sweep store).
+        """
+        from repro_torch.sweep.aggregate import (latest_per_point,
+                                                 render_summary,
+                                                 sweep_records)
+        from repro_torch.sweep.engine import run_sweep
+        from repro_torch.sweep.spec import (SweepSpec, normalize_axes,
+                                            smoke_spec)
+
+        if spec is None:
+            if smoke:
+                spec = dataclasses.replace(smoke_spec(),
+                                           machine=self.machine.name)
+            else:
+                spec = SweepSpec(machine=self.machine.name,
+                                 **normalize_axes(dict(axes)))
+        elif axes:
+            raise TypeError(f"pass axes ({sorted(axes)}) or a spec, "
+                            "not both")
+        result = run_sweep(spec, store_path=self.workspace.sweep_path,
+                           cache_dir=self.workspace.sweep_cache_dir,
+                           workers=workers, progress=progress,
+                           resume=resume, deadline_s=deadline_s,
+                           retries=retries, device=str(self.device),
+                           tune_store=self.workspace.tune_path)
+        self.workspace.write_header(self.machine.name)
+        recs = latest_per_point(sweep_records(self.workspace.sweep_store,
+                                              spec.name))
+        return RooflineResult(
+            kind="sweep", name=spec.name, machine=self.machine,
+            provenance=self._provenance(store=self.workspace.sweep_path,
+                                        n_ok=result.n_ok,
+                                        n_failed=result.n_failed),
+            text=render_summary(recs) if recs else "(no points stored)",
+            data=result,
+            exit_code=1 if result.n_failed else 0)
 
     # -- 6. kernel autotuning and the dispatch table ---------------------
     def tune(self, kernels: Sequence[str] | None = None, *,
@@ -432,6 +503,89 @@ class Session:
                                         n_winners=len(list(store.keys()))),
             text="\n".join(o.describe() for o in outcomes.values()),
             data=outcomes)
+
+
+    # -- 7. observability: trend / advise / merge (repro_torch.obs) -------
+    def trend(self, config: str | None = None, *, gate: bool = False,
+              tolerance: float | None = None, baseline: str | None = None,
+              bench_dirs: Sequence[str] | None = None,
+              max_rows: int = 40) -> RooflineResult:
+        """Perf-trend series over the workspace's history (trace and sweep
+        records, the ``BENCH_*.json`` of its ``bench/`` and of
+        ``bench_dirs``) as sparklines; ``gate=True`` sets ``exit_code`` 1
+        when a lower-is-better series regressed past the tolerance.
+        ``baseline`` (a tag or a run id, :meth:`trend_tag`) pins the gate
+        to a known-good run instead of the rolling median."""
+        from repro_torch.obs.trend import (DEFAULT_TOLERANCE, collect_series,
+                                           gate_series, render_trend)
+        series = collect_series(self.workspace, config,
+                                bench_dirs=bench_dirs)
+        baseline_run = (self.workspace.resolve_tag(baseline)
+                        if baseline else None)
+        regressions = gate_series(
+            series, tolerance if tolerance is not None
+            else DEFAULT_TOLERANCE,
+            baseline_run=baseline_run) if gate else None
+        return RooflineResult(
+            kind="trend", name=config or "all", machine=self.machine,
+            provenance=self._provenance(n_series=len(series), gated=gate,
+                                        baseline=baseline_run),
+            text=render_trend(series, regressions, max_rows=max_rows),
+            data=(series, regressions or []),
+            exit_code=1 if regressions else 0)
+
+    def trend_tag(self, name: str, run_id: str | None = None
+                  ) -> RooflineResult:
+        """Pin a run under a tag in the workspace header, so that
+        ``trend(gate=True, baseline=name)`` anchors to it; ``run_id``
+        defaults to the newest trace record, a prefix is looked up in the
+        trace then the sweep store."""
+        if run_id is None:
+            recs = self.workspace.trace_store.last(n=1)
+            if not recs:
+                raise LookupError(
+                    f"no records in {self.workspace.trace_path} to tag — "
+                    "run `python -m repro_torch record` first")
+            rec = recs[0]
+        else:
+            rec = (self.workspace.trace_store.run(run_id)
+                   or self.workspace.sweep_store.run(run_id))
+            if rec is None:
+                raise LookupError(
+                    f"run {run_id!r} not found in the workspace trace or "
+                    "sweep stores")
+        self.workspace.tag_run(name, rec.run_id)
+        return RooflineResult(
+            kind="trend", name=f"tag/{name}", machine=self.machine,
+            provenance=self._provenance(run_id=rec.run_id),
+            text=f"tagged run {rec.run_id} ({rec.config}) as {name!r} — "
+                 f"gate against it with `python -m repro_torch trend "
+                 f"--gate --baseline {name}`",
+            data={"tag": name, "run_id": rec.run_id})
+
+    def advise(self, config: str | None = None, *, top: int = 0
+               ) -> RooflineResult:
+        """Mine the stored records for known bottleneck patterns: ranked,
+        evidence-cited findings (``repro_torch.obs.advisor``)."""
+        from repro_torch.obs.advisor import advise, render_findings
+        findings = advise(self.workspace, config, machine=self.machine.name)
+        return RooflineResult(
+            kind="advise", name=config or "all", machine=self.machine,
+            provenance=self._provenance(n_findings=len(findings)),
+            text=render_findings(findings, top=top), data=findings)
+
+    def merge(self, remote_root: str) -> RooflineResult:
+        """Union another workspace's stores into this one (run id, tune
+        key and harvest-file dedupe; conflicts skipped and reported; the
+        provenance appended to ``workspace.json``)."""
+        from repro_torch.obs.merge import merge_workspace, render_merge
+        reports = merge_workspace(self.workspace, remote_root)
+        return RooflineResult(
+            kind="merge", name=remote_root, machine=self.machine,
+            provenance=self._provenance(
+                added={r.store: r.n_added for r in reports}),
+            text=render_merge(reports, self.workspace.root, remote_root),
+            data=reports)
 
 
 def build_phases(config: str, *, phases: Sequence[str], seq: int,

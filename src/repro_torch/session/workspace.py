@@ -1,20 +1,28 @@
 """Workspace: one root directory for the port's persistent state (port of
-the part of ``repro.session.workspace`` that ``record`` / ``report`` and
-``tune`` need; the sweep store comes with its subsystem).
+``repro.session.workspace``).
 
 .. code-block:: text
 
     <root>/
-    ├── workspace.json           machine-provenance header
+    ├── workspace.json           machine-provenance header, run tags,
+    │                            merge provenance
     ├── trace.jsonl              measured runs (repro_torch.trace.store)
-    └── tune.json                kernel-config and dispatch winners
-                                 (repro_torch.tune.store)
+    ├── sweep.jsonl              campaign points (the same store class)
+    ├── sweep_journal.jsonl      campaign lifecycle journal
+    │                            (repro_torch.resilience.journal)
+    ├── sweep_cache/             per-point analysis cache (repro_torch.sweep)
+    ├── tune.json                kernel-config and dispatch winners
+    │                            (repro_torch.tune.store)
+    └── bench/                   BENCH_<ts>.json of python -m repro_torch.bench
 
 Resolution order of the root: an explicit path, then the
 ``REPRO_WORKSPACE`` environment variable, then ``./.repro-workspace``
 inside a checkout (the working directory has ``.git``, or the directory
-exists already), else ``~/.repro``.  The file names and the header are
-the reference's, so ``repro`` reads a workspace the port wrote.
+exists already), else ``~/.repro``.  The file names and the header (schema
+version 1, with its ``tags`` and ``merges``) are the reference's, so
+either package reads, resumes and merges a workspace the other wrote.
+The port has no per-store legacy defaults (``benchmarks/results/``): it
+never wrote there.
 """
 
 from __future__ import annotations
@@ -29,8 +37,12 @@ from repro_torch.trace.store import TraceStore, git_sha, host_fingerprint
 WORKSPACE_ENV = "REPRO_WORKSPACE"
 HEADER_SCHEMA_VERSION = 1
 TRACE_FILENAME = "trace.jsonl"
+SWEEP_FILENAME = "sweep.jsonl"
+JOURNAL_FILENAME = "sweep_journal.jsonl"
+SWEEP_CACHE_DIRNAME = "sweep_cache"
 TUNE_FILENAME = "tune.json"
 HEADER_FILENAME = "workspace.json"
+BENCH_DIRNAME = "bench"
 
 
 def default_workspace_root() -> str:
@@ -47,14 +59,16 @@ def default_workspace_root() -> str:
 
 
 class Workspace:
-    """The trace and tune stores and their provenance header under one
-    root."""
+    """The trace, sweep and tune stores, the journal, the analysis cache
+    and the bench harvests under one root, bound by one provenance
+    header."""
 
     def __init__(self, root: str | None = None,
                  trace_filename: str = TRACE_FILENAME):
         self.root = os.path.abspath(root or default_workspace_root())
         self.trace_filename = trace_filename
         self._trace_store: TraceStore | None = None
+        self._sweep_store: TraceStore | None = None
         self._tune_store = None
 
     @classmethod
@@ -66,9 +80,22 @@ class Workspace:
     def __repr__(self) -> str:
         return f"Workspace({self.root!r})"
 
+    # -- layout ----------------------------------------------------------
     @property
     def trace_path(self) -> str:
         return os.path.join(self.root, self.trace_filename)
+
+    @property
+    def sweep_path(self) -> str:
+        return os.path.join(self.root, SWEEP_FILENAME)
+
+    @property
+    def journal_path(self) -> str:
+        return os.path.join(self.root, JOURNAL_FILENAME)
+
+    @property
+    def sweep_cache_dir(self) -> str:
+        return os.path.join(self.root, SWEEP_CACHE_DIRNAME)
 
     @property
     def tune_path(self) -> str:
@@ -79,10 +106,27 @@ class Workspace:
         return os.path.join(self.root, HEADER_FILENAME)
 
     @property
+    def bench_dir(self) -> str:
+        return os.path.join(self.root, BENCH_DIRNAME)
+
+    def store_paths(self) -> dict[str, str]:
+        return {"trace": self.trace_path, "sweep": self.sweep_path,
+                "tune": self.tune_path}
+
+    # -- stores ----------------------------------------------------------
+    @property
     def trace_store(self) -> TraceStore:
         if self._trace_store is None:
             self._trace_store = TraceStore(self.trace_path)
         return self._trace_store
+
+    @property
+    def sweep_store(self) -> TraceStore:
+        """Sweep records share the trace schema: a separate file, the
+        same class."""
+        if self._sweep_store is None:
+            self._sweep_store = TraceStore(self.sweep_path)
+        return self._sweep_store
 
     @property
     def tune_store(self):
@@ -92,6 +136,11 @@ class Workspace:
             from repro_torch.tune.store import _as_store
             self._tune_store = _as_store(self.tune_path)
         return self._tune_store
+
+    # -- provenance header -----------------------------------------------
+    def ensure(self) -> "Workspace":
+        os.makedirs(self.root, exist_ok=True)
+        return self
 
     def read_header(self) -> dict[str, Any]:
         """The stored header, or ``{}`` (a corrupt header is never
@@ -105,8 +154,8 @@ class Workspace:
 
     def write_header(self, machine: str) -> dict[str, Any]:
         """Stamp (or refresh) the machine-provenance header; ``created``
-        survives rewrites, as do the reference's ``merges`` and ``tags``."""
-        os.makedirs(self.root, exist_ok=True)
+        survives rewrites, as do ``merges`` and ``tags``."""
+        self.ensure()
         prev = self.read_header()
         header = {
             "schema_version": HEADER_SCHEMA_VERSION,
@@ -115,13 +164,68 @@ class Workspace:
             "host": host_fingerprint(),
             "created": prev.get("created", time.time()),
             "updated": time.time(),
-            "stores": {"trace": self.trace_filename, "tune": TUNE_FILENAME},
+            "stores": {k: os.path.basename(v)
+                       for k, v in self.store_paths().items()},
         }
         for key in ("merges", "tags"):
             if prev.get(key):
                 header[key] = prev[key]
+        self._write_header_doc(header)
+        return header
+
+    def _write_header_doc(self, header: dict[str, Any]) -> None:
         tmp = f"{self.header_path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(header, f, indent=1, sort_keys=True)
         os.replace(tmp, self.header_path)
+
+    def _header_or_new(self) -> dict[str, Any]:
+        self.ensure()
+        return self.read_header() or {
+            "schema_version": HEADER_SCHEMA_VERSION, "created": time.time()}
+
+    def record_merge(self, entry: dict[str, Any]) -> dict[str, Any]:
+        """Append one merge's provenance (the remote's identity and the
+        records added per store) to the header's ``merges`` list."""
+        header = self._header_or_new()
+        header.setdefault("merges", []).append(dict(entry))
+        header["updated"] = time.time()
+        self._write_header_doc(header)
         return header
+
+    def tag_run(self, name: str, run_id: str) -> dict[str, Any]:
+        """Pin a run id under a name in the header's ``tags`` (``trend tag
+        NAME``), so that the trend gate can anchor to a known-good run
+        instead of the rolling median."""
+        header = self._header_or_new()
+        header.setdefault("tags", {})[str(name)] = {
+            "run_id": str(run_id), "created": time.time()}
+        header["updated"] = time.time()
+        self._write_header_doc(header)
+        return header
+
+    def tags(self) -> dict[str, dict[str, Any]]:
+        """The header's run tags (``{}`` when none were set)."""
+        tags = self.read_header().get("tags")
+        return dict(tags) if isinstance(tags, dict) else {}
+
+    def resolve_tag(self, name_or_run: str) -> str:
+        """A tag → its pinned run id; anything else passes through (so
+        ``--baseline`` takes either)."""
+        entry = self.tags().get(str(name_or_run))
+        if isinstance(entry, dict) and entry.get("run_id"):
+            return str(entry["run_id"])
+        return str(name_or_run)
+
+    def describe(self) -> str:
+        header = self.read_header()
+        lines = [f"workspace: {self.root}"]
+        if header:
+            lines.append(
+                f"  header: machine={header.get('machine', '?')} "
+                f"git={str(header.get('git_sha', '?'))[:12]} "
+                f"host={header.get('host', {}).get('host', '?')}")
+        for kind, path in self.store_paths().items():
+            mark = "present" if os.path.exists(path) else "absent"
+            lines.append(f"  {kind:<6} {os.path.basename(path):<12} {mark}")
+        return "\n".join(lines)

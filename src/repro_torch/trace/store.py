@@ -12,7 +12,9 @@ as in the reference's payloads.
 The store is plain JSONL, append-only: corrupt lines are skipped on read,
 records from a newer schema are skipped with a warning, and an append is
 durable (flush + fsync) and repairs a torn final line left by a crashed
-writer before its record lands.
+writer before its record lands (``repro_torch.resilience.jsonl``).  A
+``torn_tail[:STORE]`` fault (``REPRO_FAULTS``) makes the next append to
+the store write half its line and raise, as a crash mid-append would.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ import uuid
 import warnings
 from typing import Any, Iterable, Mapping
 
+from repro_torch.resilience import faults
+from repro_torch.resilience.jsonl import (fsync_append,
+                                          repair_jsonl_tail)
 from repro_torch.trace.collector import PhaseMeasurement
 
 SCHEMA_VERSION = 1
@@ -35,10 +40,6 @@ SCHEMA_VERSION = 1
 # phase-payload metric keys every record carries (compare iterates these)
 PHASE_METRICS = ("wall_s", "achieved_flops_per_s", "pct_of_roofline",
                  "bound_overlap_s", "bound_serial_s")
-
-#: how far back from the end an append looks for the last newline; one
-#: record larger than this is out of contract for the store
-_TAIL_SCAN_BYTES = 4 << 20
 
 
 def git_sha(repo_root: str | None = None) -> str:
@@ -186,59 +187,36 @@ def record_from_phases(config: str,
         machine=machine, mesh=mesh, meta=meta)
 
 
-def repair_jsonl_tail(path: str) -> int:
-    """Repair ``path``'s final line in place before an append.
-
-    A newline-terminated file is left untouched; a final fragment that
-    parses as JSON gets its newline (the crash fell between the payload
-    and the newline: the record is whole); anything else after the last
-    newline is truncated.  Returns the bytes truncated.
-    """
-    try:
-        size = os.path.getsize(path)
-    except OSError:
-        return 0
-    if size == 0:
-        return 0
-    with open(path, "rb+") as f:
-        scan = min(size, _TAIL_SCAN_BYTES)
-        f.seek(size - scan)
-        tail = f.read(scan)
-        if tail.endswith(b"\n"):
-            return 0
-        cut = tail.rfind(b"\n")
-        frag = tail[cut + 1:]
-        try:
-            json.loads(frag.decode("utf-8"))
-            f.write(b"\n")
-            f.flush()
-            os.fsync(f.fileno())
-            return 0
-        except (ValueError, UnicodeDecodeError):
-            pass
-        if cut < 0 and scan < size:
-            return 0          # one oversized record: left to the reader
-        f.truncate(size - scan + cut + 1 if cut >= 0 else 0)
-        f.flush()
-        os.fsync(f.fileno())
-        return len(frag)
-
-
 class TraceStore:
     """Append-only JSONL store of :class:`TraceRecord` lines."""
 
     def __init__(self, path: str):
         self.path = path
 
+    @property
+    def _store_kind(self) -> str:
+        """The store name fault specs target (``torn_tail:sweep``): the
+        file's basename without ``.jsonl``."""
+        base = os.path.basename(self.path)
+        return base[:-len(".jsonl")] if base.endswith(".jsonl") else base
+
     def append(self, rec: TraceRecord) -> TraceRecord:
+        line = rec.to_json()
+        spec = faults.active_plan().fires("torn_tail", self._store_kind)
+        if spec is None:
+            fsync_append(self.path, line)
+            return rec
+        # a writer crash mid-append: half the line durably on disk, no
+        # newline, then the fault
         os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                     exist_ok=True)
         repair_jsonl_tail(self.path)
         with open(self.path, "a") as f:
-            f.write(rec.to_json() + "\n")
+            f.write(line[:max(1, len(line) // 2)])
             f.flush()
             os.fsync(f.fileno())
-        return rec
+        raise faults.InjectedFault(
+            f"injected {spec.render()}: torn append to {self.path}")
 
     def records(self, config: str | None = None) -> list[TraceRecord]:
         """All readable records, oldest first; corrupt lines and
@@ -283,6 +261,11 @@ class TraceStore:
         for rec in self.records():
             seen.setdefault(rec.config)
         return list(seen)
+
+    def records_where(self, predicate) -> list[TraceRecord]:
+        """Readable records matching ``predicate(rec)``, oldest first
+        (``lambda r: r.meta.get("sweep") == name``)."""
+        return [rec for rec in self.records() if predicate(rec)]
 
 
 def iter_jsonl(path: str) -> Iterable[dict]:
