@@ -55,8 +55,12 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    tile) and seamless's encoder over 256 frames, the norms at width 1024
    (granite-moe, seamless; phi-3's 3072 is minitron's), SwiGLU at
    (4096, 8192) (phi-3), and (after path k) the AdamW launch on
-   granite-moe's leaves;
-4. drives thirteen main paths, each with every launch count set to 0
+   granite-moe's leaves; and the shapes path o gives them
+   (:func:`micro_table`): ``fused_bench``'s micro rows (fp32 (2048, 512)
+   residual RMSNorm and SwiGLU, a 1,048,576-element AdamW leaf beside
+   ``torch._fused_adamw_``) and ``kernel_bench``'s flash row (bf16 (2,
+   256, 64), causal, beside SDPA);
+4. drives fourteen main paths, each with every launch count set to 0
    just before it and read just after:
    a. machine characterization (``Session.characterize(empirical=True,
       tuned=False)``,
@@ -195,6 +199,19 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       compiling); trend with a tagged baseline and its gate, advise, a
       merge into an empty root, and ``sweep report`` / ``trend --gate``
       through the CLI;
+   o. the reference's remaining benchmark suites
+      (:func:`bench_suites_path`, after path n): ``python -m
+      repro_torch.bench``'s kernel_bench, fused_bench, dispatch_bench,
+      serve_bench and the seven smokes (trace, sweep, tune, dispatch,
+      session, obs, chaos) in process, every suite ``ok`` but
+      fused_bench, whose one failure must be the zero-AI census gate's
+      (its reading printed); fused_bench's micro rows, census gate and
+      off / static / auto trace one by one; the trace and
+      dispatch_bench's step and table gates again on glm4-9b at full
+      width, 4 layers, seq 2048, batch 2; and the dispatch search of that
+      step twice, each site's fused and reference walls of both beside
+      the card's time to run its kernels, timed behind a spin of the
+      card;
    (paths l and k run after h and before j and i: no profiled window
    before them);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
@@ -4555,6 +4572,294 @@ def sweep_obs_path(sheet, *, device: str = "cuda", smoke: bool = False,
     return counts
 
 
+#: path o's suites: the reference's gates and smokes that PRs 24-25 left
+#: out of ``python -m repro_torch.bench`` (its order)
+PATH_O_SUITES = ("kernel_bench", "trace_smoke", "sweep_smoke", "tune_smoke",
+                 "fused_bench", "dispatch_smoke", "dispatch_bench",
+                 "session_smoke", "obs_smoke", "serve_bench", "chaos_smoke")
+#: path o's second pass of the fused trace and the dispatch gates: paths c
+#: and e's step (glm4-9b at full width, 4 layers, seq 2048, batch 2)
+PATH_O_FULL = dict(smoke=False, n_layers=4, seq=2048, batch=2)
+
+
+def micro_table(dev, sheet) -> list[dict]:
+    """Step 3's rows at path o's new shapes: ``fused_bench``'s micro cases
+    (fp32 (2048, 512) residual RMSNorm and SwiGLU, a 1,048,576-element
+    AdamW leaf), each held against its kernel's plain version at step 3's
+    fp32 tolerance (the norm 8 f32 ulps at max|ref|, r exact; SwiGLU and
+    AdamW 1) and against the micro row's own chain (printed), and
+    ``kernel_bench``'s flash row, bf16 (2, 256, 64) causal, at
+    ``ref.kernel_tolerance``; each timed through a replayed CUDA graph
+    beside its bound, its plain version and the library call where one
+    exists (``torch._fused_adamw_``, SDPA)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench import fused_bench, kernel_bench
+    from repro_torch.kernels import config as kc
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.fused import adamw, norm, swiglu
+
+    def f32_tol(ref, ulps: int) -> float:
+        return ulps * 2.0 ** -22 * ref.float().abs().max().item() + 1e-30
+
+    hyper = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    plain = {"norm_residual": lambda x, h, s: norm.rmsnorm_residual_ref(
+                 x, h, s, 1e-5, torch.float32),
+             "swiglu": lambda g, u: swiglu.swiglu_ref(g, u, "silu",
+                                                      torch.float32),
+             "adamw": lambda g, m, v, p, bc: adamw.adamw_ref(
+                 g, m, v, p, bc, **hyper)}
+    ulps = {"norm_residual": 8, "swiglu": 1, "adamw": 1}
+    names = {"norm_residual": "fused_rmsnorm_residual",
+             "swiglu": "fused_swiglu", "adamw": "fused_adamw"}
+    print("fused_bench's micro shapes (path o; tolerance step 3's fp32: "
+          "the norm 8 f32 ulps at max|ref| with r exact, SwiGLU and AdamW "
+          "1)")
+    rows = []
+    # 5 operand sets (at least 63 MB a case), cycled: a timed call finds
+    # its inputs in HBM, not in the 50 MB L2
+    sets = [fused_bench.micro_cases(dev) for _ in range(5)]
+    for i, c in enumerate(sets[0]):
+        got = c.fused(*c.args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain[c.name](*c.args)
+        want = want if isinstance(want, tuple) else (want,)
+        chain = c.plain(*c.args)
+        chain = chain if isinstance(chain, tuple) else (chain,)
+        err = 0.0
+        for j, (a, w, ch) in enumerate(zip(got, want, chain)):
+            tol = 0.0 if (c.name, j) == ("norm_residual", 0) else \
+                f32_tol(w, ulps[c.name])
+            err = max(err, check(f"{c.name}[{j}] f32 "
+                                 f"{'x'.join(map(str, c.args[0].shape))}",
+                                 a, w, tol))
+            print(f"    against the micro row's chain: max_abs_err "
+                  f"{max_abs_err(a, ch)[0]:.3e}")
+        del got, want, chain
+        nxt = itertools.cycle([s[i].args for s in sets]).__next__
+        library = None
+        if c.name == "adamw":
+            steps = [torch.tensor(1.0, device=dev)]
+
+            def library(nxt=nxt, steps=steps):
+                g_, m_, v_, p_, _ = nxt()
+                torch._fused_adamw_(
+                    [p_], [g_], [m_], [v_], [], steps, lr=3e-4, beta1=0.9,
+                    beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+                    maximize=False)
+        rows.append(shape_row(
+            names[c.name], f"f32 {'x'.join(map(str, c.args[0].shape))} "
+            f"(fused_bench/{c.name})", err,
+            lambda c=c, nxt=nxt: c.fused(*nxt()),
+            lambda c=c, nxt=nxt: c.plain(*nxt()),
+            library, bound(c.nbytes, c.nflops, "f32", sheet),
+            launch_config("fused_adamw" if c.name == "adamw" else
+                          "fused_swiglu" if c.name == "swiglu" else
+                          "fused_norm", c.args[0],
+                          tuple(c.args[0].shape))))
+    del sets
+    g = torch.Generator(device=dev).manual_seed(7)
+    bh, s_, hd = kernel_bench.FLASH_TIMED
+    sets, nxt = rotating(lambda: tuple(
+        torch.randn((bh, s_, hd), generator=g, device=dev,
+                    dtype=torch.bfloat16) for _ in range(3)))
+    q, k, v = sets[0]
+    want = fref.attention_ref(q, k, v, causal=True)
+    err = check_within(f"flash[{fk.route(hd, q.dtype)}] bf16 "
+                       f"({bh}, {s_}, {hd}) causal (kernel_bench)",
+                       fk.flash_attention(q, k, v), want,
+                       fref.kernel_tolerance(want))
+    r = shape_row(
+        "flash_attention", f"bf16 ({bh}, {s_}, {hd}), causal "
+        "(kernel_bench/flash_interpret_256_us)", err,
+        lambda: fk.flash_attention(*nxt()),
+        lambda: fref.attention_ref(*nxt(), causal=True),
+        lambda: F.scaled_dot_product_attention(
+            *(t[:, None] for t in nxt()), is_causal=True),
+        bound(4 * bh * s_ * hd * 2, fk.flops(bh, s_, s_, hd), "bf16", sheet),
+        kc.resolve("flash_attention", None).dict)
+    r["extra"] = (f"{fk.route(hd, q.dtype)} kernel, "
+                  f"{r['ms'] / r['library_ms']:.3f}x SDPA")
+    rows.append(r)
+    del sets, q, k, v, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: cycles the card spins (``torch.cuda._sleep``) ahead of the calls
+#: :func:`dispatch_timer_check` times: about 0.1 s at an H100's 1.98 GHz,
+#: long enough for the host to queue every launch of 3 calls first
+QUEUE_AHEAD_CYCLES = 200_000_000
+
+
+def dispatch_timer_check(*, device: str = "cuda", smoke: bool = False,
+                         n_layers: int | None = 4, seq: int = 2048,
+                         batch: int = 2) -> None:
+    """``ROADMAP.md`` §3's open check, an observation: the dispatch search
+    of ``dispatch_bench``'s full-width step twice (``force``, into one
+    fresh store, so both measure every site), each site's fused and
+    reference walls of both searches (the search times a site's two
+    candidates in turns: CUDA events around a call, the least of 3
+    samples, ``tune/search.py::time_min``), and beside them the card's
+    time to run each candidate's kernels (a mean of 3 calls, in turns
+    fused, reference, reference, fused, the least of two), between CUDA
+    events queued behind a spin of the card (:data:`QUEUE_AHEAD_CYCLES`)
+    that outlasts the host's queueing, so the kernels run back to back.
+    A wall above the card's time is time the card spent waiting."""
+    import tempfile
+
+    import torch
+    from repro_torch.bench.dispatch_bench import LM_CONFIG as config
+    from repro_torch.device import resolve_device
+    from repro_torch.tune import dispatch as dsp
+
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "tune.json")
+        outs = [dsp.search_sites(config, seq=seq, batch=batch, store=store,
+                                 smoke=smoke, n_layers=n_layers, device=dev,
+                                 force=True) for _ in range(2)]
+    first = {r.key: r for r in outs[0].records}
+    outran = []
+
+    def card_us(site: str, fn, args, calls: int = 3) -> float:
+        fn(*args)
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn(*args)
+        if start.query():
+            outran.append(site)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / calls
+
+    print(f"  dispatch timer check ({config}, "
+          f"{'smoke' if smoke else f'full width, {n_layers} layers'}, seq "
+          f"{seq}, batch {batch}): {outs[0].n_sites} sites, "
+          f"{outs[0].n_measured} + {outs[1].n_measured} measured; µs a call")
+    for rec in outs[1].records:
+        one = first[rec.key]
+        cands = dsp.site_candidates(rec.to_key(), dev)
+        seen = {"fused": [], "reference": []}
+        for impl in ("fused", "reference", "reference", "fused"):
+            seen[impl].append(card_us(f"{rec.op} {impl}", *cands[impl]))
+        del cands
+        print(f"    {rec.op} {rec.key.split('|')[2]}: search 1 fused "
+              f"{one.fused_wall_s * 1e6:.1f} ref {one.ref_wall_s * 1e6:.1f} "
+              f"({one.impl}) | search 2 fused {rec.fused_wall_s * 1e6:.1f} "
+              f"ref {rec.ref_wall_s * 1e6:.1f} ({rec.impl}) | the card "
+              f"fused {min(seen['fused']):.1f} ref "
+              f"{min(seen['reference']):.1f}")
+    print("    " + (f"the spin ended before the host had queued the calls "
+                    f"{len(outran)} time(s), where the card's time holds "
+                    f"host gaps: {outran}" if outran else
+                    "the host queued every call within the spin"))
+    torch.cuda.empty_cache()
+
+
+def bench_suites_path(sheet, *, device: str = "cuda", smoke: bool = False,
+                      smi: str = "") -> dict:
+    """Main path o: the reference's remaining benchmark suites.
+
+    1. ``python -m repro_torch.bench``'s 11 suites of
+       :data:`PATH_O_SUITES` in process (``bench.run``), their JSON in the
+       workspace's ``bench/``: every suite ``ok`` but ``fused_bench``,
+       whose one failure must be the zero-AI census gate's message;
+    2. ``fused_bench``'s three sections one by one: the micro rows, the
+       census gate (its reading printed; ``static`` must launch strictly
+       fewer kernels than ``off``, and the gate's error, if any, must be
+       the suite's) and the off / static / auto trace;
+    3. the trace and ``dispatch_bench``'s gates again at
+       :data:`PATH_O_FULL` (paths c and e's step; with ``smoke``, the
+       suites' own shape), through the suites' keyword arguments; their
+       rows printed;
+    4. :func:`dispatch_timer_check` at that step.
+
+    Launch counts are set to 0 just before step 1 and read just after
+    step 3; returns them.  Step 3's rows at new shapes
+    (:func:`micro_table`) run before, outside the count."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import __main__ as bench
+    from repro_torch.bench import dispatch_bench, fused_bench
+    from repro_torch.bench.common import emit
+
+    cuda = torch.device(device).type == "cuda"
+    full = {} if smoke else PATH_O_FULL
+    tag = f" ({smi})" if smi else ""
+    t_path = time.perf_counter()
+    kernels.reset_launch_counts()
+
+    # 1. the suites through ``bench.run``
+    print(f"== 4o. main path: the benchmark suites on {device}{tag} "
+          f"({', '.join(PATH_O_SUITES)})")
+    res = bench.run(PATH_O_SUITES, device, echo=True)
+    path = bench.write_json(bench.default_json_dir(), res, device)
+    print(f"  rows written to {path}")
+    for name, r in res.items():
+        print(f"  {name}: ok {r['ok']}, {len(r['rows'])} rows, "
+              f"{r['wall_s']:.1f} s{'; ' + r['error'] if 'error' in r else ''}")
+    failed = {n: r.get("error") for n, r in res.items() if not r["ok"]}
+    if set(failed) - {"fused_bench"}:
+        raise AssertionError(f"bench suites failed: {failed}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2. fused_bench's sections one by one (the suite's rows are lost
+    # when its gate raises)
+    print("== 4o. fused_bench section by section")
+    emit(fused_bench.micro_rows(device))
+    try:
+        emit(fused_bench.census_gate_rows(device=device))
+        gate_error = None
+    except AssertionError as e:
+        gate_error = f"AssertionError: {e}"
+    # the launch check raises first, so the zero-AI message means that
+    # ``static`` launched strictly fewer kernels than ``off``
+    if gate_error is not None and not gate_error.startswith(
+            "AssertionError: fused zero-AI reduction "):
+        raise AssertionError(f"census gate: {gate_error}")
+    if failed.get("fused_bench") != gate_error:
+        raise AssertionError(f"fused_bench: {failed.get('fused_bench')!r}; "
+                             f"its census gate: {gate_error!r}")
+    print(f"  fused_bench's census gate against {fused_bench.ZERO_AI_GATE}: "
+          + (f"fails, and is the suite error: {gate_error}" if gate_error
+             else "holds"))
+    emit(fused_bench.trace_rows(device=device))
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 3. the trace and the dispatch gates at the full-width step
+    print(f"== 4o. fused_bench's trace and dispatch_bench at {full}")
+    t0 = time.perf_counter()
+    emit(fused_bench.trace_rows(device=device, **full))
+    if cuda:
+        torch.cuda.empty_cache()
+    emit(dispatch_bench.bench_rows(device=device, **full))
+    print(f"  full-width trace and gates: {time.perf_counter() - t0:.1f} s")
+    counts = kernels.launch_counts()
+    print(f"launches on main path o: {json.dumps(counts)}")
+    need_launched(counts, ERT_KERNELS + FUSED_KERNELS + FLASH_KERNELS, "o",
+                  cuda)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 4. the dispatch timer's open check
+    if cuda:
+        t0 = time.perf_counter()
+        dispatch_timer_check(device=device, **full)
+        print(f"  dispatch timer check: {time.perf_counter() - t0:.1f} s")
+    print(f"path o: {time.perf_counter() - t_path:.1f} s{tag}")
+    return counts
+
+
 #: the learning rate of ``make_train_step``'s default
 LR = 3e-4
 
@@ -4705,6 +5010,7 @@ def main() -> int:
     rows += flash_checks(dev, sheet)
     rows += ssd_checks(dev, sheet)
     rows += serving_checks(dev, sheet)
+    rows += micro_table(dev, sheet)
     for r in rows:
         lib = r["library_ms"]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
@@ -4863,6 +5169,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sweep_obs_path(sheet, workspace=workspace, smi=gpu["smi"])
+    torch.cuda.empty_cache()
+
+    # 4o. main path: the reference's remaining benchmark suites (the
+    # fused, dispatch and serving gates, kernel_bench, the smokes), then
+    # the fused trace and the dispatch gates at path c's step
+    bench_suites_path(sheet, smi=gpu["smi"])
     torch.cuda.empty_cache()
     for r in rows_g + rows_l + rows_k:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "

@@ -1,5 +1,7 @@
 """Benchmark driver (port of ``benchmarks/run.py``): one suite per paper
-table or figure, plus the train-throughput check.
+table or figure, the operational checks and the acceptance gates of the
+trace, sweep, tune, fusion, dispatch, session, obs, serving and
+resilience layers, in the reference's order.
 
 ``python -m repro_torch.bench [--list] [--only a,b] [--device cpu]
 [--full]`` prints ``name,us_per_call,derived`` CSV rows and exits 1 if
@@ -11,7 +13,8 @@ else; ``--json-dir ''`` writes none.  ``--full`` runs the census and the
 DeepCAM roofline at the paper's resolution (width 64, 768×1152); they
 walk meta tensors, so the host can too.  The device is the card unless
 ``--device cpu`` asks for the host, where the measuring suites time the
-plain versions at smoke sizes.
+plain versions at smoke sizes.  The exit code is 1 while any suite
+raises, ``fused_bench``'s zero-AI census gate among them.
 """
 
 from __future__ import annotations
@@ -31,8 +34,22 @@ SUITES = (
     "deepcam_roofline",  # paper Figs 3-7
     "amp_study",         # paper Figs 8-9, §IV-C
     "zero_ai_census",    # paper Table III (+ the LM off-against-static)
+    "kernel_bench",      # §Perf: kernel against plain-chain memory terms
     "train_throughput",  # operational: measured smoke train steps
+    "trace_smoke",       # repro_torch.trace: record → store → compare
+    "sweep_smoke",       # repro_torch.sweep: campaign → store → report
+    "tune_smoke",        # repro_torch.tune: search → store → hit
+    "fused_bench",       # fused kernels: census gate + before/after
+    "dispatch_smoke",    # tune.dispatch: search twice → zero re-timings
+    "dispatch_bench",    # tune.dispatch: measured-against-static gates
+    "session_smoke",     # repro_torch.session: one workspace root
+    "obs_smoke",         # repro_torch.obs: merge → trend → advise
+    "serve_bench",       # repro_torch.serve: latency gate + phases
+    "chaos_smoke",       # resilience: faults → watchdog → resume
 )
+# The reference's roofline_table and decode_batch_study stand on
+# launch/dryrun.py's cells and net_smoke on the network level: they come
+# with the multi-GPU slice (ROADMAP.md queue 1 item 8).
 #: suites that take ``full`` (the paper's DeepCAM resolution)
 FULL_SUITES = ("deepcam_roofline", "zero_ai_census")
 
@@ -45,8 +62,9 @@ def default_json_dir() -> str:
 def run(names, device: str = "cuda", full: bool = False,
         echo: bool = False) -> dict[str, dict]:
     """{suite: {"ok", "wall_s", "rows"}} of each suite in ``names``, in
-    ``SUITES`` order; a suite that raises is ``ok: False`` with no rows
-    and its traceback printed.  ``echo`` prints each suite's rows as it
+    ``SUITES`` order; a suite that raises is ``ok: False`` with no rows,
+    its exception's type and message as ``error`` and its traceback
+    printed.  ``echo`` prints each suite's rows as it
     ends."""
     from repro_torch.bench.common import emit
     results: dict[str, dict] = {}
@@ -58,11 +76,11 @@ def run(names, device: str = "cuda", full: bool = False,
         t0 = time.time()
         try:
             rows = mod.main(device, **kw)
-        except Exception:
+        except Exception as e:
             print(f"{name},0.0,ERROR")
             traceback.print_exc()
             results[name] = {"ok": False, "wall_s": time.time() - t0,
-                             "rows": []}
+                             "rows": [], "error": f"{type(e).__name__}: {e}"}
             continue
         results[name] = {"ok": True, "wall_s": time.time() - t0,
                          "rows": rows}
@@ -130,6 +148,10 @@ def main(argv=None) -> int:
         print(f"repro_torch.bench: unknown suite(s) {unknown}; valid: "
               f"{', '.join(SUITES)}", file=sys.stderr)
         return 2
+    # chaos_smoke's in-process trainers run deterministic algorithms on
+    # the card, which want cuBLAS's workspace fixed before the first
+    # product (as launch.train fixes it)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.device import resolve_device
     try:
         resolve_device(args.device)

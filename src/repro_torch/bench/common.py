@@ -22,13 +22,15 @@ def timed(fn: Callable, *args, iters: int = 3, warmup: int = 1,
                                iters=iters, warmup=warmup, min_total_s=0.0)
 
 
-def datasheet(device: str | torch.device) -> MachineSpec:
-    """The card's datasheet spec; on the host the H100 SXM's, the card
-    the port is written for."""
+def datasheet(device: str | torch.device,
+              host: MachineSpec = H100_SXM) -> MachineSpec:
+    """The card's datasheet spec; on the host ``host``: by default the
+    H100 SXM's, the card the port is written for (the reference's smoke
+    suites pin ``CPU_HOST``, the machine a host ``Session`` takes)."""
     device = torch.device(device)
     if device.type == "cuda":
         return datasheet_for(torch.cuda.get_device_name(device))
-    return H100_SXM
+    return host
 
 
 def emit(rows: Sequence[Row]) -> None:

@@ -78,22 +78,17 @@ import argparse
 import sys
 from typing import Sequence
 
+from repro_torch.trace.cli import (add_common, add_compare_parser,
+                                   add_record_parser, add_report_parser,
+                                   add_store, add_workload,
+                                   session_from_args)
+
 PROG = "python -m repro_torch"
-
-
-def _session(args):
-    from repro_torch.session.session import Session
-    from repro_torch.session.workspace import Workspace
-    store = getattr(args, "store", None)
-    workspace = (Workspace.for_store(store) if store
-                 else getattr(args, "workspace", None))
-    return Session(machine=args.machine, device=args.device,
-                   workspace=workspace)
 
 
 def cmd_characterize(args) -> int:
     try:
-        s = _session(args)
+        s = session_from_args(args)
     except RuntimeError as e:            # no CUDA device for --device cuda
         print(f"characterize: {e}", file=sys.stderr)
         return 2
@@ -104,7 +99,7 @@ def cmd_characterize(args) -> int:
 
 def cmd_profile(args) -> int:
     try:
-        s = _session(args)
+        s = session_from_args(args)
     except RuntimeError as e:
         print(f"profile: {e}", file=sys.stderr)
         return 2
@@ -126,28 +121,9 @@ def cmd_profile(args) -> int:
     return 0
 
 
-def cmd_record(args) -> int:
-    try:
-        s = _session(args)
-        res = s.record(args.config, seq=args.seq, batch=args.batch,
-                       amp=args.amp, fusion=args.fusion,
-                       attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
-                       impl=args.impl, remat=args.remat,
-                       optimizer=args.optimizer, smoke=not args.full,
-                       n_layers=args.layers,
-                       iters=args.iters,
-                       warmup=args.warmup, scale_wall=args.scale_wall)
-    except (RuntimeError, KeyError, NotImplementedError) as e:
-        print(f"record: {e.args[0] if e.args else e}", file=sys.stderr)
-        return 2
-    print(res.render())
-    print(f"run {res.data.run_id} -> {s.workspace.trace_path}")
-    return 0
-
-
 def cmd_serve(args) -> int:
     try:
-        s = _session(args)
+        s = session_from_args(args)
         res = s.serve(args.config, n_requests=args.requests,
                       trace=args.trace, rate=args.rate, burst=args.burst,
                       seed=args.seed, n_slots=args.slots,
@@ -165,31 +141,9 @@ def cmd_serve(args) -> int:
     return res.exit_code
 
 
-def cmd_report(args) -> int:
-    try:
-        res = _session(args).report(args.config)
-    except (RuntimeError, LookupError) as e:
-        print(f"report: {e.args[0] if e.args else e}", file=sys.stderr)
-        return 2
-    print(res.render())
-    return 0
-
-
-def cmd_compare(args) -> int:
-    try:
-        res = _session(args).compare(args.config, base=args.base,
-                                     new=args.new, threshold=args.threshold,
-                                     window=args.window)
-    except (RuntimeError, LookupError, ValueError) as e:
-        print(f"compare: {e.args[0] if e.args else e}", file=sys.stderr)
-        return 2
-    print(res.render())
-    return res.exit_code
-
-
 def cmd_trend(args) -> int:
     try:
-        s = _session(args)
+        s = session_from_args(args)
         if args.action == "tag":
             if not args.name:
                 print(f"trend tag: a tag name is required (`{PROG} trend "
@@ -210,7 +164,7 @@ def cmd_trend(args) -> int:
 
 def cmd_advise(args) -> int:
     try:
-        res = _session(args).advise(config=args.config, top=args.top)
+        res = session_from_args(args).advise(config=args.config, top=args.top)
     except RuntimeError as e:
         print(f"advise: {e}", file=sys.stderr)
         return 2
@@ -220,7 +174,7 @@ def cmd_advise(args) -> int:
 
 def cmd_merge(args) -> int:
     try:
-        res = _session(args).merge(args.remote)
+        res = session_from_args(args).merge(args.remote)
     except (RuntimeError, FileNotFoundError) as e:
         # no card, or a missing remote root: the message and exit 2
         print(f"merge: {e}", file=sys.stderr)
@@ -230,24 +184,15 @@ def cmd_merge(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from repro_torch.core.machine import MACHINES
-
     ap = argparse.ArgumentParser(
         prog=PROG, description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    def common(p) -> None:
-        p.add_argument("--machine", default=None, choices=sorted(MACHINES),
-                       help="machine model (default: the datasheet spec of "
-                            "the device's card; cpu-host on the host)")
-        p.add_argument("--device", default="cuda",
-                       help="'cuda' (default) or 'cpu'")
-
     ch = sub.add_parser("characterize",
                         help="machine model: datasheet or measured ERT "
                              "ceilings (paper §II-A)")
-    common(ch)
+    add_common(ch)
     ch.add_argument("--empirical", action="store_true",
                     help="measure the device's ceilings with the ERT kernels")
     ch.add_argument("--untuned", action="store_true",
@@ -258,60 +203,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tiny problem sizes (for a quick check)")
     ch.set_defaults(fn=cmd_characterize)
 
-    def workload(p) -> None:
-        from repro_torch.configs.base import (ATTN_IMPLS, FUSION_MODES,
-                                              IMPLS, OPTIMIZERS, REMAT_MODES,
-                                              SSD_IMPLS)
-        p.add_argument("--config", required=True,
-                       help="registry config name (see repro_torch.configs)")
-        p.add_argument("--seq", type=int, default=32)
-        p.add_argument("--batch", type=int, default=4)
-        p.add_argument("--amp", default="O1", choices=("O0", "O1", "O2"))
-        p.add_argument("--fusion", default="off", choices=FUSION_MODES,
-                       help="'static' routes the norms, the SwiGLU "
-                            "epilogue, the embedding backward, AdamW and "
-                            "eligible chunked attention through the "
-                            "hand-written kernels; 'auto' (alias "
-                            "'measured') only the sites whose measured "
-                            "dispatch verdict is fused")
-        p.add_argument("--attn-impl", default="einsum", choices=ATTN_IMPLS,
-                       help="attention lowering; 'flash' runs the "
-                            "flash-attention kernel")
-        p.add_argument("--ssd-impl", default="xla", choices=SSD_IMPLS,
-                       help="SSD scan lowering (SSM configs); 'kernel' "
-                            "runs the ssd_scan kernel")
-        p.add_argument("--impl", default="reference", choices=IMPLS,
-                       help="DeepCAM lowering: 'reference' runs every norm "
-                            "in fp32, 'fused' folds each norm into its conv "
-                            "('auto' fusion upgrades the default to "
-                            "'fused')")
-        p.add_argument("--remat", default="none", choices=REMAT_MODES,
-                       help="per-block activation checkpointing: 'dots' "
-                            "keeps the products against a weight, 'full' "
-                            "only each block's input")
-        p.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
-        smoke = p.add_mutually_exclusive_group()
-        smoke.add_argument("--full", action="store_true",
-                           help="full config instead of the smoke variant")
-        smoke.add_argument("--smoke", action="store_true",
-                           help="the smoke variant (the default)")
-        p.add_argument("--layers", type=int, default=None,
-                       help="cut the depth to this many layers (widths "
-                            "kept)")
-        p.add_argument("--iters", type=int, default=5)
-        p.add_argument("--warmup", type=int, default=2)
-
-    def store(p) -> None:
-        p.add_argument("--store", default=None, metavar="PATH",
-                       help="trace-store JSONL file (default: trace.jsonl "
-                            "of the workspace: $REPRO_WORKSPACE, else "
-                            "./.repro-workspace in a checkout)")
-
     pr = sub.add_parser("profile",
                         help="aten-op walk of a registry config "
                              "(paper §II-B)")
-    common(pr)
-    workload(pr)
+    add_common(pr)
+    add_workload(pr)
     pr.add_argument("--phase", action="append", choices=("fwd", "bwd", "opt"),
                     help="phase to profile (repeatable; default all three)")
     pr.add_argument("--measure", action="store_true",
@@ -323,23 +219,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="kernel-table rows per phase")
     pr.set_defaults(fn=cmd_profile)
 
-    rc = sub.add_parser("record",
-                        help="measure a config's phases and append a record "
-                             "to the trace store")
-    common(rc)
-    workload(rc)
-    store(rc)
-    rc.add_argument("--scale-wall", type=float, default=1.0,
-                    help="multiply stored wall times (regression drills)")
-    rc.set_defaults(fn=cmd_record)
+    add_record_parser(sub)
 
     from repro_torch.configs.base import FUSION_MODES
     sv = sub.add_parser("serve",
                         help="continuous-batching serving under a seeded "
                              "arrival trace; prefill/decode recorded as "
                              "separate phases (repro_torch.serve)")
-    common(sv)
-    store(sv)
+    add_common(sv)
+    add_store(sv)
     sv.add_argument("--config", required=True,
                     help="registry config name of a dense or MoE model "
                          "(the engine serves those families)")
@@ -370,27 +258,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tick budget before the run is cut off")
     sv.set_defaults(fn=cmd_serve)
 
-    rp = sub.add_parser("report", help="the newest stored record")
-    common(rp)
-    store(rp)
-    rp.add_argument("--config", default=None,
-                    help="newest record of this config (default: any)")
-    rp.set_defaults(fn=cmd_report)
-
-    cp = sub.add_parser("compare",
-                        help="newest record of each config against the one "
-                             "before, or two runs; exit 1 on a regression")
-    common(cp)
-    store(cp)
-    cp.add_argument("--config", default=None)
-    cp.add_argument("--base", default=None, help="base run id (prefix ok)")
-    cp.add_argument("--new", default=None, help="new run id (prefix ok)")
-    cp.add_argument("--threshold", type=float, default=0.10,
-                    help="relative regression threshold (default 0.10)")
-    cp.add_argument("--window", type=int, default=2,
-                    help="compare the newest against the run window-1 "
-                         "records before it (default 2)")
-    cp.set_defaults(fn=cmd_compare)
+    add_report_parser(sub)
+    add_compare_parser(sub)
 
     def workspace(p) -> None:
         p.add_argument("--workspace", default=None, metavar="DIR",
@@ -402,7 +271,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="perf-trend sparklines over the stored records "
                              "and BENCH_*.json; --gate: the regression gate "
                              "(repro_torch.obs)")
-    common(tr)
+    add_common(tr)
     workspace(tr)
     tr.add_argument("action", nargs="?", choices=("tag",),
                     help="`trend tag NAME [--run ID]` pins a known-good run "
@@ -432,7 +301,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="mine the stored records for bottleneck "
                              "patterns; ranked remediations "
                              "(repro_torch.obs)")
-    common(ad)
+    add_common(ad)
     workspace(ad)
     ad.add_argument("--config", default=None,
                     help="only this registry config")
@@ -443,7 +312,7 @@ def build_parser() -> argparse.ArgumentParser:
     mg = sub.add_parser("merge",
                         help="union another workspace's stores into this "
                              "one (repro_torch.obs)")
-    common(mg)
+    add_common(mg)
     workspace(mg)
     mg.add_argument("remote", metavar="REMOTE_ROOT",
                     help="root directory of the workspace to merge in")

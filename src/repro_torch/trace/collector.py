@@ -6,10 +6,11 @@ per-kernel achieved FLOP/s and %-of-roofline (the time-based roofline).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Mapping, Sequence
 
 from repro_torch.core.machine import MachineSpec, get_machine
 from repro_torch.core.op_analysis import KernelRecord, ModuleAnalysis
-from repro_torch.core.profiler import ProfileResult
+from repro_torch.core.profiler import ProfileResult, profile_fn
 from repro_torch.core.roofline import RooflineTerms, kernel_points
 
 
@@ -102,6 +103,13 @@ def attribute_time(analysis: ModuleAnalysis, machine: MachineSpec,
     return out
 
 
+def achieved_points(kernels: Sequence[KernelMeasurement]
+                    ) -> list[tuple[float, float]]:
+    """(AI, achieved FLOP/s) scatter for the measured roofline chart."""
+    return [(k.ai_hbm, k.achieved_flops_per_s) for k in kernels
+            if k.ai_hbm > 0 and k.achieved_flops_per_s > 0]
+
+
 def measurement_from_profile(res: ProfileResult,
                              machine: MachineSpec | str) -> PhaseMeasurement:
     """PhaseMeasurement from a ProfileResult profiled with measure=True."""
@@ -117,6 +125,33 @@ def measurement_from_profile(res: ProfileResult,
         flops=res.analysis.total_flops,
         hbm_bytes=res.analysis.total_hbm_bytes,
         vmem_bytes=res.analysis.total_vmem_bytes)
+
+
+def collect_phase(name: str, fn: Callable, args: Sequence[Any], *,
+                  machine: MachineSpec | str = "h100-sxm",
+                  iters: int = 10, warmup: int = 3,
+                  matmul_class: str | None = None) -> PhaseMeasurement:
+    """Walk ``fn(*args)`` and time the same callable on the tensors given
+    (``profile_fn(measure=True)``: CUDA events on the card, the host clock
+    on the host), then attribute the measured time."""
+    if isinstance(machine, str):
+        machine = get_machine(machine)
+    res = profile_fn(fn, args=args, name=name, machine=machine,
+                     measure=True, measure_iters=iters,
+                     measure_warmup=warmup, matmul_class=matmul_class)
+    return measurement_from_profile(res, machine)
+
+
+def collect_phases(phases: Mapping[str, tuple[Callable, Sequence[Any]]], *,
+                   machine: MachineSpec | str = "h100-sxm",
+                   iters: int = 10, warmup: int = 3,
+                   matmul_class: str | None = None
+                   ) -> dict[str, PhaseMeasurement]:
+    """Measure fwd / bwd / opt separately (paper Figs 3-7, measured)."""
+    return {name: collect_phase(name, fn, args, machine=machine,
+                                iters=iters, warmup=warmup,
+                                matmul_class=matmul_class)
+            for name, (fn, args) in phases.items()}
 
 
 def scale_measurement(m: PhaseMeasurement, factor: float) -> PhaseMeasurement:

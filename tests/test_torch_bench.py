@@ -22,6 +22,7 @@
   gradient (3× that conv's forward FLOPs, all but the stem).
 """
 
+import ast
 import json
 import os
 
@@ -104,12 +105,13 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Every suite on the host, in a fresh workspace."""
+    """Every paper suite on the host, in a fresh workspace (the gates and
+    smokes: ``test_torch_bench_gates.py``, ``test_torch_bench_smokes.py``)."""
     ws = str(tmp_path_factory.mktemp("ws"))
     old = os.environ.get("REPRO_WORKSPACE")
     os.environ["REPRO_WORKSPACE"] = ws
     try:
-        yield bench_main.run(bench_main.SUITES, "cpu")
+        yield bench_main.run(tuple(REF_ROWS), "cpu")
     finally:
         if old is None:
             os.environ.pop("REPRO_WORKSPACE")
@@ -121,8 +123,27 @@ def _rows(results, suite) -> dict:
     return {n: d for n, _, d in results[suite]["rows"]}
 
 
+def _reference_suites() -> tuple[str, ...]:
+    """``benchmarks/run.py``'s ``SUITES``, read from its source (the
+    reference's benchmarks are not a package on the path)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmarks", "run.py")) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "SUITES"
+                        for t in n.targets))
+    return ast.literal_eval(node.value)
+
+
 def test_suites_are_the_ported_ones():
-    assert bench_main.SUITES == tuple(REF_ROWS)
+    """The reference's suites in its order, less the three that stand on
+    the multi-GPU slice (``launch/dryrun.py``'s cells, the network
+    level); the paper's among them."""
+    later = ("roofline_table", "decode_batch_study", "net_smoke")
+    ref = _reference_suites()
+    assert set(later) <= set(ref) and len(ref) == 21
+    assert bench_main.SUITES == tuple(s for s in ref if s not in later)
+    assert set(REF_ROWS) <= set(bench_main.SUITES)
 
 
 @pytest.mark.parametrize("suite", list(REF_ROWS))
