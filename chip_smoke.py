@@ -212,6 +212,25 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       step twice, each site's fused and reference walls of both beside
       the card's time to run its kernels, timed behind a spin of the
       card;
+   p. sharding, the dry run and a sharded step (:func:`sharded_path`,
+      last): the dry run's cells on the card's host
+      (:data:`PATH_P_CELLS`: glm4-9b x train_4k / prefill_32k /
+      decode_32k x the (16, 16) and (2, 16, 16) meshes, kimi-k2-1t-a32b x
+      train_4k x (2, 16, 16)), one process each, no card visible to
+      them, each record's terms, dominant term, collective wire bytes,
+      ``peak_device_bytes`` and ``fits_hbm`` printed and nonzero
+      collectives required of every cell; glm4-9b at full width, 4
+      layers, seq 2048, batch 2, O1, ``static``, flash, TP and FSDP on a
+      (1, 1) mesh of one NCCL rank, every leaf a DTensor: one step
+      against the same step without a mesh (loss within
+      :data:`SHARDED_LOSS_RTOL`, params within
+      :data:`SHARDED_PARAM_ATOL`, the flash, norm, SwiGLU and AdamW
+      launches equal), ``max_memory_allocated`` beside the dry run's
+      peak for that step, two trainer steps on the mesh (smoke config)
+      restored from their checkpoint with ``shardings=`` bit for bit;
+      and ``python -m repro_torch.bench --only
+      roofline_table,decode_batch_study`` (the full ``BATCHES``) in a
+      process of its own beside the step, which must exit 0;
    (paths l and k run after h and before j and i: no profiled window
    before them);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
@@ -4864,6 +4883,330 @@ def bench_suites_path(sheet, *, device: str = "cuda", smoke: bool = False,
 LR = 3e-4
 
 
+# --------------------------------------------------------------------------
+# Main path p: sharding, the dry run and a sharded step on the card
+# --------------------------------------------------------------------------
+
+#: the dry-run cells path p walks on the card's host: (arch, shape, mesh)
+PATH_P_CELLS = (("glm4-9b", "train_4k", "single"),
+                ("glm4-9b", "train_4k", "multi"),
+                ("glm4-9b", "prefill_32k", "single"),
+                ("glm4-9b", "prefill_32k", "multi"),
+                ("glm4-9b", "decode_32k", "single"),
+                ("glm4-9b", "decode_32k", "multi"),
+                ("kimi-k2-1t-a32b", "train_4k", "multi"))
+#: the kernel launches the sharded step must repeat exactly
+PATH_P_KERNELS = ("flash_attention", "fused_rmsnorm", "fused_rmsnorm_residual",
+                  "fused_swiglu", "fused_adamw")
+#: the sharded step against the plain one: path e's loss bound and step
+#: 5's parameter bound
+SHARDED_LOSS_RTOL = 2e-4
+SHARDED_PARAM_ATOL = 2e-5
+
+#: the dry run of path p's own step (4 layers, O1, static, flash, FSDP)
+#: on a one-device mesh, in a process of its own: its walk's peak beside
+#: the card's ``max_memory_allocated``
+_STEP_WALK = """
+import json, sys
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.registry import get_config, get_smoke
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+import dataclasses
+arch, layers, seq, batch, smoke = sys.argv[1], int(sys.argv[2]), \\
+    int(sys.argv[3]), int(sys.argv[4]), sys.argv[5] == "1"
+cfg = dataclasses.replace((get_smoke if smoke else get_config)(arch),
+                          n_layers=layers)
+rec = dryrun.run_cell(arch, ShapeSpec("p", seq, batch, "train"), "single",
+                      mesh=make_mesh((1, 1), ("data", "model")), cfg=cfg,
+                      run_overrides=dict(amp="O1", remat="none",
+                                         attn_impl="flash", fusion="static",
+                                         microbatches=1, fsdp=True))
+print(json.dumps(rec))
+"""
+
+
+def dryrun_cells(workspace: str, *, cells=PATH_P_CELLS, step=None,
+                 timeout: float = 600.0) -> tuple[list, dict]:
+    """Path p.1: each dry-run cell in a process of its own, all started
+    together (``python -m repro_torch.launch.dryrun``, a fake group each;
+    no card is visible to them: they walk meta tensors), plus the walk of
+    path p's own step (``step``: (arch, layers, seq, batch, smoke)).
+    Their records land in the workspace's ``bench/dryrun_baseline.jsonl``
+    (``roofline_table``'s file).  Returns (records, the step's record)."""
+    import subprocess
+
+    bench = os.path.join(workspace, "bench")
+    os.makedirs(bench, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for i, (arch, shape, mesh) in enumerate(cells):
+        out = os.path.join(bench, f"cell_{i}.jsonl")
+        if os.path.exists(out):
+            os.remove(out)
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    step_proc = None
+    if step is not None:
+        step_proc = subprocess.Popen(
+            [sys.executable, "-c", _STEP_WALK, *map(str, step)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    recs, failed = [], []
+    deadline = time.perf_counter() + timeout
+    try:
+        for (out, proc), cell in zip(procs, cells):
+            log, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if proc.returncode != 0 or not os.path.exists(out):
+                failed.append((cell, log[-3000:]))
+                continue
+            with open(out) as f:
+                recs.extend(json.loads(line) for line in f if line.strip())
+        step_rec = None
+        if step_proc is not None:
+            sout, serr = step_proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if step_proc.returncode != 0:
+                failed.append(("step walk", serr[-3000:]))
+            else:
+                step_rec = json.loads(sout.strip().splitlines()[-1])
+    finally:
+        for _, proc in procs + ([(None, step_proc)] if step_proc else []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        for cell, log in failed:
+            print(f"  dry run {cell} failed:\n{log}")
+        raise AssertionError(f"dry-run cells failed: {[c for c, _ in failed]}")
+    with open(os.path.join(bench, "dryrun_baseline.jsonl"), "w") as f:
+        for rec in recs:
+            f.write(json.dumps(rec) + "\n")
+    return recs, step_rec
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_step_path(*, device: str = "cuda", smoke: bool = False,
+                      layers: int = 4, seq: int = 2048, batch: int = 2,
+                      step_walk: dict | None = None,
+                      workspace: str | None = None) -> dict:
+    """Path p.2: one rank of an NCCL group (gloo on the host) on
+    127.0.0.1, a (1, 1) ``("data", "model")`` mesh; glm4-9b at full
+    width cut to ``layers`` layers, O1, ``fusion="static"``, flash, TP and
+    FSDP, every leaf of the state and the batch a DTensor.  One step
+    against the same step without a mesh (the same seed): the loss within
+    :data:`SHARDED_LOSS_RTOL`, every parameter within
+    :data:`SHARDED_PARAM_ATOL`, and each of :data:`PATH_P_KERNELS`
+    launched as often as there.  Then two ``Trainer`` steps on the mesh
+    (the smoke config), a checkpoint, and a second trainer restoring it
+    with ``shardings=``: equal bit for bit.  The group is destroyed at
+    the end.  Returns the sharded step's launch counts."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import api as M
+    from repro_torch.train.step import init_state, make_train_step, \
+        state_specs
+    from repro_torch.train.trainer import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = dataclasses.replace(
+        (get_smoke if smoke else get_config)("glm4-9b"), n_layers=layers)
+    run = RunConfig(amp="O1", fusion="static", attn_impl="flash", tp=True,
+                    fsdp=True)
+    model = M.build(cfg)
+    step = make_train_step(model, run)
+    print(f"== 4p.2 sharded step: glm4-9b, {layers} layers at full width "
+          f"({cfg.param_count() / 1e9:.3f} B params), seq {seq} batch "
+          f"{batch}, O1, static, flash, tp and fsdp, on a (1, 1) mesh of "
+          f"one {'NCCL' if cuda else 'gloo'} rank")
+
+    def fresh():
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = init_state(model, run, gen, device)
+        b = M.synthetic_batch(cfg, ShapeSpec("p", seq, batch, "train"),
+                              batch, gen, device)
+        return state, b
+
+    # the step without a mesh
+    state, b = fresh()
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    state, metrics = step(state, b)
+    sync()
+    wall_plain = (time.perf_counter() - t0) * 1e3
+    counts_plain = kernels.launch_counts()
+    loss_plain = float(metrics["loss"])
+    params_plain = tree_flatten(state.params)[0]
+    del state, metrics, b
+    if cuda:
+        torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device.split(":")[0], (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state, b = fresh()
+        state = shd.distribute(state, shd.named(
+            state_specs(model, run, mesh), mesh))
+        b = shd.distribute(b, shd.named(shd.shard_batch_dim(b, mesh, run),
+                                        mesh))
+        placed = [shd.is_dtensor(t) for t in tree_flatten((state, b))[0]]
+        if not all(placed):
+            raise AssertionError(f"{placed.count(False)} leaves of the "
+                                 "sharded state are not DTensors")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        sync()
+        wall_mesh = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        loss = float(shd.gather(metrics["loss"]))
+        got = tree_flatten(shd.gather(state.params))[0]
+        err = max(float((a.float() - c.float()).abs().max())
+                  for a, c in zip(got, params_plain))
+        rel = abs(loss - loss_plain) / abs(loss_plain)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        print(f"  loss: mesh {loss:.7f} plain {loss_plain:.7f} (relative "
+              f"{rel:.3e}, rtol {SHARDED_LOSS_RTOL:g}) | params after the "
+              f"step: max_abs_err {err:.3e} (atol {SHARDED_PARAM_ATOL:g}) | "
+              f"step wall {wall_mesh:.1f} ms mesh, {wall_plain:.1f} ms plain "
+              "(host clock, first step of each: not a timing)")
+        walk_peak = step_walk["peak_device_bytes"] if step_walk else None
+        print(f"  peak device memory: max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB on the card; the dry run's "
+              f"peak_device_bytes of this step "
+              + (f"{walk_peak / 2**30:.2f} GiB" if walk_peak is not None
+                 else "not walked") + " (information only)")
+        print("  launches, mesh vs plain: " + ", ".join(
+            f"{k} {counts[k]}/{counts_plain[k]}" for k in PATH_P_KERNELS))
+        if not (math.isfinite(loss) and rel <= SHARDED_LOSS_RTOL):
+            raise AssertionError(f"sharded loss {loss} vs {loss_plain}")
+        if not err <= SHARDED_PARAM_ATOL:
+            raise AssertionError(f"sharded params differ by {err}")
+        for k in PATH_P_KERNELS:
+            if counts[k] != counts_plain[k] or (cuda and counts[k] <= 0):
+                raise AssertionError(
+                    f"{k}: {counts[k]} launches on the mesh, "
+                    f"{counts_plain[k]} without: the sharded step did not "
+                    "run the same kernels")
+        del state, metrics, b, got, params_plain
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # two trainer steps on the mesh, a checkpoint, a restore
+        scfg = get_smoke("glm4-9b")
+        smodel = M.build(scfg)
+        stream = TokenStream(scfg, ShapeSpec("t", 32, 4, "train"), 4,
+                             seed=0)
+        with tempfile.TemporaryDirectory(dir=workspace) as ck:
+            t1 = Trainer(smodel, run, stream, ckpt_dir=ck, ckpt_every=0,
+                         device=device, mesh=mesh)
+            rep = t1.fit(2, log_every=0)
+            t2 = Trainer(smodel, run, stream, ckpt_dir=ck, ckpt_every=0,
+                         device=device, mesh=mesh)
+            a = tree_flatten(shd.gather(t1.state))[0]
+            c = tree_flatten(shd.gather(t2.state))[0]
+            same = len(a) == len(c) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(a, c))
+            leaf = tree_flatten(t2.state.params)[0][0]
+            print(f"  trainer on the mesh (smoke): losses {rep.losses}; "
+                  f"restored from step {t2.report.resumed_from}: "
+                  f"{len(c)} leaves {'equal bit for bit' if same else 'DIFFER'}"
+                  f", a DTensor on {tuple(leaf.device_mesh.shape)}")
+            if not (same and t2.report.resumed_from == 2
+                    and shd.is_dtensor(leaf)):
+                raise AssertionError("the trainer's restore on the mesh is "
+                                     "not bit for bit")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def sharded_path(*, device: str = "cuda", smoke: bool = False,
+                 workspace: str, cells=PATH_P_CELLS, step: dict | None = None,
+                 smi: str = "") -> dict:
+    """Main path p: the dry run on the card's host (:func:`dryrun_cells`;
+    nonzero collectives on every cell, which all shard over more than one
+    device), the sharded step on the card (:func:`sharded_step_path`),
+    and ``python -m repro_torch.bench --only roofline_table,
+    decode_batch_study`` in a process of its own, started after the cells
+    (its table reads their file) and run beside the step; it must exit
+    0.  Returns the step's launch counts."""
+    import subprocess
+
+    from repro_torch.launch.dryrun import describe
+
+    step = step or dict(layers=4, seq=2048, batch=2)
+    tag = f" ({smi})" if smi else ""
+    t_path = time.perf_counter()
+    print(f"== 4p.1 the dry run on the card's host: {len(cells)} cells, "
+          "one process each (analytical figures per device on the "
+          f"h100-sxm datasheet, not measurements){tag}")
+    recs, step_rec = dryrun_cells(
+        workspace, cells=cells,
+        step=("glm4-9b", step["layers"], step["seq"], step["batch"],
+              int(smoke)))
+    for r in recs:
+        print(f"  {r['arch']} x {r['shape']} x {r['mesh']} "
+              f"({r['n_devices']} devices, devices_per_pod "
+              f"{r['devices_per_pod']}): {describe(r)}")
+        if r["n_collectives"] <= 0 or (r["ici_wire_bytes"]
+                                       + r["dcn_wire_bytes"]) <= 0:
+            raise AssertionError(f"{r['arch']} {r['shape']} {r['mesh']}: no "
+                                 "collectives on a sharded mesh")
+    print(f"  cells: {time.perf_counter() - t_path:.1f} s")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    bench = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.bench", "--only",
+         "roofline_table,decode_batch_study", "--device", device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        counts = sharded_step_path(device=device, smoke=smoke,
+                                   step_walk=step_rec, workspace=workspace,
+                                   **step)
+        out, _ = bench.communicate(timeout=600)
+    finally:
+        if bench.poll() is None:
+            bench.kill()
+            bench.wait()
+    print("== 4p.3 python -m repro_torch.bench --only roofline_table,"
+          "decode_batch_study")
+    print(out.rstrip())
+    if bench.returncode != 0:
+        raise AssertionError(f"the dry-run suites exited {bench.returncode}")
+    print(f"path p: {time.perf_counter() - t_path:.1f} s{tag}")
+    return counts
+
+
 def smoke_checks(dev, arch: str, fwd_runs: dict, step_run,
                  kink_share: float = 0.0) -> None:
     """Step 5 for one registry config at its smoke size (seq 32, batch 4):
@@ -5175,6 +5518,11 @@ def main() -> int:
     # fused, dispatch and serving gates, kernel_bench, the smokes), then
     # the fused trace and the dispatch gates at path c's step
     bench_suites_path(sheet, smi=gpu["smi"])
+    torch.cuda.empty_cache()
+
+    # 4p. main path: the dry run's cells on the card's host, a sharded
+    # step on a one-rank NCCL mesh, the two suites on the dry run
+    sharded_path(workspace=workspace, smi=gpu["smi"])
     torch.cuda.empty_cache()
     for r in rows_g + rows_l + rows_k:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "

@@ -34,6 +34,7 @@ SUITES = (
     "deepcam_roofline",  # paper Figs 3-7
     "amp_study",         # paper Figs 8-9, §IV-C
     "zero_ai_census",    # paper Table III (+ the LM off-against-static)
+    "roofline_table",    # §Roofline: the 40-cell dry-run table
     "kernel_bench",      # §Perf: kernel against plain-chain memory terms
     "train_throughput",  # operational: measured smoke train steps
     "trace_smoke",       # repro_torch.trace: record → store → compare
@@ -43,13 +44,13 @@ SUITES = (
     "dispatch_smoke",    # tune.dispatch: search twice → zero re-timings
     "dispatch_bench",    # tune.dispatch: measured-against-static gates
     "session_smoke",     # repro_torch.session: one workspace root
+    "decode_batch_study",  # decode tok/s at the bound against batch
     "obs_smoke",         # repro_torch.obs: merge → trend → advise
     "serve_bench",       # repro_torch.serve: latency gate + phases
     "chaos_smoke",       # resilience: faults → watchdog → resume
 )
-# The reference's roofline_table and decode_batch_study stand on
-# launch/dryrun.py's cells and net_smoke on the network level: they come
-# with the multi-GPU slice (ROADMAP.md queue 1 item 8).
+# The reference's net_smoke stands on the network level (ROADMAP.md
+# queue 1 item 8.2) and is not ported yet.
 #: suites that take ``full`` (the paper's DeepCAM resolution)
 FULL_SUITES = ("deepcam_roofline", "zero_ai_census")
 

@@ -41,8 +41,14 @@ itself writes ``'<V2'`` (numpy's descr for ``ml_dtypes.bfloat16``); the
 port reads a ``V2`` leaf whose manifest dtype is ``bfloat16`` as
 bfloat16, so its digest matches too.
 
-The reference's elastic re-shard (``shardings=``) belongs to the
-multi-GPU slice and is not here.
+On a mesh (DTensor leaves) every rank takes part in the snapshot, which
+gathers each leaf whole once; rank 0 alone writes, and every rank waits
+for the commit (a barrier) before :func:`save` returns or
+:meth:`AsyncCheckpointer.wait` does.  :func:`restore` with ``shardings=``
+(a tree of ``sharding.NamedSharding`` like ``tree_like``) is the
+reference's elastic re-shard: every rank reads each whole leaf and keeps
+its shard, so a checkpoint saved on one mesh restores onto a mesh of
+another shape.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.resilience import faults
 
 _MANIFEST = "manifest.json"
@@ -127,7 +134,10 @@ def _rebuild(tree: Any, leaf_of, prefix: str = "") -> Any:
 
 
 def _host(leaf: Any) -> torch.Tensor:
-    """A host copy of a leaf that later in-place updates do not reach."""
+    """A host copy of a leaf that later in-place updates do not reach (a
+    DTensor leaf gathered whole)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, np.ndarray):
         return torch.from_numpy(np.array(leaf, copy=True))
     if not isinstance(leaf, torch.Tensor):
@@ -222,7 +232,25 @@ def save(directory: str, step: int, tree: Any,
     ``keep`` bounds how many committed checkpoints GC retains (0 = never
     collect)."""
     host = _rebuild(tree, lambda _n, leaf: _host(leaf))
-    return _write(directory, step, host, metadata or {}, keep)
+    mesh = _on_mesh(tree)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if not mesh or _dist().get_rank() == 0:
+        path = _write(directory, step, host, metadata or {}, keep)
+    if mesh:
+        _dist().barrier()
+    return path
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _on_mesh(tree: Any) -> bool:
+    """Does ``tree`` hold DTensors of an initialized process group (whose
+    ranks save and wait together)?"""
+    return (any(is_dtensor(leaf) for _, leaf in _leaf_paths(tree))
+            and _dist().is_initialized())
 
 
 class AsyncCheckpointer:
@@ -234,12 +262,16 @@ class AsyncCheckpointer:
         self.write_walls: list[tuple[int, float]] = []
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._mesh = False
 
     def save(self, directory: str, step: int, tree: Any,
              metadata: dict | None = None, keep: int | None = None) -> None:
         self.wait()                                       # one write in flight
         host = _rebuild(tree, lambda _n, leaf: _host(leaf))
         keep_n = self.keep if keep is None else keep
+        self._mesh = _on_mesh(tree)
+        if self._mesh and _dist().get_rank() != 0:
+            return                        # rank 0 writes; wait() syncs
 
         def work():
             try:
@@ -262,6 +294,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh:
+            self._mesh = False
+            _dist().barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -375,8 +410,8 @@ def leaf_names(directory: str, step: int | None = None) -> list[str]:
 
 
 def restore(directory: str, tree_like: Any, step: int | None = None,
-            verify: bool = True, device: str | torch.device | None = None
-            ) -> tuple[Any, dict]:
+            verify: bool = True, device: str | torch.device | None = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Load a checkpoint into the structure of ``tree_like``.
 
     Each leaf is cast to the dtype of its counterpart in ``tree_like`` and
@@ -387,7 +422,9 @@ def restore(directory: str, tree_like: Any, step: int | None = None,
     prefix) loads only those.  ``verify`` recomputes the manifest digest
     over every stored leaf and raises :class:`CheckpointCorrupt` on a
     mismatch (manifests without the digest field pass unverified).
-    Returns (tree, metadata).
+    ``shardings`` (a ``NamedSharding`` tree like ``tree_like``): each leaf
+    becomes a DTensor on its sharding's mesh, this rank keeping its shard
+    of the whole leaf it read.  Returns (tree, metadata).
     """
     src = _resolve(directory, step)
     with open(os.path.join(src, _MANIFEST)) as f:
@@ -426,6 +463,11 @@ def restore(directory: str, tree_like: Any, step: int | None = None,
             dev = like.device
         else:
             dev = torch.device("cpu")
-        return loaded[name].to(device=dev, dtype=dt)
+        t = loaded[name].to(device=dev, dtype=dt)
+        if placed is None:
+            return t
+        from repro_torch.distributed.sharding import distribute
+        return distribute(t, placed[name])
 
+    placed = dict(_leaf_paths(shardings)) if shardings is not None else None
     return _rebuild(tree_like, leaf_of), manifest["metadata"]

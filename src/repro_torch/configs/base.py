@@ -2,7 +2,8 @@
 
 :class:`ModelConfig` and :class:`ShapeSpec` are copies of the reference's
 framework-neutral dataclasses (the port imports nothing of ``repro``).
-:class:`RunConfig` keeps the knobs this slice reads, with torch dtypes.
+:class:`RunConfig` keeps the reference's knobs, with torch dtypes, and
+``SHAPES`` its four shape cells.
 """
 
 from __future__ import annotations
@@ -162,13 +163,36 @@ class RunConfig:
     ``repro_torch.tune.dispatch``), the ``einsum``, ``chunked`` and
     ``flash`` attention, the ``xla`` and ``kernel`` SSD scans, every
     ``remat`` mode, both DeepCAM lowerings (``impl``), AdamW and
-    Adafactor, and takes the reference's three ``moe_combine`` values."""
+    Adafactor, and the reference's three ``moe_combine`` values.
+
+    Parallelism, as the reference's (``repro_torch.distributed.sharding``
+    maps logical axes to mesh axes under these flags; they act only on
+    tensors that are DTensors on a mesh):
+
+    * ``tp``: Megatron tensor parallelism — heads, KV heads, ffn, expert
+      ffn, SSM inner channels and vocab over the ``"model"`` mesh axis;
+    * ``fsdp``: ZeRO-3 — each parameter's first free, divisible dim also
+      over the data axes (``("pod", "data")`` on a multi-pod mesh);
+    * ``sp``: sequence-sharded activations over ``"model"`` between
+      blocks;
+    * ``ep``: experts over ``"model"``;
+    * ``sharded_logits``: the reference's vocab-sharded cross-entropy
+      flag, kept for its records; the port's loss does not read it yet
+      (on a mesh DTensor gathers the logits over the vocab);
+    * ``grad_compression``: cross-pod int8 gradient compression, which
+      the port does not have yet (``True`` raises).
+    """
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
     amp: str = "O1"
     # per-block activation checkpointing: "none" | "dots" (keep the
     # products against a weight, recompute the rest) | "full"
     remat: str = "none"
+    # parallelism (see the docstring)
+    tp: bool = True
+    fsdp: bool = False
+    sp: bool = False
+    ep: bool = True
     # attention lowering: "einsum" | "chunked" (query chunks of attn_chunk,
     # recomputed in the backward) | "flash" (the hand-written kernel)
     attn_impl: str = "einsum"
@@ -179,17 +203,21 @@ class RunConfig:
     # attention softmax statistics in fp32 (False = compute dtype)
     softmax_f32: bool = True
     fusion: str = "off"
+    # logits: vocab-sharded cross-entropy without a full gather
+    sharded_logits: bool = True
     # gradient accumulation microbatches
     microbatches: int = 1
+    # cross-pod gradient compression (int8 + error feedback)
+    grad_compression: bool = False
     # optimizer: "adamw" | "adafactor"
     optimizer: str = "adamw"
     # deepcam lowering: "reference" (every norm round-trips through fp32)
     # | "fused" (every norm folded into its conv)
     impl: str = "reference"
     # MoE combine: the reference's three values ("default", "reshard",
-    # "a2a") differ only in the sharding annotations (``constrain``) they
-    # put on the dispatch and combine buffers.  On one device they compute
-    # the same function, and the port runs the one lowering for each.
+    # "a2a") differ only in the sharding constraints (``constrain``) they
+    # put on the dispatch and combine buffers: the same function, moved
+    # differently across a mesh (on one device all three are the same).
     moe_combine: str = "default"
 
     def __post_init__(self):
@@ -218,6 +246,10 @@ class RunConfig:
         if self.attn_chunk < 1:
             raise ValueError(f"attn_chunk must be >= 1, got "
                              f"{self.attn_chunk}")
+        if self.grad_compression:
+            raise NotImplementedError(
+                "grad_compression: cross-pod gradient compression is not "
+                "ported yet (ROADMAP queue 1 item 8.3)")
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")
@@ -239,3 +271,11 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 _MODULES = {
     "minitron-4b": "minitron_4b",
@@ -78,3 +78,20 @@ def select_many(selectors) -> tuple[str, ...]:
         for name in select(sel):
             seen.setdefault(name)
     return tuple(seen)
+
+
+def cells(arch: str) -> list[ShapeSpec]:
+    """The applicable (arch x shape) cells of the 40-cell grid: every
+    shape, but ``long_500k`` only where the sequence mixing is
+    sub-quadratic (``supports_long_context``)."""
+    cfg = get_config(arch)
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.supports_long_context:
+            continue
+        out.append(s)
+    return out
+
+
+def all_cells() -> list[tuple[str, ShapeSpec]]:
+    return [(a, s) for a in ARCHS for s in cells(a)]

@@ -51,6 +51,9 @@ class MachineSpec:
     dcn_bytes_per_s: float
     empirical: bool = False
     net_levels: tuple[NetLevel, ...] = ()
+    #: cards in the fast interconnect domain (``ici``): an NVLink node
+    #: on a GPU; None where the spec does not say
+    cards_per_node: int | None = None
 
     @property
     def hbm(self) -> MemLevel:
@@ -121,7 +124,9 @@ def _h100(name: str, bf16: float, f32: float, hbm: float,
             MemLevel("hbm", hbm, hbm_bytes),
         ),
         # NVLink per direction inside the node; one 400 Gb/s NIC per card
-        ici_bytes_per_s=nvlink, ici_links=1, dcn_bytes_per_s=50e9)
+        ici_bytes_per_s=nvlink, ici_links=1, dcn_bytes_per_s=50e9,
+        # an HGX H100 node: 8 cards, all to all over NVLink
+        cards_per_node=8)
 
 
 H100_SXM = _h100("h100-sxm", 989e12, 67e12, 3.35e12, 80 * 10**9, 450e9)

@@ -31,16 +31,47 @@ kernel:
   + the operands the op writes in place (the in-place AdamW update
   returns nothing but writes p, m and v); flash attention carries its
   module's ``hbm_bytes`` instead (K/V counted once per query head).
+
+**Per device, with collectives.**  When the arguments hold DTensors (a
+run on a mesh), the walk records what *this rank* runs: DTensor's
+dispatch is let through (the recorder declines DTensor types, as
+``CommDebugMode`` does), so the mode sees the local ops at their local
+shapes and the functional collectives DTensor issues to redistribute.
+Two kinds of op are not the rank's work and are dropped: the pass
+DTensor's sharding propagation makes over FakeTensors at the *global*
+shapes (counting it would double the FLOPs, the copy at the global
+size), and the bookkeeping DTensor computes on host tensors (shard
+offsets); a mesh walk keeps only ops on meta tensors.  Each collective
+is a :class:`CollectiveRecord` under the reference's conventions
+(``hlo_analysis._walk``): opcodes ``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all`` (``collective-broadcast`` for a
+broadcast); the payload is the result for an all-reduce, the n× output
+of an all-gather, the larger (input) side of a reduce-scatter or an
+all-to-all; wire bytes are ``2(n-1)/n`` × payload for an all-reduce and
+``(n-1)/n`` × for the others, with n at least 2; ``cross_pod`` when the
+group's ranks fall in more than one block of ``devices_per_pod``.  Each
+is also a zero-AI kernel record (category ``collective``) with its
+operand and result bytes.
+
+:func:`trips` folds a loop whose trips are identical (gradient
+accumulation's microbatches): under a walk that asks for it, the body
+runs once and every op in it counts ``n`` times, as the reference counts
+a while loop's body by its trip count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import sys
+import weakref
 from collections import defaultdict
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
@@ -135,6 +166,9 @@ class CollectiveRecord:
 class ModuleAnalysis:
     kernels: list[KernelRecord]
     collectives: list[CollectiveRecord]
+    #: the walk's high-water mark of live (local) tensor bytes: the
+    #: arguments, then every op's outputs until they are freed
+    peak_bytes: int = 0
 
     @property
     def total_flops_by_class(self) -> dict[str, float]:
@@ -232,6 +266,44 @@ _REDUCE = {
 }
 
 
+# functional collectives (``torch.ops._c10d_functional``, and DTensor's
+# own all-to-all) → the reference's opcode; anything else of the
+# namespace (waits, autograd wrappers) launches nothing
+_COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-broadcast",
+    "broadcast_": "collective-broadcast",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
+
+# wire-traffic multiplier (ring algorithms): bytes on the slowest link ≈
+# mult × payload (the reference's ``_COLL_MULT``)
+_COLL_MULT = {
+    "all-reduce": lambda n: 2.0 * (n - 1) / n,
+    "reduce-scatter": lambda n: (n - 1) / n,
+    "all-gather": lambda n: (n - 1) / n,
+    "all-to-all": lambda n: (n - 1) / n,
+    "collective-broadcast": lambda n: 1.0,
+}
+
+
+def _group_ranks(args: Sequence) -> list[int]:
+    """The global ranks of a functional collective's group (its last
+    string argument names it)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = next(a for a in reversed(args) if isinstance(a, str))
+    return dist.get_process_group_ranks(_resolve_process_group(name))
+
+
 def _tensors(tree: Any) -> list[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
@@ -311,26 +383,78 @@ def _flop_class(packet, inputs: list[torch.Tensor],
     return dtype_class(dtype_name(src[0].dtype)) if src else "f32"
 
 
-class _OpRecorder(TorchDispatchMode):
-    """Records one merged :class:`KernelRecord` per launching aten op."""
+def _dtensor_type() -> type | None:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod.DTensor if mod is not None else None
 
-    def __init__(self, matmul_class: str | None = None):
+
+class _OpRecorder(TorchDispatchMode):
+    """Records one merged :class:`KernelRecord` per launching aten op, and
+    one :class:`CollectiveRecord` per functional collective."""
+
+    def __init__(self, matmul_class: str | None = None,
+                 devices_per_pod: int | None = None, mesh: bool = False,
+                 fold_loops: bool = False):
         super().__init__()
         self.matmul_class = matmul_class
+        self.devices_per_pod = devices_per_pod
+        self.mesh = mesh
+        self.fold_loops = fold_loops
+        self.multiplier = 1
+        self.outer: list[int] = []       # multipliers outside folded loops
         self.records: dict[tuple, KernelRecord] = {}
+        self.collectives: dict[tuple, CollectiveRecord] = {}
+        self.live_bytes = self.peak_bytes = 0
+        self._storages: dict[int, weakref.ref] = {}
+
+    def track(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Count the meta storages of ``tensors`` live until they are
+        freed (a view shares its base's storage); keep the peak."""
+        for t in tensors:
+            if isinstance(t, FakeTensor) or t.device.type != "meta":
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._storages:
+                continue
+            n = st.nbytes()
+            self._storages[key] = weakref.ref(
+                st, functools.partial(self._freed, key, n))
+            self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _freed(self, key: int, n: int, _ref) -> None:
+        if self._storages.pop(key, None) is not None:
+            self.live_bytes -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.mesh and any(t is not torch.Tensor
+                             and not issubclass(t, FakeTensor)
+                             for t in types):
+            # DTensor (and a collective's async wrapper) dispatch
+            # themselves: the mode sees the local ops they run
+            return NotImplemented
         out = func(*args, **kwargs)
+        outputs = _tensors(out)
+        self.track(outputs)
         packet = func.overloadpacket
         if packet in _FREE or func.is_view:
             return out
-        inputs, outputs = _tensors((args, kwargs)), _tensors(out)
+        inputs = _tensors((args, kwargs))
+        if self.mesh and any(isinstance(t, FakeTensor) or
+                             t.device.type != "meta"
+                             for t in (*inputs, *outputs)):
+            return out            # sharding propagation, or bookkeeping
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            if packet.__name__ in _COLLECTIVE_OPS:
+                self._collective(func, args, inputs, outputs)
+            return out
         key = (str(func), tuple(_shape_str(t) for t in inputs),
                tuple(_shape_str(t) for t in outputs))
         rec = self.records.get(key)
         if rec is not None:
-            rec.exec_count += 1
+            rec.exec_count += self.multiplier
             return out
         port = _is_port_op(func)
         flops = (_custom_flops(func, args) if port else
@@ -347,30 +471,151 @@ class _OpRecorder(TorchDispatchMode):
             name=f"{packet.__name__}.{len(self.records)}",
             opcode=packet.__name__,
             op_name=",".join(key[1]) + "->" + ",".join(key[2]),
-            exec_count=1,
+            exec_count=self.multiplier,
             flops_by_class={cls: flops} if flops else {},
             hbm_bytes=nbytes, vmem_bytes=nbytes,
             category=_categorize(packet, flops, port))
         return out
 
+    def _collective(self, func, args, inputs, outputs) -> None:
+        opcode = _COLLECTIVE_OPS[func.overloadpacket.__name__]
+        ranks = _group_ranks(args)
+        n = len(ranks)
+        out_b = sum(map(_nbytes, outputs))
+        in_b = sum(map(_nbytes, inputs))
+        payload = out_b
+        if opcode in ("reduce-scatter", "all-to-all"):
+            payload = max(out_b, in_b)       # keyed on the larger side
+        dpp = self.devices_per_pod
+        cross = bool(dpp) and len({r // dpp for r in ranks}) > 1
+        key = (str(func), tuple(_shape_str(t) for t in inputs),
+               tuple(_shape_str(t) for t in outputs), tuple(ranks))
+        rec = self.collectives.get(key)
+        if rec is not None:
+            rec.exec_count += self.multiplier
+            self.records[key].exec_count += self.multiplier
+            return
+        name = f"{opcode}.{len(self.collectives)}"
+        self.collectives[key] = CollectiveRecord(
+            name=name, opcode=opcode, exec_count=self.multiplier,
+            payload_bytes=payload,
+            wire_bytes=payload * _COLL_MULT[opcode](max(n, 2)),
+            group_size=n, cross_pod=cross)
+        # the collective is also a zero-AI kernel moving its operand and
+        # its result through device memory
+        self.records[key] = KernelRecord(
+            name=name, opcode=opcode,
+            op_name=",".join(key[1]) + "->" + ",".join(key[2]),
+            exec_count=self.multiplier, flops_by_class={},
+            hbm_bytes=in_b + out_b, vmem_bytes=in_b + out_b,
+            category="collective")
+
+
+_ACTIVE: list[_OpRecorder] = []
+
+
+@contextlib.contextmanager
+def _recording(rec: _OpRecorder) -> Iterator[_OpRecorder]:
+    _ACTIVE.append(rec)
+    try:
+        with rec:
+            yield rec
+    finally:
+        _ACTIVE.pop()
+
+
+def trips(n: int) -> Iterator[int]:
+    """``range(n)`` for a loop whose trips run the same ops at the same
+    shapes; under a walk with ``fold_loops`` one trip, every op of which
+    counts ``n`` times."""
+    rec = _ACTIVE[-1] if _ACTIVE else None
+    if rec is None or not rec.fold_loops or n <= 1:
+        yield from range(n)
+        return
+    prev = rec.multiplier
+    rec.outer.append(prev)
+    rec.multiplier = prev * n
+    try:
+        yield 0
+    finally:
+        rec.multiplier = rec.outer.pop()
+
+
+@contextlib.contextmanager
+def once() -> Iterator[None]:
+    """Inside a folded :func:`trips` loop: work that the loop does on one
+    trip only (its first), counted once."""
+    rec = _ACTIVE[-1] if _ACTIVE else None
+    if rec is None or not rec.outer:
+        yield
+        return
+    prev = rec.multiplier
+    rec.multiplier = rec.outer[-1]
+    try:
+        yield
+    finally:
+        rec.multiplier = prev
+
+
+def _meta_like(t: torch.Tensor) -> torch.Tensor:
+    dt = _dtensor_type()
+    if dt is not None and isinstance(t, dt):
+        if t._local_tensor.device.type == "meta":
+            return t
+        local = torch.empty_like(t._local_tensor, device="meta")
+        return dt.from_local(local, t.device_mesh, t.placements,
+                             run_check=False, shape=t.shape,
+                             stride=t.stride())
+    return torch.empty_like(t, device="meta")
+
 
 def to_meta(tree: Any) -> Any:
-    """Meta-tensor stand-ins for every tensor leaf (nothing allocated)."""
-    return tree_map(lambda t: (torch.empty_like(t, device="meta")
-                               if isinstance(t, torch.Tensor) else t), tree)
+    """Meta-tensor stand-ins for every tensor leaf (nothing allocated); a
+    DTensor keeps its mesh and placements over a meta local tensor."""
+    return tree_map(lambda t: (_meta_like(t) if isinstance(t, torch.Tensor)
+                               else t), tree)
+
+
+def has_dtensor(tree: Any) -> bool:
+    dt = _dtensor_type()
+    return dt is not None and any(isinstance(t, dt)
+                                  for t in tree_flatten(tree)[0])
 
 
 def analyze_fn(fn: Callable, args: Sequence[Any],
-               matmul_class: str | None = None) -> ModuleAnalysis:
+               matmul_class: str | None = None,
+               devices_per_pod: int | None = None,
+               fold_loops: bool = False) -> ModuleAnalysis:
     """Characterize ``fn(*args)`` op by op on meta tensors.
 
     ``args`` may hold tensors on any device; they are replaced by meta
     tensors of the same shape and dtype, so the walk allocates nothing and
     launches nothing.  ``matmul_class`` is the reference's policy override
     for f32-typed matmuls and convs (a no-op when the operands are bf16).
+    DTensor arguments make it a per-device walk (the module docstring);
+    ``devices_per_pod`` then splits its collectives into ``cross_pod`` or
+    not (None: none is).  ``fold_loops`` folds :func:`trips` loops.
     """
-    rec = _OpRecorder(matmul_class)
+    mesh = has_dtensor(args)
+    rec = _OpRecorder(matmul_class, devices_per_pod, mesh=mesh,
+                      fold_loops=fold_loops)
     meta_args = to_meta(tuple(args))
-    with torch.no_grad(), rec:
+    rec.track([_local(t) for t in _tensors(meta_args)])
+    with torch.no_grad(), _replicating(mesh), _recording(rec):
         fn(*meta_args)
-    return ModuleAnalysis(list(rec.records.values()), [])
+    return ModuleAnalysis(list(rec.records.values()),
+                          list(rec.collectives.values()), rec.peak_bytes)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    dt = _dtensor_type()
+    return t._local_tensor if dt is not None and isinstance(t, dt) else t
+
+
+def _replicating(mesh: bool):
+    """On a mesh, plain tensors the code makes (positions, masks) meet
+    DTensors as replicated ones."""
+    if not mesh:
+        return contextlib.nullcontext()
+    from repro_torch.distributed.sharding import plain_as_replicated
+    return plain_as_replicated()

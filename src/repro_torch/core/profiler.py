@@ -83,16 +83,20 @@ def profile_fn(fn: Callable, *, args: Sequence[Any], name: str | None = None,
                machine: MachineSpec | str = "h100-sxm",
                measure: bool = False, measure_iters: int = 10,
                measure_warmup: int = 3,
-               matmul_class: str | None = None) -> ProfileResult:
+               matmul_class: str | None = None,
+               devices_per_pod: int | None = None) -> ProfileResult:
     """Analyze ``fn(*args)`` op by op; with ``measure=True`` also time it.
 
     The analysis runs on meta stand-ins of ``args`` and allocates nothing;
     the timing runs ``fn`` itself on ``args`` (so ``args`` must be real
-    tensors when ``measure=True``).
+    tensors when ``measure=True``).  DTensor ``args`` make the analysis
+    per device (``op_analysis.analyze_fn``), its collectives split at
+    ``devices_per_pod``.
     """
     if isinstance(machine, str):
         machine = get_machine(machine)
-    analysis = analyze_fn(fn, args, matmul_class=matmul_class)
+    analysis = analyze_fn(fn, args, matmul_class=matmul_class,
+                          devices_per_pod=devices_per_pod)
     res = ProfileResult(name=name or getattr(fn, "__name__", "fn"),
                         analysis=analysis,
                         terms=roofline_terms(analysis, machine))

@@ -26,6 +26,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
+from repro_torch.distributed.sharding import plain_as_replicated
 from repro_torch.models import deepcam as DC
 from repro_torch.models import hybrid as HY
 from repro_torch.models import multimodal as MM
@@ -76,20 +77,37 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
+    """The model of ``cfg``.  Its ``loss_fn``, ``forward_fn`` and
+    ``decode_fn`` take plain tensors or DTensors on a mesh (the plain
+    tensors the code makes then count as replicated,
+    ``sharding.plain_as_replicated``)."""
     fam = cfg.family
     if fam in ("dense", "moe"):
-        return _build_lm(cfg, TR)
-    if fam == "vlm":
-        return _build_vlm(cfg)
-    if fam in ("audio", "encdec"):
-        return _build_encdec(cfg)
-    if fam == "ssm":
-        return _build_lm(cfg, SM)
-    if fam == "hybrid":
-        return _build_lm(cfg, HY)
-    if fam == "cnn":
-        return _build_deepcam(cfg)
-    raise ValueError(f"unknown family {fam!r}")
+        model = _build_lm(cfg, TR)
+    elif fam == "vlm":
+        model = _build_vlm(cfg)
+    elif fam in ("audio", "encdec"):
+        model = _build_encdec(cfg)
+    elif fam == "ssm":
+        model = _build_lm(cfg, SM)
+    elif fam == "hybrid":
+        model = _build_lm(cfg, HY)
+    elif fam == "cnn":
+        model = _build_deepcam(cfg)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+    return dataclasses.replace(
+        model, loss_fn=_on_meshes(model.loss_fn),
+        forward_fn=_on_meshes(model.forward_fn),
+        decode_fn=model.decode_fn and _on_meshes(model.decode_fn))
+
+
+def _on_meshes(fn: Callable) -> Callable:
+    def run(*args, **kwargs):
+        with plain_as_replicated():
+            return fn(*args, **kwargs)
+    run.__name__ = getattr(fn, "__name__", "fn")
+    return run
 
 
 def _kv_init_state(cfg: ModelConfig):

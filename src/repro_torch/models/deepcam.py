@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import P
 
 Params = Any
@@ -357,7 +358,7 @@ def deepcam_forward(params: Params, images: torch.Tensor, run: RunConfig,
     """images (B, H, W, 16) → logits (B, H, W, 3) in fp32."""
     fused = impl == "fused"
     cd = run.compute_dtype
-    x = images.to(cd)
+    x = constrain(images.to(cd), run, "batch", None, None, None)
     H, W = x.shape[1], x.shape[2]
 
     def cbr(h, cp, np_, s=1):

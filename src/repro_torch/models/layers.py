@@ -31,6 +31,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed.sharding import (constrain, gather_for_use,
+                                              gather_seq, is_dtensor,
+                                              whole_seq_grad)
 from repro_torch.kernels.fused.swiglu import gelu_tanh
 from repro_torch.models.params import P
 
@@ -51,13 +54,16 @@ def wdot(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     these and the batched QKᵀ / PV / SSD products alike to ``bmm``, so
     the product is told apart by its operand: this call marks it (on the
     calling thread, which is the autograd thread during a recompute) for
-    the ``remat="dots"`` policy."""
+    the ``remat="dots"`` policy.  On a mesh the weight's FSDP shards and
+    the activation's sequence shard are gathered first
+    (:func:`sharding.gather_for_use`, :func:`sharding.gather_seq`)."""
     if w.dim() not in (2, 3):
         raise ValueError(f"wdot takes a 2-D or 3-D weight, got "
                          f"{tuple(w.shape)}")
+    w, x = gather_for_use(w), gather_seq(x)
     _WEIGHT.on = True
     try:
-        return torch.einsum(eq, x, w)
+        return whole_seq_grad(torch.einsum(eq, x, w))
     finally:
         _WEIGHT.on = False
 
@@ -265,7 +271,6 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // K
     cd = run.compute_dtype
     sd = torch.float32 if run.softmax_f32 else cd
     xc = x.to(cd)
@@ -278,18 +283,40 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if memory is None:                                 # self-attn: RoPE
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(B, S, K, G, hd)
+    heads = _LocalHeads(q, H, K) if is_dtensor(q) else None
+    if (heads is not None and kv_cache is not None and S == 1
+            and heads.seq_sharded(kv_cache[0])):
+        # a decode step against a cache sharded on its sequence
+        out, new_cache = heads.decode_seq_sharded(q, k, v, kv_cache,
+                                                  cache_len, sd)
+        y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd)).to(x.dtype)
+        return y, new_cache
+    if heads is not None:
+        # a mesh run: the attention math on this rank's query heads
+        q, k, v = heads.enter(q, k, v)
+        if kv_cache is not None:
+            kv_cache = heads.enter_cache(kv_cache)
+            cache_len = heads.local_rows(cache_len)
+        positions = heads.local_rows(positions)
+    Bl = q.shape[0]
     new_cache = None
     if kv_cache is not None:
         idx = (cache_len if cache_len is not None else
-               torch.zeros((B,), dtype=torch.int32, device=x.device))
+               torch.zeros((Bl,), dtype=torch.int32, device=q.device))
         ck, cv = cache_update(kv_cache, k, v, idx)
         new_cache = (ck, cv)
-        k_pos = torch.arange(ck.shape[1], device=x.device)
-        out = _sdpa(qg, ck.to(cd), cv.to(cd), positions, k_pos, causal=False,
-                    k_len=idx + 1, stat_dtype=sd)
+        k, v = ck.to(cd), cv.to(cd)
+        if heads is not None:
+            k, v = heads.select(k), heads.select(v)
+        qg = _group(q, k.shape[2])
+        k_pos = torch.arange(ck.shape[1], device=q.device)
+        out = _sdpa(qg, k, v, positions, k_pos, causal=False, k_len=idx + 1,
+                    stat_dtype=sd)
     else:
-        k_pos = (torch.arange(k.shape[1], device=x.device)
+        if heads is not None:
+            k, v = heads.select(k), heads.select(v)
+        qg = _group(q, k.shape[2])
+        k_pos = (torch.arange(k.shape[1], device=q.device)
                  if memory is not None else positions)
         masked = causal and memory is None
         if run.attn_impl == "flash" and masked:
@@ -312,9 +339,190 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         else:
             out = _sdpa(qg, k, v, positions, k_pos, causal=masked,
                         stat_dtype=sd)
-    out = out.reshape(B, S, H, hd)
+    out = out.reshape(*q.shape)
+    if heads is not None:
+        out = heads.exit(out)
+        if new_cache is not None:
+            new_cache = tuple(heads.exit_cache(c) for c in new_cache)
     y = wdot("bshk,hkd->bsd", out, p["wo"].to(cd)).to(x.dtype)
     return y if kv_cache is None else (y, new_cache)
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q (B, S, H, hd) grouped by KV head → (B, S, n_kv, H // n_kv, hd)."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+class _LocalHeads:
+    """GQA attention on one rank's query heads, for a run on a mesh.
+
+    q comes out of its projection a DTensor sharded over ``"model"`` on
+    its heads (where they divide).  A DTensor placement cannot express
+    that shard in the grouped (K, G) layout the attention math takes:
+    glm4's 32 query heads on a 16-way axis give each rank 2 heads of one
+    of its 2 KV groups, which is neither a shard of K nor of G.  So the
+    math runs on local tensors, the Megatron way: q keeps its batch and
+    heads shards, K/V (and a decode cache) keep their batch shard and
+    are sharded on their heads where ``"model"`` divides them and whole
+    otherwise (the redistribution gathers them); each rank picks the KV
+    heads its query heads read (:meth:`select`) and runs the same
+    attention — einsum, chunked or the flash kernel — on its shard.  The
+    output goes back as a DTensor with q's placements.  A whole K/V's
+    gradient is a partial sum over the model axis (each rank's heads
+    read part of it), which its DTensor placement says, so the backward
+    reduces it.  Any other placement is redistributed first."""
+
+    def __init__(self, q: torch.Tensor, n_heads: int, n_kv: int):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = q.device_mesh
+        self.mesh, self.H, self.K = mesh, n_heads, n_kv
+        self.qpl, self.kvpl, self.kvgrad = [], [], []
+        self.rank, self.n = 0, 1
+        names = mesh.mesh_dim_names
+        self.mi = names.index("model") if "model" in names else None
+        for i, name in enumerate(names):
+            size = mesh.size(i)
+            if name == "model" and size > 1 and n_heads % size == 0:
+                self.rank, self.n = mesh.get_local_rank(i), size
+                self.qpl.append(Shard(2))
+                kv_split = n_kv % size == 0
+                self.kvpl.append(Shard(2) if kv_split else Replicate())
+                self.kvgrad.append(Shard(2) if kv_split else Partial())
+            else:
+                pl = q.placements[i]
+                b = (Shard(0) if name != "model" and isinstance(pl, Shard)
+                     and pl.dim == 0 else Replicate())
+                self.qpl.append(b)
+                self.kvpl.append(b)
+                self.kvgrad.append(b)
+
+    def _local(self, t, pl, grad):
+        return t.redistribute(self.mesh, pl).to_local(grad_placements=grad)
+
+    def enter(self, q, k, v):
+        """Local q (Bl, S, H/n, hd), k and v (Bl, S, K or K/n, hd)."""
+        return (self._local(q, self.qpl, self.qpl),
+                self._local(k, self.kvpl, self.kvgrad),
+                self._local(v, self.kvpl, self.kvgrad))
+
+    def enter_cache(self, cache):
+        return tuple(self._local(c, self.kvpl, self.kvgrad) for c in cache)
+
+    def local_rows(self, t):
+        """A fill or position tensor on this rank: a scalar or a (1, 1)
+        whole, a per-row (B, ...) one cut to q's batch shard."""
+        from torch.distributed.tensor import Replicate, Shard
+        if not is_dtensor(t):
+            return t
+        per_row = t.dim() > 0 and t.shape[0] > 1
+        rows = [Shard(0) if per_row and p == Shard(0) else Replicate()
+                for p in self.qpl]
+        return t.redistribute(self.mesh, rows).to_local()
+
+    def select(self, t):
+        """The KV heads this rank's query heads read, of a local K/V
+        (Bl, S, K, hd) that holds every KV head; a sharded one as is."""
+        if self.n == 1 or self.K % self.n == 0:
+            return t
+        hl, g = self.H // self.n, self.H // self.K
+        lo = self.rank * hl
+        if hl % g == 0 or g % hl == 0:
+            return t[:, :, lo // g: lo // g + max(hl // g, 1)]
+        idx = torch.arange(lo, lo + hl, device=t.device) // g
+        return t.index_select(2, idx)
+
+    def seq_sharded(self, cache) -> bool:
+        """Is this (B, S, K, hd) cache sharded on its sequence over the
+        model axis (its KV heads do not divide it)?"""
+        from torch.distributed.tensor import Shard
+        return (self.mi is not None and self.K % self.mesh.size(self.mi)
+                and cache.placements[self.mi] == Shard(1))
+
+    def decode_seq_sharded(self, q, k, v, cache, fill, stat_dtype):
+        """One decode step against a cache whose sequence is sharded over
+        the model axis (``sharding.decode_state_shardings``: KV heads
+        that do not divide it).  Each rank attends every query head of
+        its batch rows to its own sequence shard and the shards combine
+        exactly, by their softmax statistics (flash decoding): the
+        maximum's all-reduce, then one of the rescaled outputs and one of
+        the rescaled sums — (B, H, hd)-sized, where gathering the cache
+        would move all of it.  The new token lands in the shard that
+        holds its position, by a select over the shard (the reference's
+        partitioner makes the same select for a write at a dynamic
+        position on a sharded dim).  → (the output (B, 1, H, hd) placed
+        as q, the new cache placed as the old)."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mi, mesh = self.mi, self.mesh
+        n, r = mesh.size(mi), mesh.get_local_rank(mi)
+        rows = [Replicate() if i == mi else p
+                for i, p in enumerate(self.qpl)]
+        cpl = [Shard(1) if i == mi else p for i, p in enumerate(rows)]
+        ql = q.redistribute(mesh, rows).to_local()           # every head
+        kl = k.redistribute(mesh, rows).to_local()
+        vl = v.redistribute(mesh, rows).to_local()
+        ck, cv = (c.redistribute(mesh, cpl).to_local() for c in cache)
+        B, S_l = ck.shape[:2]
+        pos = r * S_l + torch.arange(S_l, device=ck.device)
+        idx = self.local_rows(fill) if fill is not None else torch.zeros(
+            (B,), dtype=torch.int32, device=ck.device)
+        if idx.dim() == 0:                       # aligned: the write clamps
+            hit = pos == idx.clamp(0, S_l * n - 1)
+            valid = pos < idx + 1
+            hit4 = hit[None, :, None, None]
+        else:                                    # per row: past the end drops
+            hit = pos[None, :] == idx[:, None]
+            valid = (pos[None, :] < idx[:, None] + 1)[:, None, None, None]
+            hit4 = hit[:, :, None, None]
+        ck = torch.where(hit4, kl.to(ck.dtype), ck)
+        cv = torch.where(hit4, vl.to(cv.dtype), cv)
+        cd = ql.dtype
+        qg = _group(ql, self.K)                                # (B,1,K,G,hd)
+        scores = (torch.einsum("bqkgh,bskh->bkgqs", qg, ck.to(cd))
+                  * ql.shape[-1] ** -0.5).to(stat_dtype)
+        scores = torch.where(valid, scores, -1e30)
+        m = scores.amax(-1, keepdim=True)                      # (B,K,G,1,1)
+        w = torch.exp(scores - m)
+        total = w.sum(-1, keepdim=True)
+        o = torch.einsum("bkgqs,bskh->bqkgh", w.to(cd), cv.to(cd))
+
+        def reduce(t, op):
+            part = [Partial(op) if i == mi else p for i, p in enumerate(rows)]
+            return self._wrap(t, part, self._global(t, rows)).redistribute(
+                mesh, rows).to_local()
+
+        big = reduce(m, "max")
+        scale = torch.exp(m - big)                             # (B,K,G,1,1)
+        o = reduce(o * scale.permute(0, 3, 1, 2, 4).to(cd), "sum")
+        total = reduce(total * scale, "sum")
+        out = o / total.permute(0, 3, 1, 2, 4).to(cd)
+        hl = self.H // self.n                  # this rank's query heads
+        out = out.reshape(B, 1, self.H, -1)[
+            :, :, self.rank * hl:(self.rank + 1) * hl]
+        new = tuple(self._wrap(c.contiguous(), cpl, self._global(c, cpl))
+                    for c in (ck, cv))
+        return self.exit(out.contiguous()), new
+
+    def _wrap(self, t, pl, shape):
+        from torch.distributed.tensor import DTensor
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(t, self.mesh, pl, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    def exit(self, out):
+        """The local output (Bl, S, H/n, hd) as the whole (B, S, H, hd)."""
+        return self._wrap(out, self.qpl, self._global(out, self.qpl))
+
+    def exit_cache(self, c):
+        return self._wrap(c, self.kvpl, self._global(c, self.kvpl))
+
+    def _global(self, t, pl):
+        from torch.distributed.tensor import Shard
+        shape = list(t.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] *= self.mesh.size(i)
+        return tuple(shape)
 
 
 def cache_update(kv_cache: tuple[torch.Tensor, torch.Tensor],
@@ -437,13 +645,56 @@ def embed_spec(cfg: ModelConfig) -> Params:
 
 def embed_apply(p: Params, tokens: torch.Tensor, run: RunConfig
                 ) -> torch.Tensor:
+    """The token embedding gather.  On a mesh it is a vocab-parallel
+    lookup (:func:`_vocab_parallel_embed`) for a vocab-sharded table and
+    ``F.embedding`` otherwise, whose DTensor rules (and their backwards)
+    hold in every torch the port runs on; the fused one-hot gradient is
+    a single-device route."""
     fops = _fused(run)
-    if fops is not None and fops.use_embed(run, p["tokens"], tokens,
-                                           run.compute_dtype):
+    if is_dtensor(p["tokens"]):
+        table = gather_for_use(p["tokens"].to(run.compute_dtype))
+        x = _vocab_parallel_embed(table, tokens)
+    elif fops is not None and fops.use_embed(run, p["tokens"], tokens,
+                                             run.compute_dtype):
         # same gather forward; the backward is one onehotᵀ @ g matmul
-        return fops.embed_with_onehot_grad(p["tokens"], tokens,
-                                           run.compute_dtype)
-    return p["tokens"].to(run.compute_dtype)[tokens]
+        x = fops.embed_with_onehot_grad(p["tokens"], tokens,
+                                        run.compute_dtype)
+    else:
+        x = p["tokens"].to(run.compute_dtype)[tokens]
+    return constrain(x, run, "batch", "seq", None)
+
+
+def _vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor
+                          ) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor table: where ``"model"`` shards the
+    vocab, Megatron's vocab-parallel lookup — each rank looks up the
+    tokens its rows hold (zeros elsewhere), a partial sum over the model
+    axis that the next constraint reduces; the table's gradient is the
+    rank's rows (summed over the data axes the tokens are sharded on).
+    Otherwise ``F.embedding`` on the DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    if mi is None or table.placements[mi] != Shard(0):
+        return F.embedding(tokens, table)
+    tok_pl = [Replicate() if i == mi else p
+              for i, p in enumerate(tokens.placements)]
+    tok = tokens.redistribute(mesh, tok_pl).to_local()
+    grad_pl = [Shard(0) if i == mi else
+               (Partial() if p == Shard(0) else Replicate())
+               for i, p in enumerate(tok_pl)]
+    local = table.to_local(grad_placements=grad_pl)
+    n = local.shape[0]
+    lo = mesh.get_local_rank(mi) * n
+    hit = (tok >= lo) & (tok < lo + n)
+    x = F.embedding(torch.where(hit, tok - lo, 0), local) \
+        * hit[..., None].to(local.dtype)
+    out_pl = [Partial() if i == mi else p for i, p in enumerate(tok_pl)]
+    shape = (*tokens.shape, table.shape[1])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(x, mesh, out_pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def unembed_apply(p: Params, x: torch.Tensor, run: RunConfig
@@ -452,4 +703,6 @@ def unembed_apply(p: Params, x: torch.Tensor, run: RunConfig
     w = p.get("unembed")
     if w is None:
         w = p["tokens"].T
-    return torch.einsum("bsd,dv->bsv", x.to(cd), w.to(cd))
+    logits = whole_seq_grad(torch.einsum(
+        "bsd,dv->bsv", gather_seq(x.to(cd)), gather_for_use(w.to(cd))))
+    return constrain(logits, run, "batch", "seq", "vocab")

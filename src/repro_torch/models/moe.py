@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models.params import P
 
@@ -174,8 +175,14 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(output, aux load-balance loss); x (B, S, D), B the groups.
 
-    ``run.moe_combine`` is not read: its three values differ only in the
-    reference's sharding annotations, which do nothing on one device."""
+    ``run.moe_combine`` picks the reference's activation constraints on
+    the dispatch and combine buffers (``sharding.constrain``, nothing on
+    one device): ``"default"`` pins the expert buffers to (batch,
+    experts); ``"reshard"`` also brings the combine buffer back to batch
+    sharding before the gather; ``"a2a"`` shards the sorted-token dim of
+    the dispatched and gathered rows over the model axis."""
+    if is_dtensor(x):
+        return _moe_on_mesh(p, x, cfg, run)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     cd = run.compute_dtype
@@ -185,30 +192,136 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig
     slots, st, sg, me, ce, order = _route_group(
         x.float(), p["router"].float(), cfg, C)
     aux = E * torch.sum(torch.mean(me, 0) * torch.mean(ce, 0))
+    y = _dispatch_combine(p, x, slots, st, sg, order, cfg, run, 0, E)
+    if "shared" in p:
+        y = y + L.mlp_apply(p["shared"], x, cfg, run).to(cd)
+    return y.to(x.dtype), aux.float()
+
+
+def _dispatch_combine(p: Params, x: torch.Tensor, slots, st, sg, order,
+                      cfg: ModelConfig, run: RunConfig, e0: int, e1: int
+                      ) -> torch.Tensor:
+    """Dispatch into the expert buffer, the expert FFN and the combine,
+    for the experts ``[e0, e1)`` whose weights ``p`` holds (all of them
+    off a mesh); a choice of another expert contributes zero."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    cd = run.compute_dtype
+    C = _capacity(S, cfg)
+    if (e0, e1) != (0, E):
+        # slots of other experts (and overflows) go to the dump row
+        local = (slots >= e0 * C) & (slots < e1 * C)
+        slots = torch.where(local, slots - e0 * C, (e1 - e0) * C)
+        E = e1 - e0
 
     # --- dispatch: per-group scatter into the (E, C) expert buffer ----------
     xg = torch.gather(x.to(cd), 1, st[..., None].expand(B, S * K, D))
+    if run.moe_combine == "a2a":
+        xg = constrain(xg, run, "batch", "seq", None)
     buf = torch.zeros((B, E * C + 1, D), dtype=cd, device=x.device)
     buf = buf.scatter(1, slots[..., None].expand(B, S * K, D), xg)
     buf = buf[:, :-1].reshape(B, E, C, D)
+    # the group axis stays on data, the expert axis moves to model
+    buf = constrain(buf, run, "batch", "experts", None, None)
 
     # --- expert FFN: silu gate whatever cfg.act, as the reference ----------
     g = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cd))
     u = torch.einsum("becd,edf->becf", buf, p["w_up"].to(cd))
     h = F.silu(g) * u
     out_buf = torch.einsum("becf,efd->becd", h, p["w_down"].to(cd))
+    out_buf = constrain(out_buf, run, "batch", "experts", None, None)
 
     # --- combine: each token's K rows in (s, k) order, gate-weighted, summed
     # the inverse permutation: choice s·K + k sits at sorted position inv
     inv = torch.zeros_like(order).scatter_(
         -1, order, torch.arange(S * K, device=x.device).expand_as(order))
-    flat = torch.cat([out_buf.reshape(B, E * C, D),
-                      torch.zeros((B, 1, D), dtype=cd, device=x.device)], 1)
+    flat = out_buf.reshape(B, E * C, D)
+    if run.moe_combine == "reshard":
+        flat = constrain(flat, run, "batch", None, None)
+    flat = torch.cat([flat, torch.zeros((B, 1, D), dtype=cd,
+                                        device=x.device)], 1)
     rows = torch.gather(slots, 1, inv)                         # (B, S*K)
     gathered = torch.gather(flat, 1, rows[..., None].expand(B, S * K, D))
+    if run.moe_combine == "a2a":
+        gathered = constrain(gathered, run, "batch", "seq", None)
     gates = torch.gather(sg, 1, inv).to(cd)
     y = torch.sum((gathered * gates[..., None]).reshape(B, S, K, D), dim=2)
 
+    return y
+
+
+def _moe_on_mesh(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 run: RunConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_apply` of a DTensor ``x`` (a run on a mesh): expert
+    parallelism over ``"model"``.
+
+    The routing and the dispatch are per group, so each rank routes its
+    own groups (rows of its batch shard, whole over the model axis) on
+    local tensors; the sort-based dispatch has no DTensor sharding rule.
+    Each model rank runs the FFN of its own experts (their weights
+    sharded on the experts dim, gathered over the data axes under FSDP),
+    and its combine adds only their rows: the output is a partial sum
+    over the model axis — the reference's "the combine's expert
+    reduction becomes the TP all-reduce" — and so are the gradients of
+    ``x`` and of the router (each rank's share through its experts).  The
+    aux loss's per-group terms enter divided by the model-axis size as a
+    partial sum, so its value and its gradient count once.  Where the
+    experts do not divide the model axis every rank runs all of them and
+    nothing is partial.  The three ``moe_combine`` lowerings are one
+    here."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    E = cfg.n_experts
+    mi = names.index("model") if "model" in names else None
+    n = mesh.size(mi) if mi is not None else 1
+    split = n > 1 and E % n == 0 and run.tp
+    red = Partial() if split else Replicate()
+    rows, rows_grad, w_grad = [], [], []
+    for i, name in enumerate(names):
+        if i == mi:
+            rows.append(Replicate())
+            rows_grad.append(red)
+            w_grad.append(red)
+        elif x.shape[0] % mesh.size(i) == 0:
+            rows.append(Shard(0))
+            rows_grad.append(Shard(0))
+            w_grad.append(Partial())
+        else:
+            rows.append(Replicate())
+            rows_grad.append(Replicate())
+            w_grad.append(Replicate())
+    xl = x.redistribute(mesh, rows).to_local(grad_placements=rows_grad)
+    rep = [Replicate()] * len(names)
+    router = p["router"].redistribute(mesh, rep).to_local(
+        grad_placements=w_grad)
+    e0, e1 = (0, E)
+    wpl, wgrad = rep, w_grad
+    if split:
+        r = mesh.get_local_rank(mi)
+        e0, e1 = r * E // n, (r + 1) * E // n
+        wpl = [Shard(0) if i == mi else Replicate()
+               for i in range(len(names))]
+        wgrad = [Shard(0) if i == mi else g for i, g in enumerate(w_grad)]
+    pl = {k: p[k].redistribute(mesh, wpl).to_local(grad_placements=wgrad)
+          for k in ("w_gate", "w_up", "w_down")}
+    B, S, D = xl.shape
+    C = _capacity(S, cfg)
+    slots, st, sg, me, ce, order = _route_group(xl.float(), router.float(),
+                                                cfg, C)
+    y = _dispatch_combine(pl, xl, slots, st, sg, order, cfg, run, e0, e1)
+    out_pl = [red if i == mi else r_ for i, r_ in enumerate(rows)]
+    shape = (x.shape[0], S, D)
+    y = DTensor.from_local(y, mesh, out_pl, run_check=False,
+                           shape=torch.Size(shape),
+                           stride=(S * D, D, 1))
+    scale = n if split else 1
+    me_d, ce_d = (DTensor.from_local(t / scale, mesh, out_pl,
+                                     run_check=False,
+                                     shape=torch.Size((x.shape[0], E)),
+                                     stride=(E, 1)) for t in (me, ce))
+    aux = E * torch.sum(torch.mean(me_d, 0) * torch.mean(ce_d, 0))
+    cd = run.compute_dtype
     if "shared" in p:
         y = y + L.mlp_apply(p["shared"], x, cfg, run).to(cd)
     return y.to(x.dtype), aux.float()

@@ -13,9 +13,10 @@ state::
 torch ops (the reference's jnp form, in the compute dtype), ``"kernel"``
 the hand-written ``ssd_scan`` kernel on fp32 operands
 (:mod:`repro_torch.kernels.ssd_scan`), as the reference's Pallas route.
-The layer scan is a Python loop over the stacked parameters; the
-reference's sharding constraints are single-device no-ops and are left
-out.  ``run.remat`` checkpoints each layer body as the reference does
+The layer scan is a Python loop over the stacked parameters; each layer
+body pins its input and output activations as the reference's does
+(``sharding.constrain``: a redistribution on a mesh, nothing on one
+device).  ``run.remat`` checkpoints each layer body as the reference does
 (``layers.remat_apply``; under ``"dots"`` the backward keeps in_proj's
 and out_proj's outputs and recomputes the conv, the scan — its einsums,
 or the ``ssd_scan`` op — and the gated norm).
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models.params import P, stack_layers, unstack_layers
 
 Params = Any
@@ -79,7 +81,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     product and partial sum rounds, which ``F.conv1d`` (one fp32
     accumulation) would not."""
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    if is_dtensor(x):
+        # the same zero rows by a concatenation: older torch's DTensor
+        # fails on ``F.pad``
+        zeros = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+        xp = torch.cat([zeros, x], dim=1)
+    else:
+        xp = F.pad(x, (0, 0, W - 1, 0))
     out = xp[:, :S] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[i]
@@ -192,9 +201,16 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     if state is not None:
         # the one-step recurrence, in the compute dtype (the reference's)
         a = torch.exp(a_log_dt[:, 0]).to(cd)                       # (B, H)
-        s = state.ssd.to(cd) * a[:, :, None, None] + torch.einsum(
-            "bn,bhp->bhpn", Bn[:, 0].to(cd), xh[:, 0])
-        y = torch.einsum("bn,bhpn->bhp", Cn[:, 0].to(cd), s)[:, None]
+        if is_dtensor(xh):
+            # the same products by broadcasting: older torch's DTensor
+            # cannot flatten einsum's (h, p) with p sharded
+            s = state.ssd.to(cd) * a[:, :, None, None] \
+                + Bn[:, 0, None, None, :].to(cd) * xh[:, 0, :, :, None]
+            y = (Cn[:, 0, None, None, :].to(cd) * s).sum(-1)[:, None]
+        else:
+            s = state.ssd.to(cd) * a[:, :, None, None] + torch.einsum(
+                "bn,bhp->bhpn", Bn[:, 0].to(cd), xh[:, 0])
+            y = torch.einsum("bn,bhpn->bhp", Cn[:, 0].to(cd), s)[:, None]
         y = y.reshape(B, S, H, Pd)
         new_state = SSMState(conv=new_conv.to(state.conv.dtype),
                              ssd=s.to(state.ssd.dtype))
@@ -206,6 +222,12 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
         y = ssd_chunked(xh, a_log_dt, Bn, Cn, min(cfg.ssm_chunk, S))
 
     y = y + xh * p["D_skip"].to(cd)[None, None, :, None]
+    if is_dtensor(y):
+        # flattening (h, p) over a sharded p fails in older torch's
+        # DTensor: move a decode state's p shard onto h first
+        from torch.distributed.tensor import Shard
+        y = y.redistribute(y.device_mesh, [Shard(2) if pl == Shard(3)
+                                           else pl for pl in y.placements])
     y = y.reshape(B, S, di)
     y = L.rmsnorm_apply(p["norm"], y * F.silu(zg), cfg.norm_eps, run)
     out = L.wdot("bse,ed->bsd", y.to(cd), p["out_proj"].to(cd))
@@ -262,10 +284,11 @@ def matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
 def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                 run: RunConfig) -> torch.Tensor:
     """One pre-norm Mamba-2 layer with its residual (the reference's scan
-    body)."""
+    body, between its two activation constraints)."""
+    x = constrain(x, run, "batch", "seq", None)
     y, _ = ssm_apply(lp["ssm"], L.rmsnorm_apply(lp["ln"], x, cfg.norm_eps,
                                                 run), cfg, run)
-    return x + y
+    return constrain(x + y, run, "batch", "seq", None)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

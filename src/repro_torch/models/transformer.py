@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.configs.seamless_m4t_large_v2 import FRAME_DOWNSAMPLE
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.params import stack_layers, unstack_layers
@@ -206,11 +207,21 @@ def _blocks(blocks: Params, x: torch.Tensor, cfg: ModelConfig,
     one)."""
     aux = None
     for lp in unstack_layers(blocks):
-        x, _, a = L.remat_apply(block_apply, run, lp, x, cfg, run, positions,
-                                None, None, memory)
+        x, _, a = L.remat_apply(_scan_body, run, lp, x, cfg, run, positions,
+                                memory)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
+
+
+def _scan_body(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+               run: RunConfig, positions: torch.Tensor,
+               memory: torch.Tensor | None):
+    """One block between the reference's two activation constraints."""
+    x = constrain(x, run, "batch", "seq", None)
+    x, cache, aux = block_apply(lp, x, cfg, run, positions, None, None,
+                                memory)
+    return constrain(x, run, "batch", "seq", None), cache, aux
 
 
 def encode(params: Params, embeds: torch.Tensor, cfg: ModelConfig,

@@ -381,9 +381,9 @@ def rule_network_bound(records: Iterable[Any]) -> list[Finding]:
             f"(ici {ici * 1e3:.3f}ms + dcn {dcn * 1e3:.3f}ms) exceeds "
             f"memory {memory * 1e3:.3f}ms and compute "
             f"{compute * 1e3:.3f}ms at mesh {mesh}",
-            "bounds use datasheet interconnect ceilings (the port measures "
-            "no collective roofs yet: its network level is ROADMAP.md "
-            "queue 1 item 8)",
+            "bounds use datasheet interconnect ceilings (the port walks "
+            "its collectives per device but measures no collective roofs "
+            "yet: its network level is ROADMAP.md queue 1 item 8.2)",
         ]
         out.append(Finding(
             rule="network_bound",

@@ -32,9 +32,19 @@ store), so ``resume`` skips every point whose record already landed,
 across any number of crashes.  The journal and the store are the
 reference's format: either package resumes the other's campaign.
 
+A point on a mesh of more than one device (``mesh`` (data, model)) is
+walked per device: its phases' arguments become meta DTensors under the
+production shardings (``repro_torch.distributed.sharding``) on a mesh of
+that shape over a fake process group of as many ranks, made in the
+worker (``launch.mesh``), and the walk records rank 0's local ops and
+its collectives, split into ``ici`` / ``dcn`` at the machine's cards per
+node.  A measured mesh point needs that many cards and raises without
+them, naming the count; with them it raises too, since a measured
+multi-card point (one process per card) is not ported yet.
+
 The reference folds measured interconnect ceilings into the machine
 model and stamps ``meta.net_ceilings``; the port has no network level
-yet (``ROADMAP.md`` queue 1 item 8), so both wait for it.
+yet (``ROADMAP.md`` queue 1 item 8.2), so both wait for it.
 """
 
 from __future__ import annotations
@@ -125,17 +135,55 @@ def _build_point(point: SweepPoint, device):
     (``meta`` for an analytical point)."""
     from repro_torch.session.session import TRAIN_PHASES, build_phases
 
-    if point.n_devices > 1:
+    if point.n_devices > 1 and point.measured:
+        import torch
+        have = torch.cuda.device_count()
+        if have < point.n_devices:
+            raise RuntimeError(
+                f"{point.label}: mesh {point.mesh[0]}x{point.mesh[1]} "
+                f"needs {point.n_devices} cards; this host has {have}")
         raise NotImplementedError(
-            f"{point.label}: mesh {point.mesh[0]}x{point.mesh[1]} needs "
-            f"{point.n_devices} devices, and the port shards nothing yet: "
-            "its port of distributed/sharding.py is ROADMAP.md queue 1 "
-            "item 8")
-    return build_phases(point.config, phases=TRAIN_PHASES, seq=point.seq,
-                        batch=point.batch, amp=point.amp,
-                        fusion=point.fusion, attn_impl="einsum",
-                        ssd_impl="xla", smoke=point.smoke, n_layers=None,
-                        device=device)
+            f"{point.label}: a measured point on {point.n_devices} cards "
+            "runs one process per card, which the port does not have yet "
+            "(ROADMAP.md queue 1 item 8.2)")
+    phases, run = build_phases(
+        point.config, phases=TRAIN_PHASES, seq=point.seq, batch=point.batch,
+        amp=point.amp, fusion=point.fusion, attn_impl="einsum",
+        ssd_impl="xla", smoke=point.smoke, n_layers=None, device=device)
+    if point.n_devices > 1:
+        phases = _on_mesh(point, phases, run)
+    return phases, run
+
+
+def _on_mesh(point: SweepPoint, phases: dict, run) -> dict:
+    """The phases' meta arguments as meta DTensors on a (data, model)
+    mesh of the point's shape (a fake group of as many ranks)."""
+    from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api as M
+
+    mesh = make_mesh(point.mesh, ("data", "model"))
+    cfg = get_smoke(point.config) if point.smoke else get_config(point.config)
+    pspec = shd.named(shd.param_shardings(M.build(cfg).spec, mesh, run),
+                      mesh)
+    out = {}
+    for name, (fn, args) in phases.items():
+        if name == "opt":
+            params, grads, state = args
+            ospec = shd.named(shd.opt_state_shardings(
+                state, shd.param_shardings(M.build(cfg).spec, mesh, run),
+                mesh), mesh)
+            args = (shd.with_sharding(params, pspec),
+                    shd.with_sharding(grads, pspec),
+                    shd.with_sharding(state, ospec))
+        else:
+            params, batch = args
+            args = (shd.with_sharding(params, pspec),
+                    shd.with_sharding(batch, shd.named(
+                        shd.shard_batch_dim(batch, mesh, run), mesh)))
+        out[name] = (fn, args)
+    return out
 
 
 def _matmul_class(run) -> str | None:
@@ -245,13 +293,20 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
             return record_from_payloads(
                 point.config, cached, machine=point.machine, mesh=mesh_dict,
                 meta={**meta, "cached": True}), True
-        with dispatch_scope(store=tune_store, machine=point.machine):
-            phases, run = _build_point(point, torch.device("meta"))
-            payloads = {
-                name: _analytical_payload(profile_fn(
-                    fn, args=args, name=name, machine=machine,
-                    matmul_class=_matmul_class(run)), machine)
-                for name, (fn, args) in phases.items()}
+        dpp = min(point.n_devices, machine.cards_per_node
+                  or point.n_devices)
+        try:
+            with dispatch_scope(store=tune_store, machine=point.machine):
+                phases, run = _build_point(point, torch.device("meta"))
+                payloads = {
+                    name: _analytical_payload(profile_fn(
+                        fn, args=args, name=name, machine=machine,
+                        matmul_class=_matmul_class(run),
+                        devices_per_pod=dpp), machine)
+                    for name, (fn, args) in phases.items()}
+        finally:
+            from repro_torch.launch.mesh import release_fake_group
+            release_fake_group()
         _cache_save(cache_dir, point, payloads)
         return record_from_payloads(
             point.config, payloads, machine=point.machine, mesh=mesh_dict,

@@ -39,6 +39,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_structure, tree_unflatten
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.fused.adamw import adamw_ref
 
 
@@ -96,6 +97,11 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
     the plain chain (same math).  ``inplace=True`` updates ``params``,
     ``state.mu`` and ``state.nu`` in place and returns those trees (the
     count is always a new tensor).
+
+    DTensor leaves (a run on a mesh): the update is elementwise, so each
+    rank updates its local shards — the kernel, or the plain chain, on
+    the local tensors, the moments sharded as their parameter — after
+    each gradient is brought to its parameter's placements.
     """
     c = state.count + 1
     bc = bias_corrections(c, b1, b2)
@@ -103,6 +109,13 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
 
     flat_p, flat_g, flat_m, flat_v = _leaves_like(params, grads, state.mu,
                                                   state.nu)
+    mesh_params = flat_p if flat_p and is_dtensor(flat_p[0]) else None
+    if mesh_params is not None:
+        flat_g = [g.redistribute(p.device_mesh, p.placements).to_local()
+                  for g, p in zip(flat_g, flat_p)]
+        flat_p, flat_m, flat_v = ([t.to_local() for t in ts]
+                                  for ts in (flat_p, flat_m, flat_v))
+        bc = bc.full_tensor() if is_dtensor(bc) else bc
     leaves = list(zip(flat_g, flat_m, flat_v, flat_p))
     fused = []
     if run is not None:
@@ -121,10 +134,21 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
                for i, leaf in enumerate(leaves)]
     if inplace:
         return params, AdamWState(state.mu, state.nu, c)
+    if mesh_params is not None:
+        out = [tuple(_wrap_like(t, p) for t in o)
+               for o, p in zip(out, mesh_params)]
     spec = tree_structure(params)
     newp, newm, newv = (tree_unflatten([o[k] for o in out], spec)
                         for k in range(3))
     return newp, AdamWState(newm, newv, c)
+
+
+def _wrap_like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The local tensor ``t`` as a DTensor placed as the parameter ``p``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
 
 
 def _plain(g, m, v, p, bc, *, inplace: bool, **hyper):
@@ -257,18 +281,34 @@ def adafactor_init(params: Any, run: RunConfig) -> AdafactorState:
         count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _mean(x: torch.Tensor, dim: int | None = None,
+          keepdim: bool = False) -> torch.Tensor:
+    """``torch.mean``; of a DTensor, a sum whose partial result is
+    all-reduced, then divided (older torch cannot move a mean's ``avg``
+    partial onto a sharded operand)."""
+    if not is_dtensor(x):
+        return torch.mean(x) if dim is None else torch.mean(x, dim,
+                                                            keepdim=keepdim)
+    from torch.distributed.tensor import Replicate
+    s = torch.sum(x) if dim is None else torch.sum(x, dim, keepdim=keepdim)
+    want = [Replicate() if p.is_partial() else p for p in s.placements]
+    if want != list(s.placements):
+        s = s.redistribute(s.device_mesh, want)
+    return s / (x.numel() if dim is None else x.shape[dim])
+
+
 def _clip(step: torch.Tensor, clip: float) -> torch.Tensor:
     """Update clipping (Adafactor §6): divide by max(1, RMS / clip)."""
-    rms = torch.sqrt(torch.mean(step * step))
+    rms = torch.sqrt(_mean(step * step))
     return step / torch.clamp_min(rms / clip, 1.0)
 
 
 def _factored(g, vr, vc, p, *, b2, lr, eps, clip):
     gf = g.float()
     g2 = gf * gf + eps
-    vr2 = b2 * vr.float() + (1 - b2) * torch.mean(g2, -1)
-    vc2 = b2 * vc.float() + (1 - b2) * torch.mean(g2, -2)
-    denom = torch.mean(vr2, -1, keepdim=True)
+    vr2 = b2 * vr.float() + (1 - b2) * _mean(g2, -1)
+    vc2 = b2 * vc.float() + (1 - b2) * _mean(g2, -2)
+    denom = _mean(vr2, -1, keepdim=True)
     vhat = (vr2[..., None] * vc2[..., None, :]
             / torch.clamp_min(denom[..., None], eps))
     step = _clip(gf / torch.sqrt(vhat + eps), clip)

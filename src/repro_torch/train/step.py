@@ -22,6 +22,20 @@ Differences from the reference, all for eager PyTorch:
 * gradients come from ``torch.autograd.grad`` under
   ``torch.enable_grad()``, so the step and the bwd phase also run inside
   the profiler's ``no_grad`` timing loop and the op walk.
+
+On a mesh (params, optimizer state and batch DTensors,
+``repro_torch.distributed.sharding``) the same step runs SPMD: each
+gradient is brought to its parameter's placements (the data-parallel
+all-reduce, or FSDP's reduce-scatter, that XLA inserts for the
+reference), the optimizer updates each leaf's local shard, plain tensors
+the code makes count as replicated, and microbatch ``i`` takes rows
+``i, i + m, i + 2m, ...`` of the batch (a slice of each rank's own batch
+shard, so splitting moves nothing; the loss and the summed gradient are
+the same as with contiguous microbatches).  The microbatch loop is a
+:func:`repro_torch.core.op_analysis.trips` loop: a walk with
+``fold_loops`` walks one microbatch and counts it ``m`` times.  In a
+walk on meta tensors the O2 finite flag cannot be read; the walk counts
+the update.
 """
 
 from __future__ import annotations
@@ -32,7 +46,9 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.op_analysis import once, trips
 from repro_torch.distributed import amp
+from repro_torch.distributed.sharding import is_dtensor, plain_as_replicated
 from repro_torch.models.api import Model
 from repro_torch.train import optim
 
@@ -60,6 +76,23 @@ def init_state(model: Model, run: RunConfig,
     )
 
 
+def state_specs(model: Model, run: RunConfig, mesh: Any,
+                state_like: TrainState | None = None) -> TrainState:
+    """The :data:`~repro_torch.distributed.sharding.Spec` tree of a train
+    state on ``mesh`` (a DeviceMesh or ``{axis: size}``): the params by
+    the logical rules, the optimizer state from them, the loss scale and
+    step replicated (the reference's dry-run state shardings)."""
+    from repro_torch.distributed import sharding as shd
+    like = state_like if state_like is not None else init_state(
+        model, run, None, "meta")
+    pspec = shd.param_shardings(model.spec, mesh, run)
+    rep = shd.replicated(mesh)
+    return TrainState(
+        params=pspec, opt=shd.opt_state_shardings(like.opt, pspec, mesh),
+        loss_scale=type(like.loss_scale)(*[rep for _ in like.loss_scale]),
+        step=rep)
+
+
 def value_and_grad(loss_fn: Callable, params: Any, *args
                    ) -> tuple[tuple[torch.Tensor, Any], Any]:
     """((loss, aux), grads) of ``loss_fn(params, *args) -> (loss, aux)``
@@ -70,15 +103,31 @@ def value_and_grad(loss_fn: Callable, params: Any, *args
         leaves = [p.detach().requires_grad_() for p in flat]
         loss, aux = loss_fn(tree_unflatten(leaves, spec), *args)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
              for p, g in zip(flat, grads)]
     aux = {k: v.detach() for k, v in aux.items()}
     return (loss.detach(), aux), tree_unflatten(grads, spec)
 
 
-def _split_microbatches(batch: dict, m: int) -> list[dict]:
-    return [{k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(m)]
+def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements (a pending
+    partial sum reduced, a replicated one cut to the parameter's
+    shard)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatch(batch: dict, m: int, i: int) -> dict:
+    """Microbatch ``i`` of ``m``: rows ``[i·B/m, (i+1)·B/m)``, or rows
+    ``i, i + m, ...`` of a DTensor batch (the module docstring)."""
+    out = {}
+    for k, v in batch.items():
+        if is_dtensor(v):
+            out[k] = v.reshape(v.shape[0] // m, m, *v.shape[1:])[:, i]
+        else:
+            out[k] = v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
+    return out
 
 
 def make_train_step(model: Model, run: RunConfig, lr: float = 3e-4
@@ -94,19 +143,25 @@ def make_train_step(model: Model, run: RunConfig, lr: float = 3e-4
 
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
+        with plain_as_replicated():
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict
+                    ) -> tuple[TrainState, dict]:
         m = run.microbatches
         if m > 1:
             # O2 accumulates in the storage dtype (bf16), as the reference
             acc_dt = run.param_dtype if run.amp == "O2" else torch.float32
-            g_acc = metric_acc = None
-            for mb in _split_microbatches(batch, m):
+            g_acc = _map(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                         state.params)
+            for i in trips(m):
                 (_, metrics), grads = value_and_grad(
-                    loss_of, state.params, mb, state.loss_scale)
-                if g_acc is None:
-                    g_acc = _map(lambda g: torch.zeros(
-                        g.shape, dtype=acc_dt, device=g.device), grads)
-                    metric_acc = {k: torch.zeros_like(v)
-                                  for k, v in metrics.items()}
+                    loss_of, state.params, _microbatch(batch, m, i),
+                    state.loss_scale)
+                if i == 0:
+                    with once():
+                        metric_acc = {k: torch.zeros_like(v)
+                                      for k, v in metrics.items()}
                 g_acc = _map2(lambda a, g: a + g.to(acc_dt), g_acc, grads)
                 metric_acc = {k: metric_acc[k] + v
                               for k, v in metrics.items()}
@@ -126,7 +181,7 @@ def make_train_step(model: Model, run: RunConfig, lr: float = 3e-4
 
         # overflow → skip the update (keep params/opt), shrink the scale;
         # the flag is read on the host only when loss scaling can raise it
-        if not use_scaling or bool(finite):
+        if not use_scaling or finite.device.type == "meta" or _read(finite):
             new_params, new_opt = optim.optimizer_update(
                 grads, state.opt, state.params, run, lr=lr, inplace=True)
         else:
@@ -139,6 +194,10 @@ def make_train_step(model: Model, run: RunConfig, lr: float = 3e-4
                           state.step + 1), metrics
 
     return train_step
+
+
+def _read(flag: torch.Tensor) -> bool:
+    return bool(flag.full_tensor() if is_dtensor(flag) else flag)
 
 
 def _map(fn: Callable, tree: Any) -> Any:

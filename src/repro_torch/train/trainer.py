@@ -19,12 +19,19 @@ carries the reference's operational features:
 
 Differences from the reference:
 
-* an explicit ``device`` in place of ``mesh`` / ``state_shardings`` /
-  ``batch_shardings`` (sharding belongs to the multi-GPU slice).  A
-  fresh state is ``init_state(model, run,
-  torch.Generator(device).manual_seed(seed), device)``; a restore reads
-  onto ``device`` against a template on ``meta`` (the reference's
-  ``jax.eval_shape``);
+* an explicit ``device`` beside the reference's ``mesh`` /
+  ``state_shardings`` / ``batch_shardings``.  A fresh state is
+  ``init_state(model, run, torch.Generator(device).manual_seed(seed),
+  device)``; a restore reads onto ``device`` against a template on
+  ``meta`` (the reference's ``jax.eval_shape``).  With a ``mesh`` (a
+  DeviceMesh of an initialized process group, every rank running the
+  loop) the state is distributed by ``state_shardings`` (a
+  ``sharding.NamedSharding`` tree; by default ``step.state_specs`` on
+  the mesh) — each rank draws the same whole state from the seed and
+  keeps its shards — each batch by ``batch_shardings`` (by default its
+  batch dim over the data axes, ``sharding.shard_batch_dim``), a restore
+  re-shards onto the mesh (``checkpointer.restore(shardings=)``), and
+  rank 0 writes the checkpoints;
 * ``make_batch`` returns numpy arrays (``repro_torch.data.pipeline``) or
   tensors; the trainer puts them on ``device``, and with ``prefetch > 0``
   makes them on a :class:`~repro_torch.data.pipeline.Prefetcher` thread
@@ -57,9 +64,11 @@ from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import Prefetcher, to_device
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.api import Model
 from repro_torch.resilience import faults
-from repro_torch.train.step import TrainState, init_state, make_train_step
+from repro_torch.train.step import (TrainState, init_state, make_train_step,
+                                    state_specs)
 
 
 @dataclasses.dataclass
@@ -87,7 +96,8 @@ class Trainer:
                  step_retries: int = 2,
                  retry_backoff_s: float = 0.05,
                  prefetch: int = 0,
-                 deterministic: bool = True):
+                 deterministic: bool = True,
+                 mesh=None, state_shardings=None, batch_shardings=None):
         self.model, self.run = model, run
         self.make_batch = make_batch
         self.ckpt_dir, self.ckpt_every = ckpt_dir, ckpt_every
@@ -100,7 +110,13 @@ class Trainer:
         self.report = TrainReport()
         self._stop = False
         self._async_ckpt = ckpt.AsyncCheckpointer(keep=ckpt_keep)
-        self._put_batch = to_device(self.device)
+        self.mesh = mesh
+        self.state_shardings = state_shardings
+        if mesh is not None and state_shardings is None:
+            self.state_shardings = shd.named(
+                state_specs(model, run, mesh), mesh)
+        self.batch_shardings = batch_shardings
+        self._put_batch = self._placer(to_device(self.device))
         self.step_fn = make_train_step(model, run, lr=lr)
         self.state = self._init_or_resume(seed)
 
@@ -114,9 +130,10 @@ class Trainer:
                 # resuming from an older verified checkpoint beats dying
                 for step in reversed(steps):
                     try:
-                        state, meta = ckpt.restore(self.ckpt_dir, like,
-                                                   step=step,
-                                                   device=self.device)
+                        state, meta = ckpt.restore(
+                            self.ckpt_dir, like, step=step,
+                            device=self.device,
+                            shardings=self.state_shardings)
                     except (ckpt.CheckpointCorrupt, OSError, KeyError,
                             ValueError) as e:
                         self.report.skipped_ckpts.append((step, repr(e)))
@@ -125,7 +142,22 @@ class Trainer:
                     self.report.restarts += 1
                     return state
         gen = torch.Generator(self.device).manual_seed(seed)
-        return init_state(self.model, self.run, gen, self.device)
+        state = init_state(self.model, self.run, gen, self.device)
+        if self.mesh is not None:
+            state = shd.distribute(state, self.state_shardings)
+        return state
+
+    def _placer(self, put: Callable[[dict], dict]) -> Callable[[dict], dict]:
+        """The batch put on the device and, on a mesh, distributed."""
+        if self.mesh is None:
+            return put
+
+        def place(batch: dict) -> dict:
+            batch = put(batch)
+            sh = self.batch_shardings or shd.named(
+                shd.shard_batch_dim(batch, self.mesh, self.run), self.mesh)
+            return shd.distribute(batch, sh)
+        return place
 
     # -------------------------------------------------------------------
     def _install_sigterm(self) -> None:
@@ -179,7 +211,7 @@ class Trainer:
             log: Callable[[str], None] = print) -> TrainReport:
         self._install_sigterm()
         ewma = None
-        start_step = int(self.state.step)
+        start_step = int(shd.gather(self.state.step))
         pf = (Prefetcher(self.make_batch, start_step, self.prefetch,
                          transform=self._put_batch)
               if self.prefetch > 0 and start_step < n_steps else None)
@@ -200,7 +232,8 @@ class Trainer:
                     t0 = time.perf_counter()
                     self.state, metrics = self._step_resilient(i, batch,
                                                                log, plan)
-                    loss = float(metrics["loss"])   # waits for the step
+                    # waits for the step
+                    loss = float(shd.gather(metrics["loss"]))
                     dt = time.perf_counter() - t0
 
                     # straggler detection (per-step heartbeat timing)
@@ -214,7 +247,7 @@ class Trainer:
                     if log_every and i % log_every == 0:
                         log(f"[trainer] step {i:5d} loss {loss:.4f} "
                             f"({dt*1e3:.1f} ms, grad_norm "
-                            f"{float(metrics['grad_norm']):.3f})")
+                            f"{float(shd.gather(metrics['grad_norm'])):.3f})")
                         if not self._async_ckpt.healthy():
                             log(f"[trainer] checkpoint writer failed; "
                                 f"surfacing at step {i}")
@@ -227,7 +260,7 @@ class Trainer:
             if pf is not None:
                 pf.close()
         if self.ckpt_dir is not None:
-            step = int(self.state.step)
+            step = int(shd.gather(self.state.step))
             self._async_ckpt.save(self.ckpt_dir, step, self.state,
                                   {"step": step})
             self._async_ckpt.wait()

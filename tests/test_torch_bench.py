@@ -136,12 +136,13 @@ def _reference_suites() -> tuple[str, ...]:
 
 
 def test_suites_are_the_ported_ones():
-    """The reference's suites in its order, less the three that stand on
-    the multi-GPU slice (``launch/dryrun.py``'s cells, the network
-    level); the paper's among them."""
-    later = ("roofline_table", "decode_batch_study", "net_smoke")
+    """The reference's suites in its order, less the one that stands on
+    the network level (``net_smoke``); the paper's among them: 20 of
+    21."""
+    later = ("net_smoke",)
     ref = _reference_suites()
     assert set(later) <= set(ref) and len(ref) == 21
+    assert len(bench_main.SUITES) == 20
     assert bench_main.SUITES == tuple(s for s in ref if s not in later)
     assert set(REF_ROWS) <= set(bench_main.SUITES)
 

@@ -7,7 +7,9 @@
   ``crash_point:0x-1`` journals the same events, and each package resumes
   the other's campaign; analytical points are cached; a measured smoke
   point runs inline on the host, its FLOPs and bytes those of its meta
-  walk; a mesh point fails with a reason and does not raise.
+  walk; an analytical mesh point is walked per device, with its
+  collectives; a measured mesh point on a host without its cards fails
+  with a reason and does not raise.
 * ``aggregate``: summary rows, the ranked table, the gallery and the
   tune-provenance flags equal the reference's on one set of stored
   records that both packages read.
@@ -219,11 +221,25 @@ def test_measured_sweep_without_the_card_raises(tmp_path):
 
 def test_mesh_point_fails_with_its_reason_and_does_not_raise(tmp_path):
     spec = p_spec.SweepSpec(name="mesh", configs=("glm4-9b",), seqs=(16,),
-                            batches=(2,), meshes=((2, 1),), measure=False)
+                            batches=(2,), meshes=((2, 1),), measure=True)
     res = p_engine.run_sweep(spec, store_path=str(tmp_path / "s.jsonl"),
-                             workers=0, retries=0)
+                             workers=0, retries=0, device="cpu")
     assert res.n_failed == 1 and res.results[0].quarantined
-    assert "distributed/sharding.py" in res.failure_summary()[0]
+    assert "needs 2 cards; this host has 0" in res.failure_summary()[0]
+
+
+def test_analytical_mesh_point_lands_a_record_with_collectives(tmp_path):
+    spec = p_spec.SweepSpec(name="mesh", configs=("glm4-9b",), seqs=(16,),
+                            batches=(2,), meshes=((2, 2),), measure=False,
+                            smoke=True)
+    store = str(tmp_path / "s.jsonl")
+    res = p_engine.run_sweep(spec, store_path=store, workers=0, retries=0)
+    assert res.n_failed == 0, res.failure_summary()
+    rec = TraceStore(store).records()[-1]
+    assert rec.mesh == {"data": 2, "model": 2}
+    bwd = rec.phases["bwd"]
+    assert bwd["collective_s"] > 0 and bwd["ici_bytes"] > 0
+    assert bwd["dcn_bytes"] == 0          # 4 cards: one NVLink node
 
 
 def test_worker_pins_its_cards(monkeypatch):
@@ -333,8 +349,8 @@ def test_sweep_cli_exit_codes(tmp_path, capsys):
     assert cli.main(run + ["--configs", "nope"]) == 2
     assert cli.main(["sweep", "run", "--smoke", "--seq", "8"]) == 2
     assert cli.main(["sweep", "--help"]) == 0
-    assert cli.main(run + ["--no-measure", "--mesh", "2x1", "--retries",
-                           "0", "--name", "mesh"]) == 1
+    assert cli.main(run + ["--mesh", "2x1", "--device", "cpu", "--retries",
+                           "0", "--name", "mesh"]) == 1      # no 2 cards
     import torch
     if not torch.cuda.is_available():
         assert cli.main(run + ["--name", "m"]) == 2       # no card
