@@ -231,6 +231,23 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
       and ``python -m repro_torch.bench --only
       roofline_table,decode_batch_study`` (the full ``BATCHES``) in a
       process of its own beside the step, which must exit 0;
+   q. the interconnect level, compression and the pipeline
+      (:func:`net_path`, after p): ``python -m repro_torch net
+      characterize --machine cpu-host --devices 8 --smoke`` on 8 gloo
+      ranks on the card's host's CPU (the ceilings of its loopback, under
+      ``cpu-host``, never the card's), then again: a store hit that
+      times nothing; ``Session().net_characterize(n_devices=8)`` on the
+      card's datasheet key must raise naming 8 cards against this host's
+      count and store nothing, and ``net report`` on that key shows the
+      datasheet note; on a one-rank NCCL group on the card the four
+      collectives (exact), ``psum_compressed`` (equal to
+      ``decompress(compress(g + r))``, residual within 1e-6) and
+      ``gpipe`` with one stage (equal to the stage loop) — no ceiling is
+      measured on one card; the ``net_smoke`` suite; and a
+      ``mesh_shapes`` sweep of glm4-9b at full width (seq 2048, batch 2,
+      O1, analytical, the h100-sxm datasheet) over 1x1, 1x8 and 2x8,
+      started first in a process of its own, then ``net report``: each
+      point's compute, memory, ici and dcn terms and the flip line;
    (paths l and k run after h and before j and i: no profiled window
    before them);
 5. checks the smoke-size fwd and one smoke train step (O0, ``static``)
@@ -5207,6 +5224,320 @@ def sharded_path(*, device: str = "cuda", smoke: bool = False,
     return counts
 
 
+# --------------------------------------------------------------------------
+# Main path q: the interconnect level, compression and the pipeline
+# --------------------------------------------------------------------------
+
+#: path q's mesh-scale sweep: (config, seq, batch, mesh shapes)
+PATH_Q_SWEEP = ("glm4-9b", 2048, 2, ("1x1", "1x8", "2x8"))
+#: psum_compressed's residual against decompress(compress(g + r))
+NET_RESIDUAL_ATOL = 1e-6
+
+
+def _net_cli(args, env) -> tuple[int, str]:
+    import subprocess
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", "net", *args],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def _net_records(store_path: str) -> dict:
+    """The tune store's net records (``net_*`` kernels), key → dict."""
+    if not os.path.exists(store_path):
+        return {}
+    with open(store_path) as f:
+        doc = json.load(f)
+    return {k: v for k, v in doc.get("records", {}).items()
+            if str(v.get("kernel", "")).startswith("net_")}
+
+
+def nccl_one_rank_checks(device: str = "cuda") -> None:
+    """Path q.3: on a one-rank group (NCCL on the card, gloo on the host),
+    each of the four collectives against its plain result (exact),
+    ``psum_compressed`` against ``decompress(compress(g + r))`` (the mean
+    of one rank, residual within :data:`NET_RESIDUAL_ATOL`) and ``gpipe``
+    with one stage against the plain loop over the stage's layers
+    (exact).  One rank measures no wire: no ceiling is taken here."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (compress, decompress,
+                                                      psum_compressed)
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.net.collectives import OPS, run_op
+
+    cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn(1 << 20, generator=gen, device=device)
+        plain = {"all_reduce": x, "all_gather": x, "reduce_scatter": x,
+                 "all_to_all": x}
+        for op in OPS:
+            out = run_op(op, x, group)
+            same = out.shape == x.shape and torch.equal(out, plain[op])
+            print(f"  {backend} {op} over 1 rank, 2^20 fp32: "
+                  f"{'equal' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{op} on one {backend} rank differs "
+                                     "from its plain result")
+        g = torch.randn(4096, 1024, generator=gen, device=device)
+        r = 1e-3 * torch.randn(4096, 1024, generator=gen, device=device)
+        mean, res = psum_compressed(g, r, group)
+        q, scale = compress(g + r)
+        want = decompress(q, scale)
+        res_err = float((res - (g + r - want)).abs().max())
+        print(f"  psum_compressed (int8 all-gather over 1 {backend} rank, "
+              f"(4096, 1024)): mean {'equal' if torch.equal(mean, want) else 'DIFFERS'}"
+              f" to decompress(compress(g + r)); residual max_abs_err "
+              f"{res_err:.3e} (atol {NET_RESIDUAL_ATOL:g})")
+        if not (torch.equal(mean, want) and res_err <= NET_RESIDUAL_ATOL):
+            raise AssertionError("psum_compressed on one rank differs")
+        L, M, b, sq, d = 8, 4, 2, 128, 1024
+        ws = 0.03 * torch.randn(L, d, d, generator=gen, device=device)
+        xs = torch.randn(M, b, sq, d, generator=gen, device=device)
+
+        def stage(w, h):
+            for i in range(w.shape[0]):
+                h = torch.tanh(h @ w[i])
+            return h
+        out = gpipe(stage, ws, xs, group)
+        ref = torch.stack([stage(ws, xs[m]) for m in range(M)])
+        print(f"  gpipe, 1 stage of {L} layers, {M} microbatches of "
+              f"({b}, {sq}, {d}): {'equal' if torch.equal(out, ref) else 'DIFFERS'}"
+              " to the stage loop")
+        if not torch.equal(out, ref):
+            raise AssertionError("gpipe with one stage differs from the "
+                                 "stage loop")
+        print("  (one card, one rank: these run the NCCL code path; no "
+              "NCCL or NVLink ceiling is measured)" if cuda else
+              "  (one rank: no ceiling is measured)")
+    finally:
+        dist.destroy_process_group()
+
+
+def _characterize_twice(bg: dict, tune_path: str) -> None:
+    """Path q.1: ``net characterize`` on 8 gloo ranks, then again (a store
+    hit), one after the other: each run's exit code, output, wall and
+    the net records after it, in ``bg["characterize"]`` (or the error in
+    ``bg["characterize_error"]``)."""
+    import subprocess
+    import traceback
+    try:
+        out = {}
+        for run in ("measured", "hit"):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch", "net", "characterize",
+                 "--machine", "cpu-host", "--devices", "8", "--smoke"],
+                env=bg["env"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            bg["live"].append(proc)
+            text, _ = proc.communicate(timeout=600)
+            out[run] = (proc.returncode, text, time.perf_counter() - t0,
+                        _net_records(tune_path))
+        bg["characterize"] = out
+    except Exception:
+        bg["characterize_error"] = traceback.format_exc()
+
+
+def net_background(workspace: str, *, smoke: bool = False,
+                   sweep=PATH_Q_SWEEP) -> dict:
+    """Start path q's host work in processes of their own (no card
+    visible to them), so that it runs beside the card's paths: q.1's two
+    characterize runs (one after the other, from a thread of this
+    process), q.4's ``net_smoke`` (``python -m repro_torch.bench --only
+    net_smoke --device cpu``: the suite measures the host's loopback
+    whatever the device) and q.5's mesh sweep.  Everything lands in the
+    workspace ``<workspace>/net`` (its own tune store: the card's paths'
+    store gains no record from it).  :func:`net_path` reads the results;
+    whatever is still running when this process exits is killed."""
+    import atexit
+    import subprocess
+    import threading
+
+    ws = os.path.join(workspace, "net")
+    os.makedirs(ws, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_WORKSPACE=ws, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cfg, seq, batch, meshes = sweep
+    cmds = {
+        "sweep": ["-m", "repro_torch", "sweep", "run", "--name", "path-q",
+                  "--configs", cfg, "--seq", str(seq), "--batch",
+                  str(batch), "--amp", "O1", "--mesh", ",".join(meshes),
+                  "--machine", "h100-sxm", "--no-measure", "--workers",
+                  str(len(meshes))] + ([] if smoke else ["--full"]),
+        "net_smoke": ["-m", "repro_torch.bench", "--only", "net_smoke",
+                      "--device", "cpu", "--json-dir", ""],
+    }
+    bg = {"workspace": ws, "env": env, "t0": time.perf_counter(),
+          "procs": {}, "live": []}
+    for name, args in cmds.items():
+        log = open(os.path.join(ws, f"{name}.log"), "w")
+        with log:
+            bg["procs"][name] = subprocess.Popen(
+                [sys.executable, *args], env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+    bg["thread"] = threading.Thread(
+        target=_characterize_twice, args=(bg, os.path.join(ws, "tune.json")),
+        daemon=True)
+    bg["thread"].start()
+
+    def stop():
+        for proc in [*bg["procs"].values(), *bg["live"]]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return bg
+
+
+def _finish(bg: dict, name: str, timeout: float = 900.0) -> tuple[int, str]:
+    """Wait for a background process of :func:`net_background` (killed
+    past ``timeout``); its exit code and log."""
+    proc = bg["procs"][name]
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(bg["workspace"], f"{name}.log")) as f:
+        return proc.returncode, f.read()
+
+
+def net_path(*, device: str = "cuda", smoke: bool = False, workspace: str,
+             smi: str = "", sweep=PATH_Q_SWEEP, background=None) -> None:
+    """Main path q (module doc, step 4q): the host's collective ceilings
+    on gloo ranks and their store hit, the card's key refused on one
+    card, the NCCL code path on one rank, ``net_smoke``, and a
+    mesh-scale sweep with its net report.  The host's share runs in
+    ``background`` (:func:`net_background`, started here when None)."""
+    import torch
+
+    from repro_torch.net.characterize import net_ceilings
+    from repro_torch.net.report import flip_lines
+    from repro_torch.session.session import Session
+
+    tag = f" ({smi})" if smi else ""
+    t_path = time.perf_counter()
+    bg = background or net_background(workspace, smoke=smoke, sweep=sweep)
+    ws = bg["workspace"]
+    tune_path = os.path.join(ws, "tune.json")
+    try:
+        # q.2 the card's datasheet key (on the host: h100-sxm's) on a
+        # host of fewer cards than ranks
+        s = Session(machine=None if torch.device(device).type == "cuda"
+                    else "h100-sxm", device=device, workspace=ws)
+        key = s.machine.name
+        want = (f"net characterize on {key} needs 8 cards; this host has "
+                f"{torch.cuda.device_count()}")
+        print(f"== 4q.2 Session().net_characterize(n_devices=8) on "
+              f"{key}: must raise ({want!r}) and store nothing")
+        try:
+            s.net_characterize(n_devices=8)
+        except RuntimeError as e:
+            print(f"  raised: {e}")
+            if want not in str(e):
+                raise AssertionError(f"wrong message: {e}") from e
+        else:
+            raise AssertionError(f"net_characterize on {key} did not raise")
+        # (in the host share's workspace, the card visible: the note
+        # counts this host's cards)
+        rc, out = _net_cli(["report", "--machine", key, "--sweep",
+                            "no-such-sweep"],
+                           dict(os.environ, PYTHONPATH=bg["env"]["PYTHONPATH"],
+                                REPRO_WORKSPACE=ws))
+        print(out.rstrip())
+        note = f"this host has {torch.cuda.device_count()} card(s)"
+        if rc != 1 or "datasheet" not in out or note not in out:
+            raise AssertionError(f"net report on {key} exited {rc}, or "
+                                 f"its note lacks {note!r}")
+
+        # q.3 the NCCL code path on one rank
+        print("== 4q.3 a one-rank group on the device: the four "
+              "collectives, psum_compressed and gpipe against their plain "
+              "results")
+        nccl_one_rank_checks(device)
+
+        # q.1, started with the background: the host's ceilings on 8 gloo
+        # ranks, then a store hit
+        print("== 4q.1 python -m repro_torch net characterize --machine "
+              "cpu-host --devices 8 --smoke: 8 gloo ranks on this host's "
+              "CPU over loopback (the host's ceilings, not the card's; "
+              f"timed beside the card's paths){tag}")
+        bg["thread"].join(timeout=900)
+        if "characterize" not in bg:
+            raise AssertionError("net characterize did not finish: "
+                                 + bg.get("characterize_error", "timeout"))
+        runs = bg["characterize"]
+        for run, (rc, out, wall, _) in runs.items():
+            print(out.rstrip())
+            print(f"  ({run}: exit {rc}, {wall:.1f} s)")
+        (rc1, out1, _, _), (rc2, out2, _, after) = runs["measured"], \
+            runs["hit"]
+        before = runs["measured"][3]
+        ceil = net_ceilings("cpu-host", tune_path)
+        print(f"  {len(after)} net records, none re-timed by the store "
+              f"hit: {before == after}")
+        if rc1 != 0 or "measured over 8" not in out1:
+            raise AssertionError(f"net characterize exited {rc1}")
+        if rc2 != 0 or "store hit" not in out2 or before != after:
+            raise AssertionError("the second characterize re-timed")
+        if not ceil or not all(c["bytes_per_s"] > 0 for c in ceil.values()):
+            raise AssertionError(f"the host's legs are not positive: {ceil}")
+        stored = [k for k, v in after.items() if v.get("machine") == key]
+        if stored or net_ceilings(key, tune_path) is not None:
+            raise AssertionError(f"records stored under {key}: {stored}")
+
+        # q.4 the net_smoke suite
+        print("== 4q.4 python -m repro_torch.bench --only net_smoke --device "
+              "cpu (8 gloo ranks on the host: its loopback's ceilings under "
+              "cpu-host; beside the card's paths)")
+        rc, out = _finish(bg, "net_smoke")
+        print(out.rstrip())
+        if rc != 0 or "bound@1x8=net" not in out:
+            raise AssertionError(f"net_smoke exited {rc}")
+
+        # q.5 the mesh-scale sweep, then net report
+        cfg, seq, batch, meshes = sweep
+        rc, out = _finish(bg, "sweep")
+        print(f"== 4q.5 mesh_shapes sweep of {cfg} ("
+              f"{'smoke' if smoke else 'full width'}, seq {seq}, batch "
+              f"{batch}, O1, analytical on the h100-sxm datasheet) over "
+              f"{', '.join(meshes)}, then net report")
+        print(out.rstrip())
+        if rc != 0:
+            raise AssertionError(f"the mesh sweep exited {rc}")
+    finally:
+        for name in bg["procs"]:
+            _finish(bg, name, timeout=0.1)
+    print(f"  (the host's share, started {time.perf_counter() - bg['t0']:.1f}"
+          " s ago, is done)")
+    rep = Session(machine="h100-sxm", device=device,
+                  workspace=ws).net_report(sweep="path-q")
+    print(rep.text)
+    if rep.exit_code != 0 or len(rep.data) != len(meshes):
+        raise AssertionError(f"net report: {len(rep.data)} points")
+    for r in rep.data:
+        print(f"  {r['label']} mesh {r['n_devices']} devices: compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, ici {r['ici_s'] * 1e3:.3f} ms, "
+              f"dcn {r['dcn_s'] * 1e3:.3f} ms -> {r['bound']}")
+    for line in flip_lines(rep.data):
+        print(f"  flip: {line}")
+    multi = [r for r in rep.data if r["n_devices"] > 1]
+    if not multi or not all(r["net_bytes"] > 0 for r in multi):
+        raise AssertionError("a sharded point carries no collectives")
+    print(f"path q: {time.perf_counter() - t_path:.1f} s{tag}")
+
+
 def smoke_checks(dev, arch: str, fwd_runs: dict, step_run,
                  kink_share: float = 0.0) -> None:
     """Step 5 for one registry config at its smoke size (seq 32, batch 4):
@@ -5364,6 +5695,10 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | config "
               f"{r['config']}{' | ' + r['extra'] if 'extra' in r else ''}")
     torch.cuda.empty_cache()
+
+    # path q's host share (the gloo ceilings, net_smoke, the mesh sweep:
+    # no card) runs beside paths a onward, in processes of their own
+    net_bg = net_background(workspace)
 
     # 4a. main path: machine characterization and the full-depth fwd -------
     print("== 4a. main path: characterize, ladder, sweep, full-width profile")
@@ -5524,6 +5859,12 @@ def main() -> int:
     # step on a one-rank NCCL mesh, the two suites on the dry run
     sharded_path(workspace=workspace, smi=gpu["smi"])
     torch.cuda.empty_cache()
+
+    # 4q. main path: the interconnect level (the host's gloo ceilings, the
+    # card's key refused on one card), the NCCL code path of the
+    # collectives, compression and the pipeline on one rank, net_smoke,
+    # and a mesh-scale sweep with its net report
+    net_path(workspace=workspace, smi=gpu["smi"], background=net_bg)
     for r in rows_g + rows_l + rows_k:
         print(f"  {r['name']:<22} {r['shape']}: max_abs_err "
               f"{r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "

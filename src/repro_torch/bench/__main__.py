@@ -1,7 +1,7 @@
 """Benchmark driver (port of ``benchmarks/run.py``): one suite per paper
 table or figure, the operational checks and the acceptance gates of the
-trace, sweep, tune, fusion, dispatch, session, obs, serving and
-resilience layers, in the reference's order.
+trace, sweep, tune, fusion, dispatch, session, obs, serving,
+resilience and network layers, in the reference's order.
 
 ``python -m repro_torch.bench [--list] [--only a,b] [--device cpu]
 [--full]`` prints ``name,us_per_call,derived`` CSV rows and exits 1 if
@@ -48,9 +48,8 @@ SUITES = (
     "obs_smoke",         # repro_torch.obs: merge → trend → advise
     "serve_bench",       # repro_torch.serve: latency gate + phases
     "chaos_smoke",       # resilience: faults → watchdog → resume
+    "net_smoke",         # repro_torch.net: characterize → attribute → report
 )
-# The reference's net_smoke stands on the network level (ROADMAP.md
-# queue 1 item 8.2) and is not ported yet.
 #: suites that take ``full`` (the paper's DeepCAM resolution)
 FULL_SUITES = ("deepcam_roofline", "zero_ai_census")
 

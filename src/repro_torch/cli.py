@@ -1,6 +1,5 @@
 """``python -m repro_torch`` — the port's workflow as a CLI (mirrors the
-subcommands of ``python -m repro``; the network level's ``net`` waits
-for the port's distributed level).
+subcommands of ``python -m repro``).
 
 * ``characterize`` — machine model: the card's datasheet ceilings, or
   (``--empirical``) the ceilings the hand-written ERT kernels measure,
@@ -35,9 +34,14 @@ for the port's distributed level).
 * ``advise``       — the stored records mined for known bottleneck
   patterns, ranked remediations with their evidence;
 * ``merge``        — the union of another workspace's stores into this
-  one (dedupe; conflicts skipped and reported).
+  one (dedupe; conflicts skipped and reported);
+* ``net``          — the interconnect level (``characterize`` /
+  ``report``), forwarded to ``repro_torch.net.cli``: collective ceilings
+  measured on gloo ranks (``--machine cpu-host``) or one NCCL rank a
+  card, and the mesh-scale network-bound ranking.
 
-Every subcommand runs on the card unless ``--device cpu`` is given.
+Every subcommand runs on the card unless ``--device cpu`` is given
+(``net`` takes the machine key instead: the card's unless ``--machine``).
 
 Examples::
 
@@ -70,6 +74,8 @@ Examples::
     python -m repro_torch trend tag good --device cpu
     python -m repro_torch advise --device cpu
     python -m repro_torch merge /mnt/hostB/.repro-workspace --device cpu
+    python -m repro_torch net characterize --machine cpu-host --smoke
+    python -m repro_torch net report --machine cpu-host
 """
 
 from __future__ import annotations
@@ -323,7 +329,9 @@ def build_parser() -> argparse.ArgumentParser:
             ("sweep", "cross-config campaigns: run / report (try "
                       "`sweep --help`)"),
             ("tune", "kernel autotuning and the dispatch table (try "
-                     "`tune --help`)")):
+                     "`tune --help`)"),
+            ("net", "the interconnect level: characterize / report (try "
+                    "`net --help`)")):
         p = sub.add_parser(name, add_help=False, help=help_)
         p.add_argument("rest", nargs=argparse.REMAINDER)
     return ap
@@ -331,9 +339,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Sequence[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] in (["tune"], ["sweep"]):
+    if argv[:1] in (["tune"], ["sweep"], ["net"]):
         if argv[0] == "tune":
             from repro_torch.tune.cli import main as sub_main
+        elif argv[0] == "net":
+            from repro_torch.net.cli import main as sub_main
         else:
             from repro_torch.sweep.cli import main as sub_main
         try:

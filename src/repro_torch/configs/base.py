@@ -179,8 +179,9 @@ class RunConfig:
     * ``sharded_logits``: the reference's vocab-sharded cross-entropy
       flag, kept for its records; the port's loss does not read it yet
       (on a mesh DTensor gathers the logits over the vocab);
-    * ``grad_compression``: cross-pod int8 gradient compression, which
-      the port does not have yet (``True`` raises).
+    * ``grad_compression``: the reference's cross-pod int8 gradient
+      compression flag, kept for its records; read by nothing, as in the
+      reference (``repro_torch.distributed.compression`` is the scheme).
     """
 
     # O0 = fp32; O1 = bf16 compute / fp32 params; O2 = bf16 everywhere
@@ -246,10 +247,6 @@ class RunConfig:
         if self.attn_chunk < 1:
             raise ValueError(f"attn_chunk must be >= 1, got "
                              f"{self.attn_chunk}")
-        if self.grad_compression:
-            raise NotImplementedError(
-                "grad_compression: cross-pod gradient compression is not "
-                "ported yet (ROADMAP queue 1 item 8.3)")
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")

@@ -106,6 +106,21 @@ class MachineSpec:
         return dataclasses.replace(self, peak_flops=flops, mem_levels=levels,
                                    empirical=True)
 
+    def with_empirical_net(self, bandwidths: Mapping[str, float],
+                           latencies: Mapping[str, float] | None = None
+                           ) -> "MachineSpec":
+        """Overwrite interconnect ceilings with measured collective ceilings.
+
+        ``bandwidths`` / ``latencies`` are keyed by level name (``ici`` /
+        ``dcn``); levels not mentioned keep their current (datasheet or
+        earlier measured) values."""
+        lat = latencies or {}
+        levels = tuple(
+            NetLevel(lv.name, bandwidths.get(lv.name, lv.bytes_per_s),
+                     lat.get(lv.name, lv.latency_s))
+            for lv in self.interconnect)
+        return dataclasses.replace(self, net_levels=levels)
+
 
 # --------------------------------------------------------------------------
 # Datasheet machine models (NVIDIA's H100 data sheet, dense rates)

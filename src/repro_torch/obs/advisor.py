@@ -357,7 +357,9 @@ def rule_network_bound(records: Iterable[Any]) -> list[Finding]:
     """Points whose collective bound exceeds both the memory and the
     compute bounds: the interconnect roof binds.  Reads the stored
     ``ici_bound_s`` / ``dcn_bound_s``; a single-card record stores none,
-    so the rule fires only on records that carry collective bounds."""
+    so the rule fires only on records that carry collective bounds
+    (analytical mesh points too), and cites the measured ceilings
+    stamped in ``meta.net_ceilings`` when the bounds came from them."""
     # newest per point including the mesh: each shape is its own regime
     newest: dict[tuple, Any] = {}
     for rec in sorted(records, key=lambda r: r.timestamp):
@@ -381,20 +383,33 @@ def rule_network_bound(records: Iterable[Any]) -> list[Finding]:
             f"(ici {ici * 1e3:.3f}ms + dcn {dcn * 1e3:.3f}ms) exceeds "
             f"memory {memory * 1e3:.3f}ms and compute "
             f"{compute * 1e3:.3f}ms at mesh {mesh}",
-            "bounds use datasheet interconnect ceilings (the port walks "
-            "its collectives per device but measures no collective roofs "
-            "yet: its network level is ROADMAP.md queue 1 item 8.2)",
         ]
+        nc = rec.meta.get("net_ceilings")
+        if isinstance(nc, dict) and nc:
+            for leg in sorted(nc):
+                c = nc[leg] if isinstance(nc[leg], dict) else {}
+                evidence.append(
+                    f"{leg} ceiling {float(c.get('bytes_per_s', 0)) / 1e9:.3f}"
+                    f" GB/s measured over {c.get('n_devices', '?')} "
+                    f"device(s) (git {str(c.get('git_sha', '?'))[:10]}, "
+                    f"tune-store key {c.get('key', '?')})")
+        else:
+            evidence.append(
+                "bounds use datasheet interconnect ceilings — run "
+                "`python -m repro_torch net characterize` for measured "
+                "roofs")
         out.append(Finding(
             rule="network_bound",
             severity=net / (net + max(compute, memory)),
             subject=f"{rec.config}@{mesh}",
             evidence=evidence,
             remediation="the point sits under the interconnect roof: cut "
-                        "the bytes on the wire (a compressed gradient "
-                        "all-reduce), grow the work per device (a bigger "
-                        "per-device batch, a smaller model axis), or stop "
-                        "scaling this config past the flip point"))
+                        "the bytes on the wire (an int8 gradient "
+                        "all-reduce — repro_torch.distributed.compression "
+                        "moves the DCN leg to 1/4 of fp32), grow the work "
+                        "per device (a bigger per-device batch, a smaller "
+                        "model axis), or stop scaling this config past the "
+                        "flip point (`python -m repro_torch net report`)"))
     return out
 
 

@@ -11,7 +11,7 @@ from repro_torch.core.machine import MachineSpec
 
 #: RooflineResult.kind values the port produces
 KINDS = ("characterize", "profile", "record", "report", "compare", "tune",
-         "sweep", "trend", "advise", "merge")
+         "sweep", "trend", "advise", "merge", "net")
 
 
 @dataclasses.dataclass(frozen=True)

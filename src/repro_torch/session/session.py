@@ -27,6 +27,10 @@ fused-vs-reference dispatch table, into the workspace's tune store;
 ``profile``, ``record``, ``sweep`` and ``characterize`` read that store
 under the session's machine key (``fusion="auto"`` routes by its
 dispatch table, the kernels launch with its winners).
+``net_characterize`` measures the interconnect's collective ceilings
+into the same store (``repro_torch.net``), which ``record`` and
+``sweep`` then bound collectives against; ``net_report`` ranks the
+stored mesh-scale sweep points.
 """
 
 from __future__ import annotations
@@ -151,8 +155,11 @@ class Session:
 
     def _profile(self, target, args, *, phases, seq, batch, amp, fusion,
                  attn_impl, ssd_impl, impl, remat, optimizer, smoke,
-                 n_layers, measure, iters, warmup) -> RooflineResult:
+                 n_layers, measure, iters, warmup,
+                 machine: MachineSpec | None = None) -> RooflineResult:
         from repro_torch.core.profiler import profile_fn
+
+        machine = machine or self.machine
 
         if callable(target):
             label = getattr(target, "__name__", "fn")
@@ -168,7 +175,7 @@ class Session:
                 device=self.device if measure else torch.device("meta"))
             mm = _matmul_class(run)
 
-        results = {ph: profile_fn(fn, args=a, name=ph, machine=self.machine,
+        results = {ph: profile_fn(fn, args=a, name=ph, machine=machine,
                                   measure=measure, measure_iters=iters,
                                   measure_warmup=warmup, matmul_class=mm)
                    for ph, (fn, a) in phase_args.items()}
@@ -176,13 +183,13 @@ class Session:
             from repro_torch.trace.collector import measurement_from_profile
             from repro_torch.trace.store import phase_payload
             payloads = {ph: phase_payload(
-                measurement_from_profile(res, self.machine))
+                measurement_from_profile(res, machine))
                 for ph, res in results.items()}
         else:
             payloads = {ph: payload_from_profile(res)
                         for ph, res in results.items()}
         return RooflineResult(
-            kind="profile", name=label, machine=self.machine,
+            kind="profile", name=label, machine=machine,
             provenance=self._provenance(measured=measure),
             phases=payloads,
             analyses={ph: res.analysis for ph, res in results.items()},
@@ -202,11 +209,15 @@ class Session:
 
         ``scale_wall`` multiplies the measured wall times before storing
         (regression drills).  ``n_layers`` cuts the depth as in
-        :meth:`profile`.  The meta stamps what the workspace's tune store
-        held under the session's machine key, as the reference's does:
-        ``kernel_configs`` and the measured ``dispatch_table``.  The
-        reference's ``net_ceilings`` waits for the network level.
+        :meth:`profile`.  The bounds are against the session's machine
+        with the interconnect ceilings the workspace's tune store holds
+        under its key folded in (``net characterize``; the datasheet's
+        otherwise).  The meta stamps what the store held, as the
+        reference's does: ``kernel_configs``, the measured
+        ``dispatch_table`` and, when stored, ``net_ceilings``.
         """
+        from repro_torch.net.characterize import (machine_with_net,
+                                                  net_ceilings)
         from repro_torch.tune.dispatch import active_dispatch_table
         from repro_torch.tune.store import active_kernel_configs
         from repro_torch.trace.collector import (measurement_from_profile,
@@ -214,14 +225,17 @@ class Session:
         from repro_torch.trace.store import record_from_phases
         from repro_torch.trace.timeline import ascii_timeline, build_timeline
 
-        prof = self.profile(config, seq=seq, batch=batch, amp=amp,
-                            fusion=fusion, attn_impl=attn_impl,
-                            ssd_impl=ssd_impl, impl=impl, remat=remat,
-                            optimizer=optimizer, smoke=smoke,
-                            n_layers=n_layers, measure=True, iters=iters,
-                            warmup=warmup)
+        machine = machine_with_net(self.machine, self.workspace.tune_store)
+        nc = net_ceilings(self.machine.name, self.workspace.tune_store)
+        with self._scope():
+            prof = self._profile(
+                config, (), phases=TRAIN_PHASES, seq=seq, batch=batch,
+                amp=amp, fusion=fusion, attn_impl=attn_impl,
+                ssd_impl=ssd_impl, impl=impl, remat=remat,
+                optimizer=optimizer, smoke=smoke, n_layers=n_layers,
+                measure=True, iters=iters, warmup=warmup, machine=machine)
         ms = {ph: scale_measurement(measurement_from_profile(
-            res, self.machine), scale_wall)
+            res, machine), scale_wall)
             for ph, res in prof.data.items()}
         rec = record_from_phases(
             config, ms, machine=self.machine.name,
@@ -237,11 +251,12 @@ class Session:
                   "dispatch_table": active_dispatch_table(
                       machine=self.machine.name,
                       store=self.workspace.tune_store),
+                  **({"net_ceilings": nc} if nc else {}),
                   **dict(meta or {})})
         self.workspace.trace_store.append(rec)
         self.workspace.write_header(self.machine.name)
         return RooflineResult(
-            kind="record", name=config, machine=self.machine,
+            kind="record", name=config, machine=machine,
             provenance=self._provenance(run_id=rec.run_id,
                                         store=self.workspace.trace_path),
             phases=phases_from_record(rec),
@@ -586,6 +601,69 @@ class Session:
                 added={r.store: r.n_added for r in reports}),
             text=render_merge(reports, self.workspace.root, remote_root),
             data=reports)
+
+    # -- 9. the interconnect level (repro_torch.net) ------------------------
+    def net_characterize(self, *, n_devices: int = 8,
+                         sizes: Sequence[int] | None = None,
+                         iters: int = 3, warmup: int = 1,
+                         force: bool = False, smoke: bool = False,
+                         deadline_s: float = 900.0,
+                         inline: bool = False) -> RooflineResult:
+        """Measure (or fetch) the collective ceilings of the session's
+        machine key into the workspace tune store and fold them into the
+        session's machine: every later bound is against the measured ICI
+        / DCN roofs.  ``cpu-host`` runs ``n_devices`` gloo ranks on the
+        host's CPU; a card's key runs one NCCL rank a card and raises when
+        this host has fewer cards, storing nothing.  A second call under
+        the same key is a store hit."""
+        from repro_torch.core.report import machine_table
+        from repro_torch.net.characterize import (backend_for,
+                                                  characterize_net,
+                                                  machine_with_net)
+        out = characterize_net(
+            self.machine.name, n_devices=n_devices,
+            sizes=tuple(sizes) if sizes else None, iters=iters,
+            warmup=warmup, store=self.workspace.tune_store, force=force,
+            smoke=smoke, deadline_s=deadline_s, inline=inline)
+        self.machine = machine_with_net(self.machine,
+                                        self.workspace.tune_store)
+        self.workspace.write_header(self.machine.name)
+        where = ("gloo rank(s) on the host's CPU"
+                 if backend_for(self.machine.name) == "gloo"
+                 else "NCCL rank(s), one a card")
+        tag = ("store hit — nothing re-timed" if out["cached"] else
+               f"measured over {out['n_devices']} {where}")
+        return RooflineResult(
+            kind="net", name=f"net/{self.machine.name}",
+            machine=self.machine,
+            provenance=self._provenance(store=self.workspace.tune_path,
+                                        cached=out["cached"],
+                                        n_devices=out["n_devices"]),
+            text=f"net characterize: {tag}\n\n"
+                 + machine_table(self.machine),
+            data=out)
+
+    def net_report(self, sweep: str | None = None,
+                   config: str | None = None) -> RooflineResult:
+        """The stored interconnect ceilings and the mesh-scale ranking
+        over the stored sweep records: which points are network-bound,
+        and the mesh shape where each config flips (store only; exit code
+        1 when no point is stored)."""
+        from repro_torch.net.report import net_rows, render_net_report
+        from repro_torch.sweep.aggregate import latest_per_point, sweep_records
+        recs = latest_per_point(
+            sweep_records(self.workspace.sweep_store, sweep))
+        recs = {k: r for k, r in recs.items()
+                if config is None or r.config == config}
+        rows = net_rows(recs)
+        return RooflineResult(
+            kind="net", name=sweep or "all", machine=self.machine,
+            provenance=self._provenance(store=self.workspace.sweep_path,
+                                        n_points=len(rows)),
+            text=render_net_report(recs, machine=self.machine.name,
+                                   store=self.workspace.tune_store),
+            data=rows,
+            exit_code=0 if rows else 1)
 
 
 def build_phases(config: str, *, phases: Sequence[str], seq: int,

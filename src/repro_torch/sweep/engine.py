@@ -38,13 +38,18 @@ production shardings (``repro_torch.distributed.sharding``) on a mesh of
 that shape over a fake process group of as many ranks, made in the
 worker (``launch.mesh``), and the walk records rank 0's local ops and
 its collectives, split into ``ici`` / ``dcn`` at the machine's cards per
-node.  A measured mesh point needs that many cards and raises without
-them, naming the count; with them it raises too, since a measured
-multi-card point (one process per card) is not ported yet.
+node.  A *measured* mesh point runs on ``data × model`` ranks of a real
+process group (``repro_torch.distributed.ranks``), as the reference's
+runs on forced host devices: gloo ranks on the host's CPU for a CPU
+point, one NCCL rank a card for a CUDA point (which raises, naming the
+count, on a host with fewer cards).  Every rank builds the phases,
+shards them with the same placements, walks and times them; the wall is
+the slowest rank's, and rank 0 returns the payloads.
 
-The reference folds measured interconnect ceilings into the machine
-model and stamps ``meta.net_ceilings``; the port has no network level
-yet (``ROADMAP.md`` queue 1 item 8.2), so both wait for it.
+Every bound is against the machine model with the interconnect ceilings
+``net characterize`` stored under its key folded in
+(``repro_torch.net.characterize.machine_with_net``), and the record's
+``meta.net_ceilings`` names them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -128,42 +133,50 @@ class SweepResult:
 # One point, in this process
 # --------------------------------------------------------------------------
 
-def _build_point(point: SweepPoint, device):
-    """({phase: (fn, args)}, run) of one point: its ``RunConfig`` carries
-    only ``amp`` and ``fusion``, as the reference's (attention runs
-    ``einsum``, the SSD ``xla``); the tensors lie on ``device``
-    (``meta`` for an analytical point)."""
-    from repro_torch.session.session import TRAIN_PHASES, build_phases
-
-    if point.n_devices > 1 and point.measured:
+def _check_cards(point: SweepPoint, device) -> None:
+    """A measured mesh point on CUDA needs a card a rank: raise, naming
+    both counts, on a host with fewer."""
+    if point.n_devices > 1 and point.measured and device.type == "cuda":
         import torch
         have = torch.cuda.device_count()
         if have < point.n_devices:
             raise RuntimeError(
                 f"{point.label}: mesh {point.mesh[0]}x{point.mesh[1]} "
                 f"needs {point.n_devices} cards; this host has {have}")
-        raise NotImplementedError(
-            f"{point.label}: a measured point on {point.n_devices} cards "
-            "runs one process per card, which the port does not have yet "
-            "(ROADMAP.md queue 1 item 8.2)")
+
+
+def _build_point(point: SweepPoint, device, mesh=None):
+    """({phase: (fn, args)}, run) of one point: its ``RunConfig`` carries
+    only ``amp`` and ``fusion``, as the reference's (attention runs
+    ``einsum``, the SSD ``xla``); the tensors lie on ``device``
+    (``meta`` for an analytical point).  A mesh point's arguments are
+    DTensors on ``mesh`` (a real group's mesh, every rank's tensors
+    drawn from the same seed), or meta DTensors on a fake group's when
+    ``mesh`` is None."""
+    from repro_torch.session.session import TRAIN_PHASES, build_phases
+
+    _check_cards(point, device)
     phases, run = build_phases(
         point.config, phases=TRAIN_PHASES, seq=point.seq, batch=point.batch,
         amp=point.amp, fusion=point.fusion, attn_impl="einsum",
         ssd_impl="xla", smoke=point.smoke, n_layers=None, device=device)
     if point.n_devices > 1:
-        phases = _on_mesh(point, phases, run)
+        phases = _on_mesh(point, phases, run, mesh)
     return phases, run
 
 
-def _on_mesh(point: SweepPoint, phases: dict, run) -> dict:
-    """The phases' meta arguments as meta DTensors on a (data, model)
-    mesh of the point's shape (a fake group of as many ranks)."""
+def _on_mesh(point: SweepPoint, phases: dict, run, mesh=None) -> dict:
+    """The phases' arguments as DTensors on a (data, model) mesh of the
+    point's shape: real tensors on ``mesh``, or meta ones on a fake group
+    of as many ranks when ``mesh`` is None."""
     from repro_torch.configs.registry import get_config, get_smoke
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api as M
 
-    mesh = make_mesh(point.mesh, ("data", "model"))
+    place = shd.with_sharding if mesh is None else shd.distribute
+    if mesh is None:
+        mesh = make_mesh(point.mesh, ("data", "model"))
     cfg = get_smoke(point.config) if point.smoke else get_config(point.config)
     pspec = shd.named(shd.param_shardings(M.build(cfg).spec, mesh, run),
                       mesh)
@@ -174,13 +187,12 @@ def _on_mesh(point: SweepPoint, phases: dict, run) -> dict:
             ospec = shd.named(shd.opt_state_shardings(
                 state, shd.param_shardings(M.build(cfg).spec, mesh, run),
                 mesh), mesh)
-            args = (shd.with_sharding(params, pspec),
-                    shd.with_sharding(grads, pspec),
-                    shd.with_sharding(state, ospec))
+            args = (place(params, pspec), place(grads, pspec),
+                    place(state, ospec))
         else:
             params, batch = args
-            args = (shd.with_sharding(params, pspec),
-                    shd.with_sharding(batch, shd.named(
+            args = (place(params, pspec),
+                    place(batch, shd.named(
                         shd.shard_batch_dim(batch, mesh, run), mesh)))
         out[name] = (fn, args)
     return out
@@ -192,12 +204,13 @@ def _matmul_class(run) -> str | None:
     return "bf16" if run.compute_dtype == torch.bfloat16 else None
 
 
-def _resolve_machine(name: str):
+def _resolve_machine(name: str, tune_store: str | None = None):
     """The machine model a point's bounds are against: the registry spec
-    (the reference folds measured interconnect ceilings in; they wait for
-    the port's network level)."""
-    from repro_torch.core.machine import get_machine
-    return get_machine(name)
+    with the interconnect ceilings ``net characterize`` stored under its
+    key in ``tune_store`` (a path; ``None``: the default workspace's)
+    folded in, the datasheet's otherwise."""
+    from repro_torch.net.characterize import machine_with_net
+    return machine_with_net(name, tune_store)
 
 
 def _analytical_payload(res, machine) -> dict[str, Any]:
@@ -214,7 +227,8 @@ def _analytical_payload(res, machine) -> dict[str, Any]:
     return phase_payload(m)
 
 
-def _cache_path(cache_dir: str, point: SweepPoint) -> str:
+def _cache_path(cache_dir: str, point: SweepPoint,
+                tune_store: str | None = None) -> str:
     import torch
 
     from repro_torch.configs.registry import get_config, get_smoke
@@ -222,9 +236,10 @@ def _cache_path(cache_dir: str, point: SweepPoint) -> str:
     # an analytical payload is a function of the point, the resolved
     # config, the machine model and the torch build (a new lowering moves
     # the walk): hash all of them, so an edited config or MachineSpec
-    # misses instead of serving stale bounds
+    # misses instead of serving stale bounds; the model is the resolved
+    # one, so a fresh `net characterize` (new collective bounds) misses
     cfg = get_smoke(point.config) if point.smoke else get_config(point.config)
-    machine = (_resolve_machine(point.machine)
+    machine = (_resolve_machine(point.machine, tune_store)
                if point.machine in MACHINES else None)
     env = json.dumps({
         "config": dataclasses.asdict(cfg),
@@ -236,11 +251,11 @@ def _cache_path(cache_dir: str, point: SweepPoint) -> str:
     return os.path.join(cache_dir, f"{tag}.json")
 
 
-def _cache_load(cache_dir: str | None,
-                point: SweepPoint) -> dict[str, Any] | None:
+def _cache_load(cache_dir: str | None, point: SweepPoint,
+                tune_store: str | None = None) -> dict[str, Any] | None:
     if not cache_dir:
         return None
-    path = _cache_path(cache_dir, point)
+    path = _cache_path(cache_dir, point, tune_store)
     if not os.path.exists(path):
         return None
     try:
@@ -251,11 +266,12 @@ def _cache_load(cache_dir: str | None,
 
 
 def _cache_save(cache_dir: str | None, point: SweepPoint,
-                phases: Mapping[str, Any]) -> None:
+                phases: Mapping[str, Any],
+                tune_store: str | None = None) -> None:
     if not cache_dir:
         return
     os.makedirs(cache_dir, exist_ok=True)
-    path = _cache_path(cache_dir, point)
+    path = _cache_path(cache_dir, point, tune_store)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(dict(phases), f)
@@ -273,11 +289,15 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
     them, its ``meta`` naming the device and, as ``Session.record``
     stamps them, the ``kernel_configs`` and ``dispatch_table`` that the
     tune store ``tune_store`` (a path; ``None``: the default
-    workspace's) held under the point's machine key.
+    workspace's) held under the point's machine key.  A measured mesh
+    point runs on ranks of a real group (:func:`_measure_on_ranks`).
+    Every record's ``meta.net_ceilings`` names the stored interconnect
+    ceilings its bounds are against, when there are any.
     """
     import torch
 
     from repro_torch.core.profiler import profile_fn
+    from repro_torch.net.characterize import net_ceilings
     from repro_torch.trace.store import (record_from_payloads,
                                          record_from_phases)
     from repro_torch.tune.dispatch import dispatch_scope
@@ -285,10 +305,13 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
     mesh_dict = {"data": point.mesh[0], "model": point.mesh[1]}
     meta = {"sweep_point": point.key, "sweep": sweep_name or "adhoc",
             "label": point.label, **point.to_dict()}
-    machine = _resolve_machine(point.machine)
+    nc = net_ceilings(point.machine, tune_store)
+    if nc:
+        meta["net_ceilings"] = nc
+    machine = _resolve_machine(point.machine, tune_store)
 
     if not point.measured:
-        cached = _cache_load(cache_dir, point)
+        cached = _cache_load(cache_dir, point, tune_store)
         if cached is not None:
             return record_from_payloads(
                 point.config, cached, machine=point.machine, mesh=mesh_dict,
@@ -307,7 +330,7 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
         finally:
             from repro_torch.launch.mesh import release_fake_group
             release_fake_group()
-        _cache_save(cache_dir, point, payloads)
+        _cache_save(cache_dir, point, payloads, tune_store)
         return record_from_payloads(
             point.config, payloads, machine=point.machine, mesh=mesh_dict,
             meta={**meta, "cached": False}), False
@@ -318,6 +341,8 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
     from repro_torch.tune.store import active_kernel_configs
 
     dev = resolve_device(device)
+    if point.n_devices > 1:
+        _check_cards(point, dev)
     meta["device"] = device_label(dev)
     # which kernel configs and dispatch winners this measurement runs
     # with: the report side flags points measured with defaults after a
@@ -326,6 +351,14 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
                                                    store=tune_store)
     meta["dispatch_table"] = active_dispatch_table(machine=point.machine,
                                                    store=tune_store)
+    if point.n_devices > 1:
+        payloads = _measure_on_ranks(point, dev, iters=iters, warmup=warmup,
+                                     tune_store=tune_store)
+        meta["ranks"] = {"backend": "nccl" if dev.type == "cuda"
+                         else "gloo", "n": point.n_devices}
+        return record_from_payloads(point.config, payloads,
+                                    machine=point.machine, mesh=mesh_dict,
+                                    meta=meta), False
     with dispatch_scope(store=tune_store, machine=point.machine, device=dev):
         phases, run = _build_point(point, dev)
         ms = {}
@@ -341,6 +374,71 @@ def run_point(point: SweepPoint, *, iters: int = 3, warmup: int = 1,
         torch.cuda.empty_cache()     # the next point starts from a clean pool
     return record_from_phases(point.config, ms, machine=point.machine,
                               mesh=mesh_dict, meta=meta), False
+
+
+#: how long a measured mesh point's ranks may take, seconds
+MESH_POINT_TIMEOUT_S = 900.0
+
+
+def _measure_on_ranks(point: SweepPoint, dev, *, iters: int, warmup: int,
+                      tune_store: str | None) -> dict[str, Any]:
+    """A measured mesh point's phase payloads, from ``point.n_devices``
+    ranks started here: gloo ranks on the host's CPU, or NCCL ranks, one
+    a card (:func:`mesh_point_rank` on each; rank 0's payloads)."""
+    from repro_torch.distributed.ranks import launch
+    return launch("repro_torch.sweep.engine:mesh_point_rank",
+                  {"point": point.to_dict(), "iters": iters,
+                   "warmup": warmup, "tune_store": tune_store},
+                  point.n_devices,
+                  backend="nccl" if dev.type == "cuda" else "gloo",
+                  timeout_s=MESH_POINT_TIMEOUT_S)
+
+
+def mesh_point_rank(rank: int, world: int,
+                    payload: Mapping[str, Any]) -> dict[str, Any]:
+    """One rank of a measured mesh point: the phases built from the
+    seed on this rank's device, sharded on a (data, model) mesh of the
+    group with :func:`_on_mesh`'s placements, each walked and timed
+    (implicit replication on, as the train step has it); a phase's wall
+    is the slowest rank's.  Returns the phase payloads."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.profiler import profile_fn
+    from repro_torch.distributed.sharding import plain_as_replicated
+    from repro_torch.trace.collector import measurement_from_profile
+    from repro_torch.trace.store import phase_payload
+    from repro_torch.tune.dispatch import dispatch_scope
+
+    point = SweepPoint.from_dict(payload["point"])
+    tune_store = payload["tune_store"]
+    dev = (torch.device("cuda", rank) if dist.get_backend() == "nccl"
+           else torch.device("cpu"))
+    mesh = init_device_mesh(dev.type, tuple(point.mesh),
+                            mesh_dim_names=("data", "model"))
+    machine = _resolve_machine(point.machine, tune_store)
+    dpp = min(point.n_devices, machine.cards_per_node or point.n_devices)
+    out = {}
+    with dispatch_scope(store=tune_store, machine=point.machine, device=dev):
+        phases, run = _build_point(point, dev, mesh=mesh)
+        for name, (fn, args) in phases.items():
+            def replicated(*a, _fn=fn):
+                with plain_as_replicated():
+                    return _fn(*a)
+            res = profile_fn(replicated, args=args, name=name,
+                             machine=machine, measure=True,
+                             measure_iters=payload["iters"],
+                             measure_warmup=payload["warmup"],
+                             matmul_class=_matmul_class(run),
+                             devices_per_pod=dpp)
+            wall = torch.tensor([res.wall_s], dtype=torch.float64,
+                                device=dev)
+            dist.all_reduce(wall, op=dist.ReduceOp.MAX)
+            res.wall_s = float(wall)
+            out[name] = phase_payload(measurement_from_profile(res, machine))
+            del res                  # the opt phase's output holds a state
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -136,14 +136,11 @@ def _reference_suites() -> tuple[str, ...]:
 
 
 def test_suites_are_the_ported_ones():
-    """The reference's suites in its order, less the one that stands on
-    the network level (``net_smoke``); the paper's among them: 20 of
-    21."""
-    later = ("net_smoke",)
+    """The reference's suites, all 21, in its order (``net_smoke`` last);
+    the paper's among them."""
     ref = _reference_suites()
-    assert set(later) <= set(ref) and len(ref) == 21
-    assert len(bench_main.SUITES) == 20
-    assert bench_main.SUITES == tuple(s for s in ref if s not in later)
+    assert len(ref) == 21 and ref[-1] == "net_smoke"
+    assert bench_main.SUITES == tuple(ref)
     assert set(REF_ROWS) <= set(bench_main.SUITES)
 
 

@@ -291,5 +291,11 @@ def test_cells_equal_reference():
 
 
 def test_grad_compression_names_its_item():
-    with pytest.raises(NotImplementedError, match="8.3"):
-        p_base.RunConfig(grad_compression=True)
+    """``grad_compression=True`` is accepted, as the reference's is, and
+    read by nothing in either package's step (the scheme is
+    ``repro_torch.distributed.compression``)."""
+    run = p_base.RunConfig(grad_compression=True)
+    ref = r_base.RunConfig(grad_compression=True)
+    assert run.grad_compression and ref.grad_compression
+    assert dataclasses.replace(run, grad_compression=False) == \
+        p_base.RunConfig()

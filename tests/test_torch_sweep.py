@@ -8,8 +8,9 @@
   the other's campaign; analytical points are cached; a measured smoke
   point runs inline on the host, its FLOPs and bytes those of its meta
   walk; an analytical mesh point is walked per device, with its
-  collectives; a measured mesh point on a host without its cards fails
-  with a reason and does not raise.
+  collectives; a measured mesh point on the host runs on gloo ranks, its
+  counts those of its walk, and on CUDA without its cards it fails with
+  a reason and does not raise.
 * ``aggregate``: summary rows, the ranked table, the gallery and the
   tune-provenance flags equal the reference's on one set of stored
   records that both packages read.
@@ -219,13 +220,60 @@ def test_measured_sweep_without_the_card_raises(tmp_path):
                            workers=0)
 
 
-def test_mesh_point_fails_with_its_reason_and_does_not_raise(tmp_path):
+def test_mesh_point_fails_with_its_reason_and_does_not_raise(
+        tmp_path, monkeypatch):
+    """A measured (2, 1) point on CUDA on a host of one card: the point
+    fails naming both counts (``_build_point`` raises it too), the
+    campaign does not raise, and no rank starts."""
+    import torch
+
+    import repro_torch.device
+    import repro_torch.distributed.ranks as ranks
+
+    def no_ranks(*a, **k):
+        raise AssertionError("a rank was started")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(repro_torch.device, "resolve_device",
+                        lambda d: torch.device(d))
+    monkeypatch.setattr(ranks, "launch", no_ranks)
     spec = p_spec.SweepSpec(name="mesh", configs=("glm4-9b",), seqs=(16,),
                             batches=(2,), meshes=((2, 1),), measure=True)
     res = p_engine.run_sweep(spec, store_path=str(tmp_path / "s.jsonl"),
-                             workers=0, retries=0, device="cpu")
+                             workers=0, retries=0, device="cuda")
     assert res.n_failed == 1 and res.results[0].quarantined
-    assert "needs 2 cards; this host has 0" in res.failure_summary()[0]
+    assert "needs 2 cards; this host has 1" in res.failure_summary()[0]
+    point, _ = spec.expand()
+    with pytest.raises(RuntimeError, match="needs 2 cards; this host has 1"):
+        p_engine._build_point(point[0], torch.device("cuda"))
+
+
+def test_measured_mesh_point_runs_on_gloo_ranks(tmp_path):
+    """The same measured (2, 1) point on ``device="cpu"`` lands from 2
+    gloo ranks (the reference measures it on forced host devices): its
+    FLOPs, bytes, launches and collectives per phase those of its
+    analytical walk, its walls measured."""
+    store = str(tmp_path / "s.jsonl")
+    spec = p_spec.SweepSpec(name="mesh", configs=("glm4-9b",), seqs=(16,),
+                            batches=(2,), meshes=((2, 1),), measure=True,
+                            smoke=True, iters=1, warmup=1)
+    res = p_engine.run_sweep(spec, store_path=store, workers=0, retries=0,
+                             device="cpu")
+    assert res.n_failed == 0, res.failure_summary()
+    ana = p_engine.run_sweep(dataclasses.replace(spec, name="ana",
+                                                 measure=False),
+                             store_path=store, workers=0, retries=0)
+    assert ana.n_failed == 0, ana.failure_summary()
+    by = {r.meta["measured"]: r for r in TraceStore(store).records()}
+    rec, twin = by[True], by[False]
+    assert rec.meta["ranks"] == {"backend": "gloo", "n": 2}
+    assert rec.meta["device"] == "cpu" and rec.mesh == {"data": 2,
+                                                        "model": 1}
+    for ph in ("fwd", "bwd", "opt"):
+        assert rec.phases[ph]["wall_s"] > 0
+        for k in ("flops", "hbm_bytes", "vmem_bytes", "launches",
+                  "ici_bytes", "dcn_bytes", "net_bytes"):
+            assert rec.phases[ph][k] == twin.phases[ph][k], (ph, k)
+    assert rec.phases["bwd"]["net_bytes"] > 0       # the grad all-reduce
 
 
 def test_analytical_mesh_point_lands_a_record_with_collectives(tmp_path):
@@ -350,7 +398,7 @@ def test_sweep_cli_exit_codes(tmp_path, capsys):
     assert cli.main(["sweep", "run", "--smoke", "--seq", "8"]) == 2
     assert cli.main(["sweep", "--help"]) == 0
     assert cli.main(run + ["--mesh", "2x1", "--device", "cpu", "--retries",
-                           "0", "--name", "mesh"]) == 1      # no 2 cards
+                           "0", "--name", "mesh"]) == 0      # 2 gloo ranks
     import torch
     if not torch.cuda.is_available():
         assert cli.main(run + ["--name", "m"]) == 2       # no card
