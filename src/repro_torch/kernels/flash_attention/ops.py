@@ -13,7 +13,8 @@ It is one op, ``repro_torch::flash_attention``:
   sees one op and allocates nothing;
 * its backward recomputes :func:`_ref_gqa` on the saved q/k/v and
   differentiates it — what the reference's ``custom_vjp`` does (it has no
-  backward kernel either).
+  backward kernel either); while a profiler runs it runs inside the span
+  ``repro_torch::flash_attention.bwd`` (:mod:`repro_torch.trace.spans`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.fused.ops import _vjp
+from repro_torch.trace.spans import backward_span
 
 
 def _ref_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,7 +65,9 @@ def _flash_bwd(ctx, g):
     return gq, gk, gv, None
 
 
-_flash_op.register_autograd(_flash_bwd, setup_context=_flash_setup)
+_flash_op.register_autograd(
+    backward_span("repro_torch::flash_attention")(_flash_bwd),
+    setup_context=_flash_setup)
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,7 +26,9 @@ Each routed function is one op in the ``repro_torch::`` namespace
   the same (recompute, not store).  The recompute stops short of the
   final cast to the output dtype and takes the cotangent in fp32
   instead: the cast's vjp is exactly that upcast, so the gradients are
-  the same and the backward launches one cast fewer.
+  the same and the backward launches one cast fewer.  While a profiler
+  runs, the backward runs inside the span ``repro_torch::<op>.bwd``
+  (:mod:`repro_torch.trace.spans`).
 
 Also here: :func:`embed_with_onehot_grad`, the embedding gather whose
 backward is one ``onehot(tokens)ᵀ @ g`` matmul instead of a scatter; its
@@ -42,6 +44,7 @@ import torch
 from repro_torch.kernels.fused import adamw as ak
 from repro_torch.kernels.fused import norm as nk
 from repro_torch.kernels.fused import swiglu as sk
+from repro_torch.trace.spans import backward_span
 
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -281,7 +284,9 @@ def _rmsnorm_bwd(ctx, gy):
     return gx, gs, None, None
 
 
-_rmsnorm_op.register_autograd(_rmsnorm_bwd, setup_context=_rmsnorm_setup)
+_rmsnorm_op.register_autograd(
+    backward_span("repro_torch::rmsnorm")(_rmsnorm_bwd),
+    setup_context=_rmsnorm_setup)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
@@ -321,7 +326,8 @@ def _rmsnorm_residual_bwd(ctx, gr, gy):
 
 
 _rmsnorm_residual_op.register_autograd(
-    _rmsnorm_residual_bwd, setup_context=_rmsnorm_residual_setup)
+    backward_span("repro_torch::rmsnorm_residual")(_rmsnorm_residual_bwd),
+    setup_context=_rmsnorm_residual_setup)
 
 
 def rmsnorm_residual(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
@@ -358,8 +364,9 @@ def _layernorm_bwd(ctx, gy):
     return gx, gs, gb, None, None
 
 
-_layernorm_op.register_autograd(_layernorm_bwd,
-                                setup_context=_layernorm_setup)
+_layernorm_op.register_autograd(
+    backward_span("repro_torch::layernorm")(_layernorm_bwd),
+    setup_context=_layernorm_setup)
 
 
 #: the plain layernorm under the reference's name for it
@@ -402,7 +409,9 @@ def _swiglu_bwd(ctx, gy):
     return gg, gu, None, None
 
 
-_swiglu_op.register_autograd(_swiglu_bwd, setup_context=_swiglu_setup)
+_swiglu_op.register_autograd(
+    backward_span("repro_torch::swiglu")(_swiglu_bwd),
+    setup_context=_swiglu_setup)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",

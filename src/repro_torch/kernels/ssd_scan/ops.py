@@ -12,7 +12,8 @@
   tensors sees one op and allocates nothing;
 * its backward recomputes the plain ``ssd_chunked`` on the saved inputs
   and differentiates it — what the reference's ``custom_vjp`` does (it
-  has no backward kernel either).
+  has no backward kernel either); while a profiler runs it runs inside
+  the span ``repro_torch::ssd_scan.bwd`` (:mod:`repro_torch.trace.spans`).
 
 The model passes its chunk explicitly (``min(cfg.ssm_chunk, S)``); the
 reference's tune-store lookup for ``chunk=None`` is not ported, so
@@ -26,6 +27,7 @@ import torch
 from repro_torch.kernels import config as kc
 from repro_torch.kernels.fused.ops import _vjp
 from repro_torch.kernels.ssd_scan import kernel as sk
+from repro_torch.trace.spans import backward_span
 
 
 def _plain(xh, a, B_, C_, chunk: int) -> torch.Tensor:
@@ -56,7 +58,8 @@ def _ssd_bwd(ctx, g):
     return (*grads, None)
 
 
-_ssd_op.register_autograd(_ssd_bwd, setup_context=_ssd_setup)
+_ssd_op.register_autograd(backward_span("repro_torch::ssd_scan")(_ssd_bwd),
+                          setup_context=_ssd_setup)
 
 
 def ssd_scan_model_layout(xh: torch.Tensor, a_log_dt: torch.Tensor,
