@@ -39,7 +39,12 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    test shapes, a single chunk, no decay, an underflowing decay and a
    ragged P and N (``SSD_SHAPES``), and its row states the GFLOP its tiles execute and
    its bound on fp32 FMAs beside the one on 3xTF32 tensor cores, which it
-   runs on.  The shapes paths g and h give the kernels are held and timed
+   runs on.  The flash backward kernel's gradients through the routed op
+   are held at ``ref.bwd_kernel_tolerance`` against the plain fp32 vjp at
+   ``FLASH_BWD_SHAPES`` (the main shape, glm4-9b's cell shape, hd 64,
+   ragged S, Sk != Sq, bf16 and fp16), two injected faults must fail that
+   bound, and the kernel is timed at glm4-9b's cell shape beside the
+   plain recompute it replaces and SDPA's backward.  The shapes paths g and h give the kernels are held and timed
    too (rows of step 3's table, not of the JSON line): the norms at
    widths 2048 (zamba2) and 3072 (minitron), SwiGLU at (4096, 14336)
    (granite; silu, and the gelu route geglu takes), flash at zamba2's 32
@@ -78,7 +83,8 @@ hand-written kernels from ``src/repro_torch/kernels/csrc`` and then:
    c. the same step at ``attn_impl="flash"`` under ``"static"``: its
       phases profiled (fwd matmul FLOPs must equal the analytic count
       less the QK^T and PV products, the flash records' FLOPs the
-      kernel's model, one launch per layer in each fwd pass), 3 steps
+      kernel's model, one launch per layer in each fwd pass, one
+      backward kernel call per layer in each bwd pass), 3 steps
       with a finite loss each, one fwd at ``attn_impl="chunked"`` that
       must route to the kernel, then ``Session.record`` into the
       workspace and ``Session.report``, which must read
@@ -286,6 +292,9 @@ ERT_KERNELS = ("triad", "fma_chain", "ert_gemm")
 FUSED_KERNELS = ("fused_rmsnorm", "fused_rmsnorm_residual", "fused_swiglu",
                  "fused_adamw")
 FLASH_KERNELS = ("flash_attention",)
+#: the flash backward kernel: only the train steps of paths c (its count in
+#: the JSON line) and g to l run it, paths m and o run no backward
+FLASH_BWD_KERNELS = ("flash_attention_bwd",)
 SSD_KERNELS = ("ssd_scan",)
 #: kernels whose main path is path e (the dispatch site's)
 TUNE_KERNELS = ("fused_layernorm",)
@@ -1197,7 +1206,7 @@ def flash_checks(dev, sheet) -> list[dict]:
                      f"{'x'.join(map(str, shape))}"
                      f"{f' sk={sk[0]}' if sk else ''} {str(dt)[6:]} "
                      f"causal={causal}", fk.flash_attention_grouped(
-                         q, k, v, causal=causal), want,
+                         q, k, v, causal=causal)[0], want,
                      ref.kernel_tolerance(want))
         del q, k, v, want
     if fk.route(main[-1], bf16) != "wgmma":
@@ -1212,11 +1221,14 @@ def flash_checks(dev, sheet) -> list[dict]:
                          q, k, v, causal=causal), want,
                      ref.kernel_tolerance(want))
 
-    print("gradient through the routed flash op against the plain route "
-          "(tolerance: 1 ulp of each gradient's dtype at its max — the "
-          "backward recomputes the same plain math)")
-    q, k, v = gqa(1, 512, 2, 4, 128, bf16)
-    gy = randn(q.shape, bf16)
+    print("gradient through the routed flash op at fp32 (its recompute "
+          "route) against the plain route (tolerance: 1 ulp of fp32 at each "
+          "gradient's max — the backward recomputes the same plain math; "
+          "the 16-bit kernel route: flash_bwd_checks)")
+    q, k, v = gqa(1, 512, 2, 4, 128, f32)
+    gy = randn(q.shape, f32)
+    if ops.bwd_route(q) != "recompute":
+        raise AssertionError(f"fp32 flash backward route {ops.bwd_route(q)}")
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1225,8 +1237,8 @@ def flash_checks(dev, sheet) -> list[dict]:
     for i, (a, w) in enumerate(zip(
             grads(ops.flash_attention_gqa),
             grads(lambda a, b, c: ops._ref_gqa(a, b, c, True)))):
-        check(f"grad flash_attention input {i}", a, w,
-              2.0 ** -7 * w.float().abs().max().item())
+        check(f"grad flash_attention fp32 input {i}", a, w,
+              torch.finfo(f32).eps * w.float().abs().max().item())
     del q, k, v, gy
 
     b, s, kv, grp, hd = main
@@ -1234,7 +1246,7 @@ def flash_checks(dev, sheet) -> list[dict]:
     q, k, v = sets[0]
     want = ops._ref_gqa(q, k, v, True)
     err = check_within("flash main shape, timed operands",
-                       fk.flash_attention_grouped(q, k, v), want,
+                       fk.flash_attention_grouped(q, k, v)[0], want,
                        ref.kernel_tolerance(want))
     del want
 
@@ -1285,8 +1297,8 @@ def flash_checks(dev, sheet) -> list[dict]:
         want = ops._ref_gqa(q, k, v, True)
         err = check_within(f"flash[{fk.route(hd, bf16)}] {who} "
                            f"{'x'.join(map(str, shape))} bf16 causal",
-                           fk.flash_attention_grouped(q, k, v), want,
-                           ref.kernel_tolerance(want))
+                           fk.flash_attention_grouped(q, k, v)[0],
+                           want, ref.kernel_tolerance(want))
         del want, q, k, v
         flop = fk.flops(b * kv * grp, s_, s_, hd)
         r = shape_row(
@@ -1303,6 +1315,198 @@ def flash_checks(dev, sheet) -> list[dict]:
         del sets
     torch.cuda.empty_cache()
     return rows
+
+
+#: the flash backward kernel's gradient checks, (q shape (B, S, KV heads,
+#: G, hd), dtype, causal, Sk when not S): the main path's shape and
+#: glm4-9b's cell's, hd 64, ragged S, Sk != Sq both ways, the smallest hd
+FLASH_BWD_SHAPES = (
+    ((2, 2048, 2, 16, 128), "bfloat16", True),
+    ((2, 2048, 2, 16, 128), "float16", True),
+    ((1, 4096, 2, 16, 128), "bfloat16", True),
+    ((2, 1024, 2, 4, 64), "bfloat16", True),
+    ((2, 1024, 2, 4, 64), "float16", True),
+    ((1, 1000, 2, 3, 128), "bfloat16", True),
+    ((2, 300, 2, 3, 64), "float16", True),
+    ((1, 300, 1, 2, 72), "bfloat16", False),
+    ((2, 300, 2, 3, 128), "bfloat16", True, 700),
+    ((1, 700, 1, 2, 128), "float16", False, 300),
+    ((1, 77, 2, 2, 8), "bfloat16", True),
+)
+
+
+def flash_bwd_grads(q, k, v, dout, causal):
+    """(the gradients through the routed flash op, the plain fp32 vjp of
+    ``ops._ref_gqa``) of q, k, v against ``dout``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+    return (grads(lambda a, b, c: ops.flash_attention_gqa(a, b, c,
+                                                          causal=causal)),
+            grads(lambda a, b, c: ops._ref_gqa(a, b, c, causal)))
+
+
+def within(got, want, tol) -> float:
+    """The largest |got - want| over its elementwise bound ``tol``."""
+    return ((got.float() - want.float()).abs() / tol).max().item()
+
+
+def flash_bwd_checks(dev, sheet, shapes=FLASH_BWD_SHAPES,
+                     time_it: bool = True) -> list[dict]:
+    """Phase 3 for the flash backward kernel: the gradients through the
+    routed op (the forward kernel's lse, then the backward kernel) against
+    the plain fp32 vjp of ``ops._ref_gqa`` at ``ref.bwd_kernel_tolerance``
+    for each of ``shapes``; two injected faults the bound must catch; and
+    the kernel timed at glm4-9b's cell shape beside its bound, the plain
+    recompute it replaces and SDPA's backward (a yardstick only)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ert import ops as ert_ops
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def inputs(shape, dtype, sk=None):
+        b, s_, kv, grp, hd = shape
+        sk = sk or s_
+        return (randn(shape, dtype), randn((b, sk, kv, hd), dtype),
+                randn((b, sk, kv, hd), dtype), randn(shape, dtype))
+
+    print("flash_attention_bwd: (tolerance, elementwise, "
+          "ref.bwd_kernel_tolerance: with s the dtype's relative spacing "
+          "(2^-7 bf16, 2^-10 fp16) and t its subnormal spacing, a value x "
+          "rounded to the input dtype moves by r(x) = s|x| + t; dV within "
+          "r(dV) + r(P)^T|dO| (P rounded for P^T dO), dK and dQ within "
+          "r(dK) + scale M^T|Q| and r(dQ) + scale M|K|, M = r(dS) + s P E, "
+          "E = rowsum(|dO||O|) (dS rounded for its products; D read from "
+          "the rounded output) — against the plain fp32 vjp)")
+    for shape, dt, causal, *sk in shapes:
+        dtype = getattr(torch, dt)
+        q, k, v, do = inputs(shape, dtype, *sk)
+        if ops.bwd_route(q) != "kernel":
+            raise AssertionError(f"{shape} {dt} takes the "
+                                 f"{ops.bwd_route(q)} backward route")
+        before = fk.BWD_LAUNCHES
+        got, want = flash_bwd_grads(q, k, v, do, causal)
+        if fk.BWD_LAUNCHES != before + 1:
+            raise AssertionError("the gradient did not go through the "
+                                 "backward kernel once")
+        tols = ref.bwd_kernel_tolerance(q, k, v, do, want, causal)
+        label = (f"{'x'.join(map(str, shape))}"
+                 f"{f' sk={sk[0]}' if sk else ''} {dt} causal={causal}")
+        for name, a, w, t in zip(("dq", "dk", "dv"), got, want, tols):
+            check_within(f"flash bwd {name} {label}", a, w, t)
+        if (shape, dt) == FLASH_BWD_SHAPES[0][:2]:
+            # faults the bound must catch: dK of KV head 0's last key tile
+            # zeroed; dQ of query head 0 replaced by its neighbour's
+            dk_bad = got[1].clone()
+            dk_bad[:, -128:, 0] = 0
+            dq_bad = got[0].clone()
+            dq_bad[:, :, 0, 0] = got[0][:, :, 0, 1]
+            for name, bad, w, t in (("dK last key tile zeroed", dk_bad,
+                                     want[1], tols[1]),
+                                    ("dQ head 0 = head 1", dq_bad, want[0],
+                                     tols[0])):
+                worst = within(bad, w, t)
+                print(f"  fault {name:<36} max err/tol {worst:.3f}  "
+                      f"{'caught' if worst > 1 else 'MISSED'}")
+                if not worst > 1:
+                    raise AssertionError(f"the flash backward bound missed "
+                                         f"the fault: {name}")
+            del dk_bad, dq_bad
+        del q, k, v, do, got, want, tols
+        torch.cuda.empty_cache()
+    if not time_it:
+        return []
+
+    shape = (1, 4096, 2, 16, 128)
+    b, s_, kv, grp, hd = shape
+    bf16 = torch.bfloat16
+
+    def make():
+        q, k, v, do = inputs(shape, bf16)
+        o, lse = torch.ops.repro_torch.flash_attention(q, k, v, True)
+        return q, k, v, o, lse, do
+
+    sets, nxt = rotating(make, k=2)
+    q, k, v, o, lse, do = sets[0]
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ops._ref_gqa(*leaves, True), leaves, do)
+    tols = ref.bwd_kernel_tolerance(q, k, v, do, want, True)
+    err = max(check_within(f"flash bwd {name} timed operands", a, w, t)
+              for name, a, w, t in zip(("dq", "dk", "dv"), got, want, tols))
+    del got, want, tols, leaves
+    torch.cuda.empty_cache()
+
+    def plain():
+        # the backward this kernel replaces: the plain recompute,
+        # differentiated
+        q_, k_, v_, _, _, do_ = nxt()
+        return ops._vjp(lambda a, b_, c: ops._ref_gqa(a, b_, c, True),
+                        (q_, k_, v_), (do_,))
+
+    # SDPA's backward in its own (B, H, S, hd) layout, K/V repeated to the
+    # 32 query heads beforehand (its flash backend takes no GQA), the
+    # forward outside the timing: a yardstick only, never called by the
+    # port
+    sd = []
+    for q_, k_, v_, _, _, do_ in sets:
+        qh = q_.flatten(2, 3).transpose(1, 2).contiguous().requires_grad_()
+        kh = k_.repeat_interleave(grp, 2).transpose(1, 2).contiguous() \
+            .requires_grad_()
+        vh = v_.repeat_interleave(grp, 2).transpose(1, 2).contiguous() \
+            .requires_grad_()
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        sd.append((out, (qh, kh, vh), do_.flatten(2, 3).transpose(1, 2)))
+    sd_it = itertools.cycle(sd)
+
+    def library():
+        out, leaves_, dout = next(sd_it)
+        return torch.autograd.grad(out, leaves_, dout, retain_graph=True)
+
+    flop = fk.bwd_flops(b * kv * grp, s_, s_, hd)
+    # q, o, dO read and dq written (B, S, H, hd); k, v read and dk, dv
+    # written (B, S, KV, hd); lse read: each once
+    nbytes = 2.0 * (4 * b * s_ * kv * grp * hd + 4 * b * s_ * kv * hd) \
+        + 4.0 * b * kv * grp * s_
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash.cu",
+        "replaces": "none (the reference's custom_vjp recomputes the plain "
+                    "math)",
+        "shape": "bf16 q (1, 4096, 2, 16, 128), k/v (1, 4096, 2, 128), "
+                 "causal (glm4-9b.train-4k's attention)",
+        "config": {"launches": 4, "dq_keys": 64, "dkdv_keys": 128,
+                   "dkdv_queries": 64},
+        "max_abs_err": err,
+        "ms": graph_ms(lambda: fk.flash_attention_bwd(*nxt()), calls=10),
+        # eagerly, between CUDA events: a graph cannot hold an autograd
+        # backward
+        "eager_ms": 1e3 * ert_ops.time_launches(
+            lambda: fk.flash_attention_bwd(*nxt()), dev, iters=10),
+        "plain_ms": 1e3 * ert_ops.time_launches(plain, dev, iters=3,
+                                                warmup=1),
+        "library_ms": 1e3 * ert_ops.time_launches(library, dev, iters=10),
+        **bound(nbytes, flop, "bf16", sheet)}
+    row["extra"] = (f"4 launches, {flop / row['ms'] / 1e9:.1f} TFLOP/s of "
+                    f"the 5 products, {100 * row['bound_ms'] / row['ms']:.1f}"
+                    f"% of bound, {row['ms'] / row['library_ms']:.3f}x SDPA's "
+                    f"backward, {row['plain_ms'] / row['ms']:.1f}x faster "
+                    f"than the plain recompute")
+    del sets, sd, q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return [row]
 
 
 #: the SSD kernel's checks, ((B, H, S, P, N, chunk), a_kind): the main
@@ -1668,13 +1872,20 @@ def attention_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
         raise AssertionError("flash fwd loss is not finite")
     print(prof.render(charts=0, top_kernels=8))
     # one launch per layer in each fwd pass: the fwd and bwd phases each
-    # ran warmup + iters forward passes (the backward launches nothing)
+    # ran warmup + iters forward passes; and one backward kernel call per
+    # layer in each bwd pass (none on a plain route)
     per_profile = 2 * (warmup + iters) * layers
     got = kernels.launch_counts()["flash_attention"]
+    got_bwd = kernels.launch_counts()["flash_attention_bwd"]
     print(f"  flash launches in the profile: {got} (expected {per_profile}"
-          f" = 2 phases x {warmup + iters} calls x {layers} layers)")
+          f" = 2 phases x {warmup + iters} calls x {layers} layers); "
+          f"backward kernel calls {got_bwd} (expected "
+          f"{(warmup + iters) * layers})")
     if cuda and got != per_profile:
         raise AssertionError(f"flash launches {got} != {per_profile}")
+    if cuda and got_bwd != (warmup + iters) * layers:
+        raise AssertionError(f"flash backward kernel calls {got_bwd} != "
+                             f"{(warmup + iters) * layers}")
     del prof
     if cuda:
         torch.cuda.empty_cache()
@@ -1733,9 +1944,9 @@ def attention_path(cfg, sheet, *, device: str = "cuda", layers: int = 4,
         raise AssertionError("report did not read back the recorded run")
     counts = kernels.launch_counts()
     print(f"launches on main path c: {json.dumps(counts)}")
-    if cuda and counts["flash_attention"] <= 0:
-        raise AssertionError("flash_attention was not launched on main "
-                             "path c")
+    for name in FLASH_KERNELS + FLASH_BWD_KERNELS:
+        if cuda and counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on main path c")
     if cuda:
         torch.cuda.empty_cache()
     return counts, walls
@@ -2896,8 +3107,8 @@ def serving_checks(dev, sheet) -> list[dict]:
         want = fops._ref_gqa(q, k, v, True)
         err = check_within(f"flash[{fk.route(hd, bf16)}] prefill chunk "
                            f"{'x'.join(map(str, shape))} bf16 causal ({who})",
-                           fk.flash_attention_grouped(q, k, v), want,
-                           fref.kernel_tolerance(want))
+                           fk.flash_attention_grouped(q, k, v)[0],
+                           want, fref.kernel_tolerance(want))
         flop = fk.flops(b * kv * grp, s, s, hd)
         r = shape_row(
             "flash_attention", f"bf16 q {shape}, causal (the prefill chunk, "
@@ -5682,6 +5893,7 @@ def main() -> int:
     rows += fused_checks(dev, sheet)
     rows += layernorm_checks(dev, sheet)
     rows += flash_checks(dev, sheet)
+    rows += flash_bwd_checks(dev, sheet)
     rows += ssd_checks(dev, sheet)
     rows += serving_checks(dev, sheet)
     rows += micro_table(dev, sheet)
@@ -5917,11 +6129,12 @@ def main() -> int:
 
     # 6. results -------------------------------------------------------------
     out = []
+    flash = FLASH_KERNELS + FLASH_BWD_KERNELS
     for r in rows:
         if r.get("at_shape"):
             continue             # a new path's shape: step 3's table only
         launches = (counts if r["name"] in ERT_KERNELS else
-                    counts_c if r["name"] in FLASH_KERNELS else
+                    counts_c if r["name"] in flash else
                     counts_d if r["name"] in SSD_KERNELS else
                     counts_e if r["name"] in TUNE_KERNELS else counts_b)
         out.append({k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels (port of ``repro.kernels``).
 
 Each kernel module keeps a plain-int counter (``LAUNCHES``; the norm
-module two more, ``RESIDUAL_LAUNCHES`` and ``LAYERNORM_LAUNCHES``) that its
-wrapper bumps once per launch of the CUDA kernel (never for the plain CPU
-path).
+module two more, ``RESIDUAL_LAUNCHES`` and ``LAYERNORM_LAUNCHES``, the
+flash module ``BWD_LAUNCHES``, one per call of its backward kernel) that
+its wrapper bumps once per launch of the CUDA kernel (never for the plain
+CPU path).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ def _counters() -> dict:
             "fused_swiglu": (swiglu, "LAUNCHES"),
             "fused_adamw": (adamw, "LAUNCHES"),
             "flash_attention": (flash, "LAUNCHES"),
+            "flash_attention_bwd": (flash, "BWD_LAUNCHES"),
             "ssd_scan": (ssd, "LAUNCHES")}
 
 

@@ -72,9 +72,16 @@ _SIGNATURES = {
         "fused_error_string": (_I,),
     },
     "flash": {
-        # q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, dtype, stream
-        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _P),
+        # q, k, v, o, lse (or None), B, Sq, Sk, H, KV, hd, causal, scale,
+        # dtype, stream
+        "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _I, _P),
+        # B, Sq, Sk, H, KV, hd
+        "flash_bwd_scratch": (_I, _I, _I, _I, _I, _I),
+        # q, k, v, o, lse, dout, dq, dk, dv, scratch, B, Sq, Sk, H, KV, hd,
+        # causal, scale, dtype, stream
+        "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "flash_tile": (_I,),
         # hd, dtype
         "flash_route": (_I, _I),
@@ -89,7 +96,8 @@ _SIGNATURES = {
         "ssd_error_string": (_I,),
     },
 }
-_RESTYPES = {"ert_error_string": ctypes.c_char_p,
+_RESTYPES = {"flash_bwd_scratch": ctypes.c_longlong,
+             "ert_error_string": ctypes.c_char_p,
              "fused_error_string": ctypes.c_char_p,
              "flash_error_string": ctypes.c_char_p,
              "ssd_error_string": ctypes.c_char_p}
@@ -159,9 +167,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest(name)}.so"
 
 
-#: per library, a pattern of the entry functions whose own registers and
-#: spills the build report prints beside the summary
-DETAIL = {"ert": "gemm_wgmma", "flash": "flash_fwd_wgmma", "ssd": "ssd_"}
+#: per library, a pattern (a regular expression) of the entry functions
+#: whose own registers and spills the build report prints beside the
+#: summary
+DETAIL = {"ert": "gemm_wgmma", "flash": "flash_fwd_wgmma|flash_bwd_d", "ssd": "ssd_"}
 
 
 def ptxas_summary(report: str, detail: str | None = None) -> str:
@@ -185,7 +194,7 @@ def ptxas_summary(report: str, detail: str | None = None) -> str:
                                    report, re.S):
             used = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores", body)
-            if detail in fn and used:
+            if re.search(detail, fn) and used:
                 line += (f"\n  {fn}: {used.group(1)} registers/thread, "
                          f"{spill.group(1) if spill else 0} B spilled")
     for w in sorted(set(re.findall(r"ptxas[^\n]*warning[^\n]*", report))):

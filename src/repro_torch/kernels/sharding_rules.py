@@ -11,9 +11,9 @@ independent along that dim, and always allows the all-replicated case:
   the normalised dim and its scale (and bias) whole;
 * ``swiglu`` (rows, d_ff): rows, or columns (elementwise: the ffn shard
   of tensor parallelism stays where it is);
-* ``flash_attention`` (q (B, S, K, G, hd), k / v (B, Sk, K, hd)): batch,
-  KV heads (q's K with k and v), or query groups (q's G, k and v
-  whole); sequence and head_dim whole.  The models' GQA attention on a
+* ``flash_attention`` (q (B, S, K, G, hd), k / v (B, Sk, K, hd); out
+  like q and lse (B, K, G, S)): batch, KV heads (q's K with k and v), or
+  query groups (q's G, k and v whole); sequence and head_dim whole.  The models' GQA attention on a
   mesh runs the kernel on local heads itself (``layers._LocalHeads``),
   because a heads shard that splits the (K, G) grouping is no DTensor
   placement; the rule serves direct calls;
@@ -72,9 +72,11 @@ def register() -> None:
 
     @register_sharding(ops.flash_attention.default)
     def _flash(q, k, v, causal):
-        S2, S3 = Shard(2), Shard(3)
-        return [([S0], [S0, S0, S0, None]), ([S2], [S2, S2, S2, None]),
-                ([S3], [S3, R, R, None]), ([R], [R, R, R, None])]
+        # outputs: o like q, lse (B, K, G, S)
+        S1, S2, S3 = Shard(1), Shard(2), Shard(3)
+        return [([S0, S0], [S0, S0, S0, None]),
+                ([S2, S1], [S2, S2, S2, None]),
+                ([S3, S2], [S3, R, R, None]), ([R, R], [R, R, R, None])]
 
     @register_sharding(ops.ssd_scan.default)
     def _ssd(xh, a, B_, C_, chunk):

@@ -382,7 +382,7 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     assert set(counts) == {"triad", "fma_chain", "ert_gemm", "fused_rmsnorm",
                            "fused_rmsnorm_residual", "fused_layernorm",
                            "fused_swiglu", "fused_adamw", "flash_attention",
-                           "ssd_scan"}
+                           "flash_attention_bwd", "ssd_scan"}
     assert all(c == 0 for c in counts.values())
 
 

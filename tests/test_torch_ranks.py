@@ -261,8 +261,12 @@ _DRIVER = textwrap.dedent('''
             for i, (t, pl) in enumerate(zip(tens, pls)):
                 dargs[i] = put(t, pl)
             got = op(*dargs)
-            rules[name] = {"err": float((got.full_tensor() - want).abs().max()),
-                           "placement": repr(got.placements[0])}
+            # flash attention returns (o, lse): both held, o's placement
+            wants = want if isinstance(want, tuple) else (want,)
+            gots = got if isinstance(got, tuple) else (got,)
+            rules[name] = {"err": max(float((g_.full_tensor() - w).abs().max())
+                                      for g_, w in zip(gots, wants)),
+                           "placement": repr(gots[0].placements[0])}
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump({
